@@ -1,0 +1,232 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernel from ``pydca_tpu_torch/csrc`` with nvcc,
+checks it against its plain PyTorch version on the card, drives the
+``plmdca compute_fn --apc`` main path at PF02826 width (N = 16384,
+L = 195, q = 21) and compares a CPU and a GPU run of the same RNA-shaped
+family.  One line per phase; the next-to-last line is the kernel record
+(JSON), the last line the device record (JSON).  Exits non-zero, with no
+result, when there is no card or any phase fails.  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from pydca_tpu_torch import alphabets
+from pydca_tpu_torch.cli import plmdca_main
+from pydca_tpu_torch.device import set_precision
+from pydca_tpu_torch.ops import _build
+from pydca_tpu_torch.ops import cuda_kernels as ck
+from pydca_tpu_torch.synthetic import (
+    PLANTED_MIN_SHARE, PLANTED_TOP, planted_family, planted_recovery,
+    spearman, top_k_overlap, write_family_fasta,
+)
+
+REPLACES = "pydca_tpu/ops/pallas_kernels.py:79"  # def identity_counts
+SOURCE = "pydca_tpu_torch/csrc/identity_counts.cu"
+MAIN_SHAPE = (16384, 195, 21)  # PF02826 width at the depth of a deep family
+RNA_SHAPE = (2704, 102, 5)  # RF00167 shape
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def edge_family(dev):
+    """L = 100 rows sharing exactly 57 positions with a base row: at seqid
+    0.57 the float32 threshold (57.0) rejects them, float64 (56.99..) not."""
+    rng = np.random.default_rng(5)
+    l, q = 100, 5
+    base = rng.integers(0, q, size=l)
+    rows = [base]
+    for _ in range(300):
+        row = base.copy()
+        flip = rng.choice(l, size=43, replace=False)
+        row[flip] = (row[flip] + rng.integers(1, q, size=43)) % q
+        rows.append(row)
+    codes = np.stack(rows)
+    ident = (codes[:, None, :] == codes[None, :, :]).sum(-1)
+    check(not np.array_equal((ident > np.float32(0.57 * l)).sum(1),
+                             (ident > 0.57 * l).sum(1)),
+          "edge family does not separate the float32 and float64 thresholds")
+    return torch.tensor(codes.astype(np.int8), device=dev), l, q
+
+
+def phase_kernel(dev):
+    """Kernel vs plain version: exact equality at every shape; times."""
+    cases = []
+    for name, (n, l, q) in (("rf00167", RNA_SHAPE), ("pf02826_deep", MAIN_SHAPE),
+                            ("ragged", (1000, 97, 21))):
+        codes, _ = planted_family(n, l, q, seed=n)
+        cases.append((name, torch.tensor(codes, device=dev), 0.8 * l, q, None))
+    codes, l, q = edge_family(dev)
+    cases.append(("f32_edge", codes, 0.57 * l, q, None))
+    rng = np.random.default_rng(9)
+    rna = cases[0][1]
+    valid = torch.tensor(rng.random(rna.shape[0]) > 0.3, device=dev)
+    cases.append(("valid_mask", rna, 0.8 * rna.shape[1], 5, valid))
+
+    max_err, timing = 0, {}
+    for name, codes, thr, q, valid in cases:
+        got = ck.identity_counts(codes, thr, q, valid=valid)
+        want = ck.identity_counts_reference(codes, thr, q, valid=valid)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"kernel != plain on {name}")
+        err = int((got - want).abs().max())
+        max_err = max(max_err, err)
+        big = codes.shape[0] >= 10000
+        ms = cuda_ms(lambda: ck.identity_counts(codes, thr, q, valid=valid), 5 if big else 20)
+        plain_ms = cuda_ms(
+            lambda: ck.identity_counts_reference(codes, thr, q, valid=valid), 3 if big else 10
+        )
+        timing[name] = (ms, plain_ms)
+        n, l = codes.shape
+        print(f"phase 2 kernel {name} N={n} L={l} q={q} valid={valid is not None}: "
+              f"equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    return max_err, timing
+
+
+def read_scores(path):
+    header, scores = [], []
+    with open(path) as fh:
+        for line in fh:
+            if line.startswith("#"):
+                header.append(line)
+            else:
+                i, j, s = line.split()
+                scores.append(((int(i) - 1, int(j) - 1), float(s)))
+    return header, scores
+
+
+def run_cli(biomolecule, fa, out_dir, device):
+    inst = plmdca_main.run_plm_dca([
+        "compute_fn", biomolecule, fa,
+        "--apc", "--max_iterations", "100", "--device", device,
+        "--output_dir", out_dir,
+    ])
+    stem = os.path.splitext(os.path.basename(fa))[0]
+    return inst, read_scores(os.path.join(out_dir, f"PLMDCA_apc_fn_scores_{stem}.txt"))
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; no card, no result",
+              file=sys.stderr)
+        return 1
+
+    dev = torch.device("cuda")
+    set_precision()
+
+    # ---- phase 1: card and build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    fresh = not _build.library_path("identity_counts").exists()
+    t0 = time.perf_counter()
+    _build.load("identity_counts")
+    build_s = time.perf_counter() - t0
+    print(f"phase 1 torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}; nvcc build {build_s:.2f} s"
+          f"{'' if fresh else ' (library already built)'}", flush=True)
+
+    # ---- phase 2: kernel vs plain version on the card
+    max_err, timing = phase_kernel(dev)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- phase 3: main path at PF02826 width
+        n, l, q = MAIN_SHAPE
+        codes, pairs = planted_family(n, l, q, seed=0, n_pairs=20)
+        fa = os.path.join(tmp, "planted_protein.fa")
+        write_family_fasta(fa, codes, alphabets.PROTEIN)
+        torch.cuda.reset_peak_memory_stats()
+        ck.identity_counts.launches = 0
+        inst, (header, scores) = run_cli("protein", fa, os.path.join(tmp, "main"), "cuda")
+        launches = ck.identity_counts.launches
+        check(launches > 0, "main path never launched the identity_counts kernel")
+        res, timers = inst.fit_result, inst.timers
+        check(len(header) > 0, "output has no # header")
+        check(len(scores) == l * (l - 1) // 2,
+              f"{len(scores)} score lines, expected {l * (l - 1) // 2}")
+        vals = np.array([s for _, s in scores])
+        check(bool(np.isfinite(vals).all()), "non-finite scores")
+        check(bool((np.diff(vals) <= 0).all()), "scores not in descending order")
+        share = planted_recovery(scores, pairs, PLANTED_TOP)
+        check(share >= PLANTED_MIN_SHARE,
+              f"planted pairs in top {PLANTED_TOP}: {share:.2f} < {PLANTED_MIN_SHARE}")
+        fit_s = timers.elapsed("fit")
+        print(f"phase 3 main path N={inst.num_sequences} L={l} q={q}: "
+              f"{len(scores)} pairs, planted recovery {share:.2f} (top {PLANTED_TOP}); "
+              f"iterations {res.num_iters} converged {res.converged} "
+              f"linesearch_failed {res.linesearch_failed} n_evals {res.n_evals}; "
+              f"weights {timers.elapsed('weights'):.3f} s fit {fit_s:.3f} s "
+              f"score {timers.elapsed('score'):.3f} s; "
+              f"{1e3 * fit_s / max(res.num_iters, 1):.2f} ms/iter; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+              f"host syncs/iter {res.host_syncs / max(res.num_iters, 1):.2f}; "
+              f"kernel launches {launches}", flush=True)
+
+        # ---- phase 4: the same RNA-shaped family on the CPU and on the card
+        n, l, q = RNA_SHAPE
+        codes, _ = planted_family(n, l, q, seed=1, n_pairs=20)
+        fa = os.path.join(tmp, "planted_rna.fa")
+        write_family_fasta(fa, codes, alphabets.RNA)
+        runs = {}
+        for device in ("cpu", "cuda"):
+            t0 = time.perf_counter()
+            inst, (_, sc) = run_cli("rna", fa, os.path.join(tmp, device), device)
+            runs[device] = (inst, sc, time.perf_counter() - t0)
+        w_cpu = runs["cpu"][0].compute_seqs_weight()
+        w_gpu = runs["cuda"][0].compute_seqs_weight().cpu()
+        check(torch.equal(w_cpu, w_gpu), "CPU and GPU weights differ")
+        rho = spearman(runs["cpu"][1], runs["cuda"][1], l)
+        top = top_k_overlap(runs["cpu"][1], runs["cuda"][1], 20)
+        check(rho >= 0.98 and top >= 0.9,
+              f"CPU vs GPU ranking: spearman {rho:.4f}, top-20 overlap {top:.2f}")
+        print(f"phase 4 cpu vs cuda N={runs['cpu'][0].num_sequences} L={l} q={q}: "
+              f"weights equal; spearman {rho:.4f} top-20 overlap {top:.2f}; "
+              f"iterations cpu {runs['cpu'][0].fit_result.num_iters} "
+              f"cuda {runs['cuda'][0].fit_result.num_iters}; wall cpu "
+              f"{runs['cpu'][2]:.2f} s cuda {runs['cuda'][2]:.2f} s", flush=True)
+
+    ms, plain_ms = timing["pf02826_deep"]
+    print(json.dumps({"kernels": [{
+        "name": "identity_counts", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
+        "ms": ms, "plain_ms": plain_ms,
+    }]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,7 +3,9 @@
 Console scripts mirror the reference's entry points (``setup.py:67-73`` of
 KIT-MBS/pydca): ``mfdca``, ``plmdca``, ``pydca``.  The optional native FASTA
 codec extension builds lazily at runtime (see pydca_tpu/native), so no
-compiler is required at install time.
+compiler is required at install time.  ``pydca_tpu_torch`` is the
+PyTorch/CUDA port (needs ``torch``); its CUDA sources under ``csrc/`` build
+with nvcc at first use on a card.
 """
 
 from setuptools import find_packages, setup
@@ -12,7 +14,11 @@ setup(
     name="pydca_tpu",
     version="0.1.0",
     description="TPU-native Direct Coupling Analysis (mfDCA + plmDCA) on JAX",
-    packages=find_packages(include=["pydca_tpu", "pydca_tpu.*"]),
+    packages=find_packages(
+        include=["pydca_tpu", "pydca_tpu.*", "pydca_tpu_torch", "pydca_tpu_torch.*"]
+    ),
+    # the port's CUDA sources compile with nvcc at first use
+    package_data={"pydca_tpu_torch": ["csrc/*.cu"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
     entry_points={

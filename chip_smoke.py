@@ -2,13 +2,21 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from ``pydca_tpu_torch/csrc`` with nvcc,
-checks it against its plain PyTorch version on the card, drives the
-``plmdca compute_fn --apc`` main path at PF02826 width (N = 16384,
-L = 195, q = 21) and compares a CPU and a GPU run of the same RNA-shaped
-family.  One line per phase; the next-to-last line is the kernel record
-(JSON), the last line the device record (JSON).  Exits non-zero, with no
-result, when there is no card or any phase fails.  Imports nothing of JAX.
+Builds the port's CUDA kernels from ``pydca_tpu_torch/csrc`` with nvcc
+(one process per source, in parallel) and, for each of the two paths:
+
+- plmDCA: checks ``identity_counts`` against its plain PyTorch version on
+  the card (phase 2), drives ``plmdca compute_fn --apc`` at PF02826 width
+  (N = 16384, L = 195, q = 21; phase 3) and compares a CPU and a GPU run of
+  the same RNA-shaped family (phase 4);
+- mean-field: checks ``weighted_gram`` against its plain version (phase
+  5), drives ``mfdca compute_fn --apc`` at protein scale (N = 4096,
+  L = 1000, q = 21; phase 6) and compares a CPU and a GPU run of a
+  PF02826-width family (phase 7).
+
+One line per phase; the next-to-last line is the kernel record (JSON), the
+last line the device record (JSON).  Exits non-zero, with no result, when
+there is no card or any phase fails.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -19,12 +27,13 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from pydca_tpu_torch import alphabets
-from pydca_tpu_torch.cli import plmdca_main
+from pydca_tpu_torch.cli import mfdca_main, plmdca_main
 from pydca_tpu_torch.device import set_precision
 from pydca_tpu_torch.ops import _build
 from pydca_tpu_torch.ops import cuda_kernels as ck
@@ -33,10 +42,16 @@ from pydca_tpu_torch.synthetic import (
     spearman, top_k_overlap, write_family_fasta,
 )
 
-REPLACES = "pydca_tpu/ops/pallas_kernels.py:79"  # def identity_counts
-SOURCE = "pydca_tpu_torch/csrc/identity_counts.cu"
+KERNELS = ("identity_counts", "weighted_gram")
+REPLACES = {  # the TPU kernel each one replaces (its def line)
+    "identity_counts": "pydca_tpu/ops/pallas_kernels.py:79",
+    "weighted_gram": "pydca_tpu/ops/pallas_kernels.py:176",
+}
 MAIN_SHAPE = (16384, 195, 21)  # PF02826 width at the depth of a deep family
 RNA_SHAPE = (2704, 102, 5)  # RF00167 shape
+PF_SHAPE = (2030, 195, 21)  # PF02826 shape
+MF_SHAPE = (4096, 1000, 21)  # the JAX package's protein-scale mean-field shape
+GRAM_RTOL, GRAM_ATOL = 1e-5, 1e-6  # on the Meff-normalised Gram
 
 
 def check(cond: bool, msg: str) -> None:
@@ -111,6 +126,113 @@ def phase_kernel(dev):
     return max_err, timing
 
 
+def reset_launches() -> None:
+    for name in KERNELS:
+        getattr(ck, name).launches = 0
+
+
+def phase_gram(dev):
+    """weighted_gram kernel vs plain version: the same zero pattern, the
+    rest within GRAM_RTOL/GRAM_ATOL of the Meff-normalised Gram; times."""
+    cases = [("rf00167", RNA_SHAPE, torch.float32), ("pf02826", PF_SHAPE, torch.float32),
+             ("ragged", (1000, 97, 21), torch.float32), ("protein", MF_SHAPE, torch.float32),
+             ("f64", (300, 61, 21), torch.float64)]
+    max_err, timing = 0.0, {}
+    for name, (n, l, q), dtype in cases:
+        codes = torch.tensor(planted_family(n, l, q, seed=n + l, n_pairs=0)[0], device=dev)
+        rng = np.random.default_rng(n)
+        w = torch.tensor(rng.uniform(0.05, 1.0, n), dtype=dtype, device=dev)
+        got = ck.weighted_gram(codes, w, q)
+        want = ck.weighted_gram_reference(codes, w, q)
+        torch.cuda.synchronize()
+        check(torch.equal(got == 0, want == 0), f"weighted_gram zero pattern differs on {name}")
+        meff = w.sum()
+        err = (got.div_(meff) - want.div_(meff)).abs_()
+        bad = int((err > GRAM_ATOL + GRAM_RTOL * want.abs()).sum())
+        case_err = float(err.max())
+        max_err = max(max_err, case_err)
+        del got, want, err
+        check(bad == 0, f"weighted_gram differs from plain on {name}: {bad} elements")
+        big = n * l >= 10**6
+        ms = cuda_ms(lambda: ck.weighted_gram(codes, w, q), 5 if big else 20)
+        plain_ms = cuda_ms(lambda: ck.weighted_gram_reference(codes, w, q), 3 if big else 10)
+        timing[name] = (ms, plain_ms)
+        torch.cuda.empty_cache()
+        print(f"phase 5 weighted_gram {name} N={n} L={l} q={q} {str(dtype)[6:]}: zeros equal, "
+              f"max abs err {case_err:.3e} (rtol {GRAM_RTOL}, atol {GRAM_ATOL}), "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+    return max_err, timing
+
+
+def run_mf_cli(biomolecule, fa, out_dir, device):
+    inst = mfdca_main.run_meanfield_dca([
+        "compute_fn", biomolecule, fa, "--apc", "--device", device, "--output_dir", out_dir,
+    ])
+    stem = os.path.splitext(os.path.basename(fa))[0]
+    return inst, read_scores(os.path.join(out_dir, f"MFDCA_apc_fn_scores_{stem}.txt"))
+
+
+def phase_meanfield(tmp):
+    """``mfdca compute_fn --apc`` at protein scale through both kernels."""
+    n, l, q = MF_SHAPE
+    codes, pairs = planted_family(n, l, q, seed=2, n_pairs=20)
+    fa = os.path.join(tmp, "planted_mf.fa")
+    write_family_fasta(fa, codes, alphabets.PROTEIN)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    inst, (header, scores) = run_mf_cli("protein", fa, os.path.join(tmp, "mf"), "cuda")
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(ck, k).launches for k in KERNELS}
+    for k, v in launches.items():
+        check(v > 0, f"the mean-field path never launched the {k} kernel")
+    check(len(header) > 0, "output has no # header")
+    p = l * (l - 1) // 2
+    check(len(scores) == p, f"{len(scores)} score lines, expected {p}")
+    vals = np.array([s for _, s in scores])
+    check(bool(np.isfinite(vals).all()), "non-finite scores")
+    check(bool((np.diff(vals) <= 0).all()), "scores not in descending order")
+    share = planted_recovery(scores, pairs, PLANTED_TOP)
+    check(share >= PLANTED_MIN_SHARE,
+          f"planted pairs in top {PLANTED_TOP}: {share:.2f} < {PLANTED_MIN_SHARE}")
+    stages = " ".join(f"{s} {inst.timers.elapsed(s):.3f} s"
+                      for s in ("weights", "gram", "corr", "inverse", "score"))
+    print(f"phase 6 mean-field path N={inst.num_sequences} L={l} q={q}: {len(scores)} pairs, "
+          f"planted recovery {share:.2f} (top {PLANTED_TOP}); {stages}; CLI wall {wall:.3f} s; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"LU fallback {inst.lu_fallback}; kernel launches {launches}", flush=True)
+    return launches["weighted_gram"]
+
+
+def phase_meanfield_cpu_vs_cuda(tmp):
+    """The same PF02826-width family through the mean-field CLI on both devices."""
+    n, l, q = PF_SHAPE
+    codes, _ = planted_family(n, l, q, seed=3, n_pairs=20)
+    fa = os.path.join(tmp, "planted_pf.fa")
+    write_family_fasta(fa, codes, alphabets.PROTEIN)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        inst, (_, sc) = run_mf_cli("protein", fa, os.path.join(tmp, f"mf_{device}"), device)
+        runs[device] = (inst, sc, time.perf_counter() - t0)
+    w_cpu = runs["cpu"][0].get_sequences_weight()
+    w_gpu = runs["cuda"][0].get_sequences_weight().cpu()
+    check(torch.equal(w_cpu, w_gpu), "CPU and GPU weights differ")
+    a, b = (dict(runs[d][1]) for d in ("cpu", "cuda"))
+    # relative to the largest score: FN-APC values cross zero
+    diff = max(abs(a[k] - b[k]) for k in a)
+    rel = diff / max(abs(v) for v in a.values())
+    rho = spearman(runs["cpu"][1], runs["cuda"][1], l)
+    top = top_k_overlap(runs["cpu"][1], runs["cuda"][1], 20)
+    check(rho >= 0.98 and top >= 0.9,
+          f"CPU vs GPU mean-field ranking: spearman {rho:.4f}, top-20 overlap {top:.2f}")
+    print(f"phase 7 mean-field cpu vs cuda N={runs['cpu'][0].num_sequences} L={l} q={q}: "
+          f"weights equal; spearman {rho:.4f} top-20 overlap {top:.2f}; largest FN-APC "
+          f"difference {diff:.3e}, relative to the largest score {rel:.3e}; "
+          f"wall cpu {runs['cpu'][2]:.2f} s cuda {runs['cuda'][2]:.2f} s", flush=True)
+
+
 def read_scores(path):
     header, scores = [], []
     with open(path) as fh:
@@ -148,13 +270,15 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    fresh = not _build.library_path("identity_counts").exists()
+    fresh = [k for k in KERNELS if not _build.library_path(k).exists()]
     t0 = time.perf_counter()
-    _build.load("identity_counts")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source
+        for fut in [pool.submit(_build.load, k) for k in KERNELS]:
+            fut.result()
     build_s = time.perf_counter() - t0
     print(f"phase 1 torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)}; nvcc build {build_s:.2f} s"
-          f"{'' if fresh else ' (library already built)'}", flush=True)
+          f"device {torch.cuda.get_device_name(0)}; nvcc build of {len(fresh)} "
+          f"of {len(KERNELS)} kernels in parallel {build_s:.2f} s", flush=True)
 
     # ---- phase 2: kernel vs plain version on the card
     max_err, timing = phase_kernel(dev)
@@ -166,7 +290,7 @@ def main() -> int:
         fa = os.path.join(tmp, "planted_protein.fa")
         write_family_fasta(fa, codes, alphabets.PROTEIN)
         torch.cuda.reset_peak_memory_stats()
-        ck.identity_counts.launches = 0
+        reset_launches()
         inst, (header, scores) = run_cli("protein", fa, os.path.join(tmp, "main"), "cuda")
         launches = ck.identity_counts.launches
         check(launches > 0, "main path never launched the identity_counts kernel")
@@ -215,12 +339,22 @@ def main() -> int:
               f"cuda {runs['cuda'][0].fit_result.num_iters}; wall cpu "
               f"{runs['cpu'][2]:.2f} s cuda {runs['cuda'][2]:.2f} s", flush=True)
 
-    ms, plain_ms = timing["pf02826_deep"]
-    print(json.dumps({"kernels": [{
-        "name": "identity_counts", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": ms, "plain_ms": plain_ms,
-    }]}), flush=True)
+        # ---- phases 5-7: the mean-field path
+        gram_err, gram_timing = phase_gram(dev)
+        mf_launches = phase_meanfield(tmp)
+        phase_meanfield_cpu_vs_cuda(tmp)
+
+    records = []
+    for name, (ms, plain_ms), n_launch, err in (
+        ("identity_counts", timing["pf02826_deep"], launches, max_err),
+        ("weighted_gram", gram_timing["protein"], mf_launches, gram_err),
+    ):
+        records.append({
+            "name": name, "route": "cuda", "source": f"pydca_tpu_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": n_launch, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms,
+        })
+    print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,4 +1,4 @@
-"""Output utilities: ranked-score writer and the plmDCA header block.
+"""Output utilities: ranked-score writer and the mfDCA / plmDCA header blocks.
 
 Port of the ``compute_fn`` part of ``pydca_tpu/io/output.py``, which
 replicates the reference's output formats exactly
@@ -17,6 +17,7 @@ logger = logging.getLogger(__name__)
 __all__ = [
     "create_directories",
     "get_dca_output_file_path",
+    "mfdca_param_metadata",
     "plmdca_param_metadata",
     "write_sorted_dca_scores",
 ]
@@ -35,6 +36,24 @@ def get_dca_output_file_path(
     """Build ``output_dir/<prefix><msa-stem><postfix>`` (``dca_utilities.py:29-56``)."""
     root, _ = os.path.splitext(os.path.basename(msa_file_name))
     return os.path.join(output_dir, prefix.strip() + root.strip() + postfix.strip())
+
+
+def mfdca_param_metadata(inst) -> List[str]:
+    """Header block for mfDCA outputs (``dca_utilities.py:109-137``): six
+    spaces of indentation, not a tab, and an Meff line."""
+    return [
+        "# PARAMETERS USED FOR THIS COMPUTATION: ",
+        "#      Sequence type: {}".format(inst.biomolecule),
+        "#      Total number of sequences in alignment data: {}".format(
+            inst.num_sequences
+        ),
+        "#      Length of sequences in alignment data: {}".format(inst.sequences_len),
+        "#      Effective number of sequences: {}".format(
+            inst.effective_num_sequences
+        ),
+        "#      Value of sequence identity: {}".format(inst.sequence_identity),
+        "#      Value of relative pseudocount: {}".format(inst.pseudocount),
+    ]
 
 
 def plmdca_param_metadata(inst) -> List[str]:

@@ -4,6 +4,10 @@
   sequence reweighting; replaces the TPU kernel
   ``pydca_tpu/ops/pallas_kernels.py::identity_counts``.  The kernel is
   ``csrc/identity_counts.cu`` (see its header for the design).
+- :func:`weighted_gram` — the weighted one-hot co-occurrence matrix
+  ``X^T diag(w) X`` behind the mean-field frequencies and correlation
+  matrix; replaces ``pydca_tpu/ops/pallas_kernels.py::weighted_gram``.  The
+  kernel is ``csrc/weighted_gram.cu``.
 
 A wrapper takes the plain version only because its tensor lies on the CPU;
 for a CUDA tensor it launches the kernel or raises.  Each wrapper counts
@@ -21,7 +25,12 @@ import torch
 
 from . import _build
 
-__all__ = ["identity_counts", "identity_counts_reference"]
+__all__ = [
+    "identity_counts",
+    "identity_counts_reference",
+    "weighted_gram",
+    "weighted_gram_reference",
+]
 
 _INT_DTYPES = (torch.int8, torch.uint8, torch.int16, torch.int32, torch.int64)
 
@@ -149,4 +158,73 @@ def _identity_counts_lib() -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.identity_counts_max_rows.argtypes = []
     lib.identity_counts_max_rows.restype = ctypes.c_int
+    return lib
+
+
+def weighted_gram_reference(
+    codes: torch.Tensor, weights: torch.Tensor, q: int
+) -> torch.Tensor:
+    """Plain version: ``x.T @ (x * w[:, None])`` on the one-hot ``x`` in the
+    weights' dtype; (K, K) with K = L*q, unnormalised.  Products are ``w``
+    or 0 exactly; :func:`~pydca_tpu_torch.device.set_precision` keeps TF32
+    off, so the sums run in full float32 (or float64)."""
+    n, l = codes.shape
+    x = torch.nn.functional.one_hot(codes.long(), q).to(weights.dtype)
+    x = x.reshape(n, l * q)
+    return x.T @ (x * weights[:, None])
+
+
+def weighted_gram(codes: torch.Tensor, weights: torch.Tensor, q: int) -> torch.Tensor:
+    """``G[(i,a),(j,b)] = sum_n w_n [codes[n,i] == a] [codes[n,j] == b]``.
+
+    ``codes``: (N, L) integer alignment with states in [0, q); ``weights``:
+    (N,) float32 or float64 on the same device.  Returns the (L*q, L*q)
+    Gram in the weights' dtype, unnormalised like the TPU kernel
+    (``pallas_kernels.py:176``); the caller divides by Meff.
+
+    On a CPU tensor this is :func:`weighted_gram_reference`; on a CUDA
+    tensor it launches ``csrc/weighted_gram.cu`` (float32 or float64) or
+    raises.
+    """
+    _check_codes(codes, q)
+    n, l = codes.shape
+    if weights.shape != (n,) or weights.device != codes.device:
+        raise ValueError(
+            f"weights must be ({n},) on {codes.device}, got "
+            f"{tuple(weights.shape)} on {weights.device}"
+        )
+    if weights.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"weights must be float32 or float64, got {weights.dtype}")
+    if codes.device.type == "cpu":
+        return weighted_gram_reference(codes, weights, q)
+    if codes.device.type != "cuda":
+        raise ValueError(f"unsupported device {codes.device}")
+
+    k = l * q
+    out = torch.empty((k, k), dtype=weights.dtype, device=codes.device)
+    lib = _weighted_gram_lib()
+    launch = lib.weighted_gram_f32 if weights.dtype == torch.float32 else lib.weighted_gram_f64
+    # the range check above makes this cast lossless; done once per call
+    c8 = codes.to(torch.int8).contiguous()
+    w = weights.contiguous()
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        err = launch(c8.data_ptr(), w.data_ptr(), out.data_ptr(), n, l, q, stream)
+    if err != 0:
+        raise RuntimeError(f"weighted_gram launch failed: CUDA error {err}")
+    weighted_gram.launches += 1
+    return out
+
+
+weighted_gram.launches = 0
+
+
+def _weighted_gram_lib() -> ctypes.CDLL:
+    lib = _build.load("weighted_gram")
+    for fn in (lib.weighted_gram_f32, lib.weighted_gram_f64):
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
     return lib

@@ -1,8 +1,10 @@
-"""MSA statistics for the plmDCA main path, in PyTorch.
+"""MSA statistics for the plmDCA and mean-field paths, in PyTorch.
 
-Port of the plmDCA half of ``pydca_tpu/stats.py``: sequence weights from
-all-pairs identity counts (the hand-written CUDA kernel on a card),
-weighted single-site frequencies and the pair-index helpers.
+Port of ``pydca_tpu/stats.py``: sequence weights from all-pairs identity
+counts and the weighted one-hot Gram matrix (each a hand-written CUDA
+kernel on a card), single-site and pair-site frequencies, pseudocount
+regularisation, the mean-field correlation matrix and the pair-index
+helpers.
 """
 
 from __future__ import annotations
@@ -12,11 +14,17 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .ops import cuda_kernels
 from .ops.cuda_kernels import identity_counts
 
 __all__ = [
     "sequence_weights",
     "single_site_freqs",
+    "weighted_gram",
+    "pair_site_freqs",
+    "regularize_fi",
+    "regularize_fij",
+    "corr_mat_from_gram",
     "pair_index",
     "pair_index_matrix",
 ]
@@ -66,6 +74,75 @@ def single_site_freqs(
     x = torch.nn.functional.one_hot(msa.long(), q).to(weights.dtype)
     fi = (weights @ x.reshape(n, l * q)).reshape(l, q)
     return fi / weights.sum()
+
+
+def weighted_gram(msa: torch.Tensor, weights: torch.Tensor, q: int) -> torch.Tensor:
+    """Weighted co-occurrence Gram matrix ``F`` of shape ``(L*q, L*q)``.
+
+    ``F[(i,a),(j,b)] = sum_n w_n [s_ni == a][s_nj == b] / Meff``.  Its
+    block diagonal holds ``fi`` (``F[(i,a),(i,a)] = fi[i,a]``) and every
+    ``i != j`` block is the pair table ``fij``
+    (``pydca_tpu/stats.py:213-235``).  On a CUDA tensor the sums come from
+    the CUDA kernel ``csrc/weighted_gram.cu``; the division by Meff is in
+    place.
+    """
+    return cuda_kernels.weighted_gram(msa, weights, q).div_(weights.sum())
+
+
+def pair_site_freqs(
+    msa: torch.Tensor, weights: torch.Tensor, q: int, *, include_gap: bool = False
+) -> torch.Tensor:
+    """Pair-site frequencies ``fij`` of shape ``(P, q', q')`` in pair order
+    (0,1), (0,2), ..., (L-2,L-1); ``q' = q-1`` (gap excluded, the mean-field
+    convention) or ``q`` with ``include_gap=True``."""
+    l = msa.shape[1]
+    f = weighted_gram(msa, weights, q).reshape(l, q, l, q)
+    qe = q if include_gap else q - 1
+    iu, ju = np.triu_indices(l, k=1)
+    return f[:, :qe, :, :qe].permute(0, 2, 1, 3)[iu, ju]
+
+
+def regularize_fi(fi, q: int, pseudocount: float):
+    """``f <- theta/q + (1-theta) f``  (``msa_numerics.py:92-125``)."""
+    return pseudocount / q + (1.0 - pseudocount) * fi
+
+
+def regularize_fij(fij, q: int, pseudocount: float):
+    """``f <- theta/q^2 + (1-theta) f``  (``msa_numerics.py:231-267``)."""
+    return pseudocount / (q * q) + (1.0 - pseudocount) * fij
+
+
+def corr_mat_from_gram(
+    gram: torch.Tensor,
+    fi_reg: torch.Tensor,
+    pseudocount: float,
+    l: int,
+    q: int,
+) -> torch.Tensor:
+    """Mean-field correlation matrix ``C`` of shape ``(L*(q-1), L*(q-1))``.
+
+    Off-diagonal blocks ``C[(i,a),(j,b)] = fij_reg(i,j,a,b) - fi_reg(i,a)
+    fi_reg(j,b)``; diagonal blocks ``fi_reg(i,a) (delta_ab - fi_reg(i,b))``
+    (``pydca_tpu/stats.py:284-315``).  ``gram`` is the raw Gram matrix of
+    :func:`weighted_gram`; the gap state (``q-1``, last) of every site is
+    dropped.  ``C`` has the Gram's dtype.
+
+    Built in place: one (D, D) allocation receives the gap-free copy of the
+    Gram, and the regularisation, the zeroed diagonal blocks, ``diag(fr)``
+    and the rank-1 term ``- fr fr'`` are applied to it where it lies, where
+    the JAX form materialises ``diag(fr)`` and several more (D, D)
+    temporaries.
+    """
+    qm1 = q - 1
+    d = l * qm1
+    c = torch.empty((d, d), dtype=gram.dtype, device=gram.device)
+    c4 = c.view(l, qm1, l, qm1)
+    c4.copy_(gram.reshape(l, q, l, q)[:, :qm1, :, :qm1])
+    c.mul_(1.0 - pseudocount).add_(pseudocount / (q * q))
+    c4.diagonal(dim1=0, dim2=2).zero_()  # the (i, i) blocks
+    fr = fi_reg[:, :qm1].reshape(-1).to(gram.dtype)
+    c.diagonal().add_(fr)
+    return c.addr_(fr, fr, alpha=-1)
 
 
 def pair_index(i, j, l: int):

@@ -5,8 +5,9 @@ Dirichlet profiles (with a gap share), descendants by point mutation, so
 the 0.8-identity reweighting has clusters to act on.  Then disjoint site
 pairs ``(i, j)`` with ``|i - j| > 4`` are planted: in each sequence, with
 probability ``couple_prob``, ``s_j`` is set to ``pi_ij(s_i)`` for a fixed
-random permutation ``pi_ij`` of the q states.  A plmDCA fit should rank
-the planted pairs near the top of its FN-APC list.
+random permutation ``pi_ij`` of the q states.  A plmDCA fit or a
+mean-field run should rank the planted pairs near the top of its FN-APC
+list.
 """
 
 from __future__ import annotations
@@ -30,7 +31,9 @@ __all__ = [
 
 # A fit passes when at least PLANTED_MIN_SHARE of the planted pairs are
 # among the top PLANTED_TOP FN-APC pairs.  Calibrated against the JAX
-# package on CPU (tests/test_torch_cli.py::test_planted_pairs_recovered).
+# package on CPU, for plmDCA and for mean-field DCA
+# (test_planted_pairs_recovered in tests/test_torch_cli.py and
+# tests/test_torch_cli_mfdca.py).
 PLANTED_TOP = 40
 PLANTED_MIN_SHARE = 0.9
 

@@ -130,6 +130,7 @@ def test_output_writers_byte_identical(tmp_path):
     class Inst:
         biomolecule, num_sequences, sequences_len = "RNA", 123, 45
         sequence_identity, lambda_h, lambda_J, max_iterations = 0.8, 8.8, 8.8, 100
+        effective_num_sequences, pseudocount = 97.25, 0.5
 
     scores = [((0, 5), 0.53125), ((2, 3), 1e-7), ((1, 4), -0.25)]
     files = []
@@ -139,14 +140,17 @@ def test_output_writers_byte_identical(tmp_path):
         path = mod.get_dca_output_file_path(str(d), "/x/MSA_fam.fa", prefix="P_", postfix=".txt")
         mod.write_sorted_dca_scores(path, scores, metadata=mod.plmdca_param_metadata(Inst), score_type="FN")
         files.append(open(path, "rb").read())
+        mod.write_sorted_dca_scores(path, scores, metadata=mod.mfdca_param_metadata(Inst), score_type="FN")
+        files.append(open(path, "rb").read())
         assert os.path.basename(path) == "P_MSA_fam.txt"
-    assert files[0] == files[1]
+    assert files[0] == files[2] and files[1] == files[3]
 
 
 def test_port_never_imports_jax():
     code = (
         "import sys, pydca_tpu_torch, pydca_tpu_torch.cli.plmdca_main, "
-        "pydca_tpu_torch.synthetic\n"
+        "pydca_tpu_torch.cli.mfdca_main, pydca_tpu_torch.meanfield, "
+        "pydca_tpu_torch.ops.linalg, pydca_tpu_torch.synthetic\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'pydca_tpu.')) or m == 'pydca_tpu')\n"
         "assert not bad, bad\n"
     )

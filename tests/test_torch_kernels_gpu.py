@@ -2,9 +2,10 @@
 
 Marked ``gpu``: each test skips without a CUDA card (a CUDA kernel has no
 CPU mode; the CPU tests hold the plain versions against the JAX package).
-Imports only torch and the port, so it runs where JAX is not installed:
+Imports only torch and the port, so it runs where JAX is not installed
+(``--noconftest`` skips ``tests/conftest.py``, which imports JAX):
 
-    python -m pytest tests/test_torch_kernels_gpu.py -m gpu
+    python -m pytest tests/test_torch_kernels_gpu.py -m gpu --noconftest
 """
 
 import numpy as np
@@ -12,14 +13,17 @@ import pytest
 import torch
 
 from pydca_tpu_torch import stats
+from pydca_tpu_torch.device import set_precision
+from pydca_tpu_torch.meanfield import MeanFieldDCA
 from pydca_tpu_torch.ops import cuda_kernels as ck
-from pydca_tpu_torch.synthetic import planted_family
+from pydca_tpu_torch.synthetic import planted_family, spearman, top_k_overlap
 
 
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    set_precision()
     return torch.device("cuda")
 
 
@@ -50,3 +54,50 @@ def test_out_of_range_codes_raise_on_card(cuda):
     codes = torch.full((8, 5), 5, dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError):
         ck.identity_counts(codes, 4.0, 5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "n,l,q,dtype",
+    [
+        (1, 3, 5, torch.float32),
+        (130, 26, 5, torch.float32),  # K = 130: one full tile and a ragged one
+        (1000, 97, 21, torch.float32),
+        (2704, 102, 5, torch.float32),
+        (300, 61, 21, torch.float64),
+    ],
+)
+def test_weighted_gram_kernel_equals_plain(cuda, n, l, q, dtype):
+    codes = torch.tensor(planted_family(n, l, q, seed=n, n_pairs=0)[0], device=cuda)
+    w = torch.tensor(np.random.default_rng(n).uniform(0.05, 1.0, n), dtype=dtype, device=cuda)
+    before = ck.weighted_gram.launches
+    got = ck.weighted_gram(codes, w, q)
+    want = ck.weighted_gram_reference(codes, w, q)
+    torch.cuda.synchronize()
+    assert ck.weighted_gram.launches == before + 1
+    assert got.dtype == dtype and got.shape == (l * q, l * q)
+    # sums of non-negative terms: zero exactly where there are no terms
+    assert torch.equal(got == 0, want == 0)
+    assert torch.equal(got, got.T)
+    meff = w.sum()
+    rtol, atol = (1e-5, 1e-6) if dtype == torch.float32 else (1e-12, 1e-15)
+    torch.testing.assert_close(got / meff, want / meff, rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+def test_weighted_gram_out_of_range_codes_raise_on_card(cuda):
+    codes = torch.full((8, 5), 5, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        ck.weighted_gram(codes, torch.ones(8, device=cuda), 5)
+
+
+@pytest.mark.gpu
+def test_meanfield_cuda_equals_cpu(cuda):
+    codes = planted_family(1500, 80, 21, seed=4, n_pairs=8)[0]
+    runs = {}
+    for device in ("cpu", "cuda"):
+        inst = MeanFieldDCA(codes, "protein", device=device)
+        runs[device] = (inst.get_sequences_weight().cpu(), inst.compute_sorted_FN_APC())
+    assert torch.equal(runs["cpu"][0], runs["cuda"][0])
+    assert spearman(runs["cpu"][1], runs["cuda"][1], 80) >= 0.98
+    assert top_k_overlap(runs["cpu"][1], runs["cuda"][1], 20) >= 0.9

@@ -51,7 +51,10 @@ MAIN_SHAPE = (16384, 195, 21)  # PF02826 width at the depth of a deep family
 RNA_SHAPE = (2704, 102, 5)  # RF00167 shape
 PF_SHAPE = (2030, 195, 21)  # PF02826 shape
 MF_SHAPE = (4096, 1000, 21)  # the JAX package's protein-scale mean-field shape
-GRAM_RTOL, GRAM_ATOL = 1e-5, 1e-6  # on the Meff-normalised Gram
+GRAM_TOL = {  # (rtol, atol) on the Meff-normalised Gram
+    torch.float32: (1e-5, 1e-6),
+    torch.float64: (1e-12, 1e-15),
+}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -133,7 +136,7 @@ def reset_launches() -> None:
 
 def phase_gram(dev):
     """weighted_gram kernel vs plain version: the same zero pattern, the
-    rest within GRAM_RTOL/GRAM_ATOL of the Meff-normalised Gram; times."""
+    rest within GRAM_TOL[dtype] of the Meff-normalised Gram; times."""
     cases = [("rf00167", RNA_SHAPE, torch.float32), ("pf02826", PF_SHAPE, torch.float32),
              ("ragged", (1000, 97, 21), torch.float32), ("protein", MF_SHAPE, torch.float32),
              ("f64", (300, 61, 21), torch.float64)]
@@ -147,8 +150,9 @@ def phase_gram(dev):
         torch.cuda.synchronize()
         check(torch.equal(got == 0, want == 0), f"weighted_gram zero pattern differs on {name}")
         meff = w.sum()
+        rtol, atol = GRAM_TOL[dtype]
         err = (got.div_(meff) - want.div_(meff)).abs_()
-        bad = int((err > GRAM_ATOL + GRAM_RTOL * want.abs()).sum())
+        bad = int((err > atol + rtol * want.abs()).sum())
         case_err = float(err.max())
         max_err = max(max_err, case_err)
         del got, want, err
@@ -159,7 +163,7 @@ def phase_gram(dev):
         timing[name] = (ms, plain_ms)
         torch.cuda.empty_cache()
         print(f"phase 5 weighted_gram {name} N={n} L={l} q={q} {str(dtype)[6:]}: zeros equal, "
-              f"max abs err {case_err:.3e} (rtol {GRAM_RTOL}, atol {GRAM_ATOL}), "
+              f"max abs err {case_err:.3e} (rtol {rtol}, atol {atol}), "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
     return max_err, timing
 
@@ -187,6 +191,13 @@ def phase_meanfield(tmp):
     launches = {k: getattr(ck, k).launches for k in KERNELS}
     for k, v in launches.items():
         check(v > 0, f"the mean-field path never launched the {k} kernel")
+    # the path's weights (identity_counts at this shape) against the plain counts
+    plain_counts = ck.identity_counts_reference(
+        torch.from_numpy(inst.msa.data).cuda(), float(np.float32(inst.sequence_identity * l)), q
+    )
+    check(torch.equal(inst.get_sequences_weight(), 1.0 / plain_counts.to(torch.float32)),
+          "mean-field weights differ from the plain identity counts' weights")
+    del plain_counts
     check(len(header) > 0, "output has no # header")
     p = l * (l - 1) // 2
     check(len(scores) == p, f"{len(scores)} score lines, expected {p}")
@@ -198,7 +209,8 @@ def phase_meanfield(tmp):
           f"planted pairs in top {PLANTED_TOP}: {share:.2f} < {PLANTED_MIN_SHARE}")
     stages = " ".join(f"{s} {inst.timers.elapsed(s):.3f} s"
                       for s in ("weights", "gram", "corr", "inverse", "score"))
-    print(f"phase 6 mean-field path N={inst.num_sequences} L={l} q={q}: {len(scores)} pairs, "
+    print(f"phase 6 mean-field path N={inst.num_sequences} L={l} q={q}: weights equal to "
+          f"plain identity counts'; {len(scores)} pairs, "
           f"planted recovery {share:.2f} (top {PLANTED_TOP}); {stages}; CLI wall {wall:.3f} s; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"LU fallback {inst.lu_fallback}; kernel launches {launches}", flush=True)

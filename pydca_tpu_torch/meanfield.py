@@ -212,10 +212,7 @@ class MeanFieldDCA:
 
     def get_pair_site_freqs(self) -> torch.Tensor:
         """Raw ``fij`` of shape (P, q-1, q-1) (gap excluded, mf convention)."""
-        l, q = self.msa.seqs_len, self.msa.q
-        f4 = self._get_gram().reshape(l, q, l, q)[:, : q - 1, :, : q - 1]
-        iu, ju = np.triu_indices(l, k=1)
-        return f4.permute(0, 2, 1, 3)[iu, ju]
+        return stats.pair_freqs_from_gram(self._get_gram(), self.msa.seqs_len, self.msa.q)
 
     def get_reg_pair_site_freqs(self) -> torch.Tensor:
         return stats.regularize_fij(
@@ -269,8 +266,10 @@ class MeanFieldDCA:
         package's ``_mf_fused_pipeline`` (``pydca_tpu/meanfield.py:82-104``)
         in order, each a timed stage, then one device-to-host fetch.
 
-        The Gram is freed once C is built and C once it is inverted: at
-        L = 1000, q = 21 each is 1.6-1.8 GB in float32.
+        The Gram is freed once C is built (at L = 1000, q = 21 each is
+        1.6-1.8 GB in float32).  C lives until the SPD flag is read, so the
+        LU fallback inverts it without a second Gram; the inverse and the
+        score stages each hold three such matrices at most.
         """
         l, q, pc = self.msa.seqs_len, self.msa.q, self.__pseudocount
         w = self.get_sequences_weight()
@@ -284,24 +283,19 @@ class MeanFieldDCA:
             del gram
             sync(self.device)
         with timers.stage("inverse"):
-            inv, info = linalg.spd_inverse(c)
-            del c
-            couplings = inv.neg_()
+            couplings, ok = self._cholesky_couplings(c)
             sync(self.device)
         with timers.stage("score"):
             fn_raw = score_mod.frobenius_norms_from_matrix(couplings, l, q - 1)
             fn_apc = score_mod.apc(fn_raw, l)
-            ok = (info == 0) & torch.isfinite(couplings[0, 0])
             # ONE device-to-host transfer: the SPD flag and the FN vectors
             host = torch.cat([ok.to(fn_raw.dtype).reshape(1), fn_raw, fn_apc]).cpu().numpy()
         p = fn_raw.shape[0]
         if not host[0]:
-            logger.warning(_FALLBACK_WARNING)
             self.lu_fallback = True
             del couplings
             with timers.stage("inverse"):
-                c = self.construct_corr_mat()
-                self.__couplings = -torch.linalg.inv_ex(c)[0]
+                self.__couplings = self._lu_couplings(c)
                 sync(self.device)
             self.__fn_raw = None
             self.__fn_apc = None
@@ -311,14 +305,22 @@ class MeanFieldDCA:
         self.__fn_apc = host[1 + p :]
 
     @staticmethod
-    def _inverse_with_fallback(c: torch.Tensor) -> torch.Tensor:
+    def _cholesky_couplings(c: torch.Tensor):
+        """``(-C^{-1}, ok)`` by Cholesky; ``ok`` is a 0-d bool tensor on the
+        device, true when the factorisation succeeded and the result is finite."""
         inv, info = linalg.spd_inverse(c)
         couplings = inv.neg_()
-        ok = bool(((info == 0) & torch.isfinite(couplings[0, 0])).item())
-        if not ok:
-            logger.warning(_FALLBACK_WARNING)
-            couplings = -torch.linalg.inv_ex(c)[0]
-        return couplings
+        return couplings, (info == 0) & torch.isfinite(couplings[0, 0])
+
+    @staticmethod
+    def _lu_couplings(c: torch.Tensor) -> torch.Tensor:
+        logger.warning(_FALLBACK_WARNING)
+        return -torch.linalg.inv_ex(c)[0]
+
+    @classmethod
+    def _inverse_with_fallback(cls, c: torch.Tensor) -> torch.Tensor:
+        couplings, ok = cls._cholesky_couplings(c)
+        return couplings if bool(ok.item()) else cls._lu_couplings(c)
 
     # ----------------------------------------------------------------- scores
     def _fn_scores(self):

@@ -22,6 +22,7 @@ __all__ = [
     "single_site_freqs",
     "weighted_gram",
     "pair_site_freqs",
+    "pair_freqs_from_gram",
     "regularize_fi",
     "regularize_fij",
     "corr_mat_from_gram",
@@ -89,17 +90,17 @@ def weighted_gram(msa: torch.Tensor, weights: torch.Tensor, q: int) -> torch.Ten
     return cuda_kernels.weighted_gram(msa, weights, q).div_(weights.sum())
 
 
-def pair_site_freqs(
-    msa: torch.Tensor, weights: torch.Tensor, q: int, *, include_gap: bool = False
-) -> torch.Tensor:
-    """Pair-site frequencies ``fij`` of shape ``(P, q', q')`` in pair order
-    (0,1), (0,2), ..., (L-2,L-1); ``q' = q-1`` (gap excluded, the mean-field
-    convention) or ``q`` with ``include_gap=True``."""
-    l = msa.shape[1]
-    f = weighted_gram(msa, weights, q).reshape(l, q, l, q)
-    qe = q if include_gap else q - 1
+def pair_site_freqs(msa: torch.Tensor, weights: torch.Tensor, q: int) -> torch.Tensor:
+    """Pair-site frequencies ``fij`` of shape ``(P, q-1, q-1)`` in pair order
+    (0,1), (0,2), ..., (L-2,L-1), gap excluded (the mean-field convention)."""
+    return pair_freqs_from_gram(weighted_gram(msa, weights, q), msa.shape[1], q)
+
+
+def pair_freqs_from_gram(gram: torch.Tensor, l: int, q: int) -> torch.Tensor:
+    """The ``i < j`` blocks of a Gram matrix from :func:`weighted_gram`
+    without the gap state (``q-1``, last): ``(P, q-1, q-1)`` in pair order."""
     iu, ju = np.triu_indices(l, k=1)
-    return f[:, :qe, :, :qe].permute(0, 2, 1, 3)[iu, ju]
+    return gram.reshape(l, q, l, q)[:, : q - 1, :, : q - 1].permute(0, 2, 1, 3)[iu, ju]
 
 
 def regularize_fi(fi, q: int, pseudocount: float):

@@ -133,6 +133,7 @@ def test_fused_pipeline_non_spd_takes_lu_fallback(caplog):
         "falling back to an LU inverse"
     ) in messages
     assert inst.lu_fallback
+    assert inst._MeanFieldDCA__gram is None  # the fallback inverts the pipeline's C
     assert len(scores) == 6 * 5 // 2
     assert len(inst.compute_sorted_FN()) == 6 * 5 // 2
 

@@ -60,12 +60,12 @@ def test_weighted_gram_f64_equals_jax(n, l, q):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-15)
 
 
-@pytest.mark.parametrize("include_gap", [False, True])
-def test_pair_site_freqs_equal_jax(include_gap):
-    msa, w = family(80, 9, 5, seed=4)
-    got = tstats.pair_site_freqs(torch.tensor(msa), torch.tensor(w), 5, include_gap=include_gap)
-    want = jstats.pair_site_freqs(jnp.asarray(msa), jnp.asarray(w), 5, include_gap=include_gap)
-    assert got.shape == want.shape == (36, 5 if include_gap else 4, 5 if include_gap else 4)
+@pytest.mark.parametrize("n,l,q", [(80, 9, 5), (97, 13, 21)])
+def test_pair_site_freqs_equal_jax(n, l, q):
+    msa, w = family(n, l, q, seed=4)
+    got = tstats.pair_site_freqs(torch.tensor(msa), torch.tensor(w), q)
+    want = jstats.pair_site_freqs(jnp.asarray(msa), jnp.asarray(w), q)
+    assert got.shape == want.shape == (l * (l - 1) // 2, q - 1, q - 1)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-15)
 
 

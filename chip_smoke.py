@@ -6,13 +6,14 @@ Builds the port's CUDA kernels from ``pydca_tpu_torch/csrc`` with nvcc
 (one process per source, in parallel) and, for each of the two paths:
 
 - plmDCA: checks ``identity_counts`` against its plain PyTorch version on
-  the card (phase 2), drives ``plmdca compute_fn --apc`` at PF02826 width
+  the card, with a library matmul and the bound at the main shape (phase
+  2), drives ``plmdca compute_fn --apc`` at PF02826 width
   (N = 16384, L = 195, q = 21; phase 3) and compares a CPU and a GPU run of
   the same RNA-shaped family (phase 4);
-- mean-field: checks ``weighted_gram`` against its plain version (phase
-  5), drives ``mfdca compute_fn --apc`` at protein scale (N = 4096,
-  L = 1000, q = 21; phase 6) and compares a CPU and a GPU run of a
-  PF02826-width family (phase 7).
+- mean-field: checks ``weighted_gram`` against its plain version and times
+  it beside one library matmul and its bound (phase 5), drives ``mfdca
+  compute_fn --apc`` at protein scale (N = 4096, L = 1000, q = 21; phase 6)
+  and compares a CPU and a GPU run of a PF02826-width family (phase 7).
 
 One line per phase; the next-to-last line is the kernel record (JSON), the
 last line the device record (JSON).  Exits non-zero, with no result, when
@@ -51,6 +52,9 @@ MAIN_SHAPE = (16384, 195, 21)  # PF02826 width at the depth of a deep family
 RNA_SHAPE = (2704, 102, 5)  # RF00167 shape
 PF_SHAPE = (2030, 195, 21)  # PF02826 shape
 MF_SHAPE = (4096, 1000, 21)  # the JAX package's protein-scale mean-field shape
+PEAK = {  # NVIDIA H100 SXM data sheet, dense, at its 700 W power limit
+    "bf16": 989e12, "f64": 67e12, "int8": 1979e12, "bytes": 3.35e12,
+}
 GRAM_TOL = {  # (rtol, atol) on the Meff-normalised Gram
     torch.float32: (1e-5, 1e-6),
     torch.float64: (1e-12, 1e-15),
@@ -122,11 +126,27 @@ def phase_kernel(dev):
         plain_ms = cuda_ms(
             lambda: ck.identity_counts_reference(codes, thr, q, valid=valid), 3 if big else 10
         )
-        timing[name] = (ms, plain_ms)
         n, l = codes.shape
+        extra = ""
+        lib_ms = bound = None
+        if name == "pf02826_deep":  # the library call and the bound of the main-path shape
+            x = torch.nn.functional.one_hot(codes.long(), q).float().reshape(n, l * q)
+            lib_ms = cuda_ms(lambda: x @ x.T, 3)
+            del x
+            torch.cuda.empty_cache()
+            bound = identity_bound(n, l, q)
+            extra = f", library {lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})"
+        timing[name] = (ms, plain_ms, lib_ms, bound)
         print(f"phase 2 kernel {name} N={n} L={l} q={q} valid={valid is not None}: "
-              f"equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+              f"equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{extra}", flush=True)
     return max_err, timing
+
+
+def identity_bound(n, l, q):
+    """The least time of the identity counts on an H100 (700 W): the
+    larger of the N(N+1)/2 row pairs' one-hot products (L*q int8 multiply-
+    adds each) at 1979 TOP/s and reading the N*L code bytes at 3.35 TB/s."""
+    return bound_of(n * (n + 1) / 2 * l * q * 2 / PEAK["int8"], n * l / PEAK["bytes"])
 
 
 def reset_launches() -> None:
@@ -134,21 +154,70 @@ def reset_launches() -> None:
         getattr(ck, name).launches = 0
 
 
+def gram_bound(n, k, dtype):
+    """The least time of the Gram on an H100 (700 W): the larger of the
+    upper triangle's N*K*(K+1) flop, three exact bf16 tensor-core passes at
+    989 TFLOP/s (f32) or once at the 67 TFLOP/s of the f64 tensor cores, and
+    writing K^2 elements at 3.35 TB/s."""
+    flop = n * k * (k + 1)
+    if dtype == torch.float32:
+        return bound_of(3 * flop / PEAK["bf16"], k * k * 4 / PEAK["bytes"])
+    return bound_of(flop / PEAK["f64"], k * k * 8 / PEAK["bytes"])
+
+
+def bound_of(op_s: float, byte_s: float):
+    """(ms, what bounds it) from the operations' and the bytes' seconds."""
+    return (1e3 * op_s, "operations") if op_s >= byte_s else (1e3 * byte_s, "bytes")
+
+
+def device_ms(fn, names, reps: int) -> float:
+    """Device milliseconds per call of the kernels whose names contain one
+    of ``names`` (torch.profiler), without the wrapper's host time."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in prof.key_averages()
+                if any(m in e.key for m in names))
+    return total / reps / 1e3
+
+
+def rel_err_f64(got, want64) -> float:
+    """Largest |got - want| / |want| over the non-zero elements."""
+    nz = want64 != 0
+    return float(((got.double() - want64).abs_()[nz] / want64[nz]).max())
+
+
 def phase_gram(dev):
     """weighted_gram kernel vs plain version: the same zero pattern, the
-    rest within GRAM_TOL[dtype] of the Meff-normalised Gram; times."""
+    rest within GRAM_TOL[dtype] of the Meff-normalised Gram, bitwise
+    symmetric and the same in two runs; times beside the library call (one
+    matmul on the prebuilt one-hot) and the bound."""
     cases = [("rf00167", RNA_SHAPE, torch.float32), ("pf02826", PF_SHAPE, torch.float32),
              ("ragged", (1000, 97, 21), torch.float32), ("protein", MF_SHAPE, torch.float32),
              ("f64", (300, 61, 21), torch.float64)]
     max_err, timing = 0.0, {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, (n, l, q), dtype in cases:
         codes = torch.tensor(planted_family(n, l, q, seed=n + l, n_pairs=0)[0], device=dev)
         rng = np.random.default_rng(n)
         w = torch.tensor(rng.uniform(0.05, 1.0, n), dtype=dtype, device=dev)
         got = ck.weighted_gram(codes, w, q)
+        again = ck.weighted_gram(codes, w, q)
         want = ck.weighted_gram_reference(codes, w, q)
         torch.cuda.synchronize()
+        check(torch.equal(got, again), f"weighted_gram differs between two runs on {name}")
+        check(torch.equal(got, got.T), f"weighted_gram is not symmetric on {name}")
+        del again
         check(torch.equal(got == 0, want == 0), f"weighted_gram zero pattern differs on {name}")
+        rel = ""
+        if name in ("rf00167", "pf02826"):  # what fp32 accumulation costs, both ways
+            want64 = ck.weighted_gram_reference(codes, w.double(), q)
+            rel = (f"largest relative error vs float64: kernel {rel_err_f64(got, want64):.3e}, "
+                   f"cuBLAS fp32 {rel_err_f64(want, want64):.3e}; ")
+            del want64
         meff = w.sum()
         rtol, atol = GRAM_TOL[dtype]
         err = (got.div_(meff) - want.div_(meff)).abs_()
@@ -158,13 +227,28 @@ def phase_gram(dev):
         del got, want, err
         check(bad == 0, f"weighted_gram differs from plain on {name}: {bad} elements")
         big = n * l >= 10**6
-        ms = cuda_ms(lambda: ck.weighted_gram(codes, w, q), 5 if big else 20)
+        reps = 5 if big else 20
+        x = torch.nn.functional.one_hot(codes.long(), q).to(dtype).reshape(n, l * q)
+        xw = x * w[:, None]
+        kernel = lambda: ck.weighted_gram(codes, w, q)
+        library = lambda: torch.matmul(xw.T, x)
+        turns = (library, kernel, kernel, library)
+        lib_a, ms_a, ms_b, lib_b = (cuda_ms(f, reps) for f in turns)
+        ms, lib_ms = (ms_a + ms_b) / 2, (lib_a + lib_b) / 2
+        del x, xw
+        dev_ms = device_ms(kernel, ("gram_", "transpose_codes"), reps)
         plain_ms = cuda_ms(lambda: ck.weighted_gram_reference(codes, w, q), 3 if big else 10)
-        timing[name] = (ms, plain_ms)
+        bound = gram_bound(n, l * q, dtype)
+        timing[name] = (ms, plain_ms, lib_ms, bound)
         torch.cuda.empty_cache()
-        print(f"phase 5 weighted_gram {name} N={n} L={l} q={q} {str(dtype)[6:]}: zeros equal, "
+        print(f"phase 5 weighted_gram {name} N={n} L={l} q={q} {str(dtype)[6:]} "
+              f"splits {ck._gram_plan(n, l * q, sms, w.element_size())[0]}: "
+              f"zeros equal, symmetric, same in two runs; {rel}"
               f"max abs err {case_err:.3e} (rtol {rtol}, atol {atol}), "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms", flush=True)
+              f"kernel {ms:.4f} ms ({ms_a:.4f}, {ms_b:.4f}; device {dev_ms:.4f}), "
+              f"library {lib_ms:.4f} ms ({lib_a:.4f}, {lib_b:.4f}), plain {plain_ms:.4f} ms, "
+              f"bound {bound[0]:.4f} ms by {bound[1]} ({100 * bound[0] / ms:.1f}% of it)",
+              flush=True)
     return max_err, timing
 
 
@@ -241,7 +325,8 @@ def phase_meanfield_cpu_vs_cuda(tmp):
           f"CPU vs GPU mean-field ranking: spearman {rho:.4f}, top-20 overlap {top:.2f}")
     print(f"phase 7 mean-field cpu vs cuda N={runs['cpu'][0].num_sequences} L={l} q={q}: "
           f"weights equal; spearman {rho:.4f} top-20 overlap {top:.2f}; largest FN-APC "
-          f"difference {diff:.3e}, relative to the largest score {rel:.3e}; "
+          f"difference {diff:.3e} (1.583e-04 with the fp32 CUDA-core Gram kernel), "
+          f"relative to the largest score {rel:.3e}; "
           f"wall cpu {runs['cpu'][2]:.2f} s cuda {runs['cuda'][2]:.2f} s", flush=True)
 
 
@@ -357,14 +442,15 @@ def main() -> int:
         phase_meanfield_cpu_vs_cuda(tmp)
 
     records = []
-    for name, (ms, plain_ms), n_launch, err in (
+    for name, (ms, plain_ms, lib_ms, bound), n_launch, err in (
         ("identity_counts", timing["pf02826_deep"], launches, max_err),
         ("weighted_gram", gram_timing["protein"], mf_launches, gram_err),
     ):
         records.append({
             "name": name, "route": "cuda", "source": f"pydca_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": n_launch, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": lib_ms,
         })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

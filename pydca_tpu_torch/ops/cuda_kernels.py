@@ -17,7 +17,9 @@ can show that its main path went through the kernel.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 from typing import Optional
 
 import numpy as np
@@ -76,14 +78,16 @@ def _check_codes(codes: torch.Tensor, q: int) -> None:
         raise TypeError(f"codes must be an integer tensor, got {codes.dtype}")
     if not 0 < q <= 127:
         raise ValueError(f"q must lie in [1, 127], got {q}")
+
+
+def _check_code_range(codes: torch.Tensor, q: int) -> None:
+    # A one-hot ignores an out-of-range code, a byte compare counts it: one
+    # reduction and one device->host read per call keep the two versions in
+    # agreement.
     if codes.numel():
-        # A one-hot ignores an out-of-range code, a byte compare counts it:
-        # one reduction per call keeps the two versions in agreement.
-        lo, hi = torch.aminmax(codes)
-        if int(lo) < 0 or int(hi) >= q:
-            raise ValueError(
-                f"codes must lie in [0, {q}); found [{int(lo)}, {int(hi)}]"
-            )
+        lo, hi = torch.stack(torch.aminmax(codes)).tolist()
+        if lo < 0 or hi >= q:
+            raise ValueError(f"codes must lie in [0, {q}); found [{lo}, {hi}]")
 
 
 def identity_counts(
@@ -105,6 +109,7 @@ def identity_counts(
     ``csrc/identity_counts.cu`` or raises.
     """
     _check_codes(codes, q)
+    _check_code_range(codes, q)
     n, l = codes.shape
     if valid is not None and (valid.shape != (n,) or valid.device != codes.device):
         raise ValueError(
@@ -174,6 +179,74 @@ def weighted_gram_reference(
     return x.T @ (x * weights[:, None])
 
 
+_GRAM_TILE = 128  # output tile edge of csrc/weighted_gram.cu
+_GRAM_STAGE = 64  # sequences per stage; split-N chunks are whole stages
+_GRAM_WS_FLOOR = 64 << 20  # the workspace cap is max(output bytes, this)
+
+
+def _bf16_split(w: torch.Tensor) -> torch.Tensor:
+    """(3, N) bfloat16 pieces with ``w == w1 + w2 + w3`` exactly in float32.
+
+    ``w1 = bf16(w)``, ``w2 = bf16(w - w1)``, ``w3 = bf16(w - w1 - w2)``, each
+    difference taken in float32: three 8-bit significands cover float32's
+    24, and bfloat16 has float32's exponent range.  The kernel's first pass
+    does the same arithmetic (``split_weights``); this is its statement for
+    the tests.
+    """
+    w1 = w.to(torch.bfloat16)
+    r1 = w - w1.float()
+    w2 = r1.to(torch.bfloat16)
+    return torch.stack((w1, w2, (r1 - w2.float()).to(torch.bfloat16)))
+
+
+@functools.lru_cache(maxsize=256)
+def _gram_plan(n: int, k: int, sms: int, itemsize: int = 4):
+    """``(splits, chunk, workspace_bytes)`` for the Gram kernel.
+
+    One block per upper-triangle 128 x 128 tile and chunk of ``chunk``
+    sequences (a multiple of the 64-sequence stage; ``splits`` chunks, none
+    empty).
+    Split-N is considered only while the tiles are fewer than two per SM;
+    then ``splits`` minimises a cost model in microseconds: waves of one
+    block per SM times the chunk's stages, plus the reduction pass (a
+    launch and reading ``splits`` partial tiles).  The workspace stays under
+    max(output bytes, 64 MiB).
+    """
+    side = -(-k // _GRAM_TILE)
+    tiles = side * (side + 1) // 2
+    stages = max(1, -(-n // _GRAM_STAGE))
+    stage_us = 1.0 if itemsize == 4 else 10.0  # tensor cores vs f64 CUDA cores
+    cap = max(k * k * itemsize, _GRAM_WS_FLOOR)
+    tile_bytes = _GRAM_TILE * _GRAM_TILE * itemsize
+
+    def waves(blocks: int) -> int:
+        return -(-blocks // sms)
+
+    best = (waves(tiles) * (stages * stage_us + 2.0), 1, stages, 0)
+    if tiles < 2 * sms:
+        for splits in range(2, stages + 1):
+            per = -(-stages // splits)
+            if -(-stages // per) != splits:  # the same chunks as fewer splits
+                continue
+            ws = splits * tiles * tile_bytes
+            if ws > cap:
+                break
+            cost = waves(tiles * splits) * (per * stage_us + 2.0) + 3.0 + ws / 2.5e6
+            if cost < best[0]:
+                best = (cost, splits, per, ws)
+    _, splits, per, ws = best
+    return splits, per * _GRAM_STAGE, ws
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def weighted_gram(codes: torch.Tensor, weights: torch.Tensor, q: int) -> torch.Tensor:
     """``G[(i,a),(j,b)] = sum_n w_n [codes[n,i] == a] [codes[n,j] == b]``.
 
@@ -183,8 +256,8 @@ def weighted_gram(codes: torch.Tensor, weights: torch.Tensor, q: int) -> torch.T
     (``pallas_kernels.py:176``); the caller divides by Meff.
 
     On a CPU tensor this is :func:`weighted_gram_reference`; on a CUDA
-    tensor it launches ``csrc/weighted_gram.cu`` (float32 or float64) or
-    raises.
+    tensor it launches ``csrc/weighted_gram.cu`` (float32 on the tensor
+    cores, float64 on the CUDA cores) or raises.
     """
     _check_codes(codes, q)
     n, l = codes.shape
@@ -196,35 +269,61 @@ def weighted_gram(codes: torch.Tensor, weights: torch.Tensor, q: int) -> torch.T
     if weights.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"weights must be float32 or float64, got {weights.dtype}")
     if codes.device.type == "cpu":
+        _check_code_range(codes, q)
         return weighted_gram_reference(codes, weights, q)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
 
+    if codes.dtype != torch.int8:  # the cast must not wrap an out-of-range code
+        _check_code_range(codes, q)
+        codes = codes.to(torch.int8)
     k = l * q
-    out = torch.empty((k, k), dtype=weights.dtype, device=codes.device)
+    dev = codes.device
+    itemsize = weights.element_size()
+    splits, chunk, ws_bytes = _gram_plan(n, k, _sm_count(dev.index), itemsize)
+    # one scratch allocation: the transposed codes (L, npad) with npad a
+    # whole number of stages; for float32 the bf16 weight pieces (3 x 2
+    # bytes a sequence); the split-N workspace
+    npad = _round_up(max(n, 1), _GRAM_STAGE)
+    wpk_off = _round_up(l * npad, 256)
+    ws_off = wpk_off + (_round_up(6 * npad, 256) if itemsize == 4 else 0)
+    scratch = torch.empty(ws_off + ws_bytes, dtype=torch.uint8, device=dev)
+    out = torch.empty((k, k), dtype=weights.dtype, device=dev)
+    c8, w = codes.contiguous(), weights.contiguous()
     lib = _weighted_gram_lib()
-    launch = lib.weighted_gram_f32 if weights.dtype == torch.float32 else lib.weighted_gram_f64
-    # the range check above makes this cast lossless; done once per call
-    c8 = codes.to(torch.int8).contiguous()
-    w = weights.contiguous()
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream(codes.device).cuda_stream
-        err = launch(c8.data_ptr(), w.data_ptr(), out.data_ptr(), n, l, q, stream)
-    if err != 0:
+    launch = lib.weighted_gram_f32 if itemsize == 4 else lib.weighted_gram_f64
+    base = scratch.data_ptr()
+    # the launch goes to the current device (entering a context costs more
+    # than the check at small K)
+    same = dev.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if same else torch.cuda.device(dev):
+        err = launch(
+            c8.data_ptr(), w.data_ptr(), out.data_ptr(), base,
+            base + wpk_off if itemsize == 4 else None,
+            base + ws_off if splits > 1 else None,
+            n, npad, l, q, splits, chunk, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err > 0:
         raise RuntimeError(f"weighted_gram launch failed: CUDA error {err}")
     weighted_gram.launches += 1
+    if err < 0:  # the kernel found codes outside [0, q): say which
+        _check_code_range(codes, q)
+        raise ValueError(f"codes must lie in [0, {q})")
     return out
 
 
 weighted_gram.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
 def _weighted_gram_lib() -> ctypes.CDLL:
     lib = _build.load("weighted_gram")
     for fn in (lib.weighted_gram_f32, lib.weighted_gram_f64):
         fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return lib

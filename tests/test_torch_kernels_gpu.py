@@ -56,17 +56,21 @@ def test_out_of_range_codes_raise_on_card(cuda):
         ck.identity_counts(codes, 4.0, 5)
 
 
+GRAM_CASES = [
+    (1, 3, 5, torch.float32),  # N = 1
+    (30, 26, 5, torch.float32),  # N smaller than one 64-sequence stage
+    (130, 26, 5, torch.float32),  # K = 130: one full tile and a ragged one
+    (2000, 26, 5, torch.float32),  # K = 130 with split-N
+    (1000, 97, 21, torch.float32),
+    (2704, 102, 5, torch.float32),  # RF00167 shape, split-N
+    (300, 61, 21, torch.float64),  # float64, split-N
+    (2704, 102, 5, torch.float64),  # float64, split-N over 11 chunks
+]
+SPLIT_CASES = [GRAM_CASES[i] for i in (3, 5, 6, 7)]  # the cases marked split-N
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize(
-    "n,l,q,dtype",
-    [
-        (1, 3, 5, torch.float32),
-        (130, 26, 5, torch.float32),  # K = 130: one full tile and a ragged one
-        (1000, 97, 21, torch.float32),
-        (2704, 102, 5, torch.float32),
-        (300, 61, 21, torch.float64),
-    ],
-)
+@pytest.mark.parametrize("n,l,q,dtype", GRAM_CASES)
 def test_weighted_gram_kernel_equals_plain(cuda, n, l, q, dtype):
     codes = torch.tensor(planted_family(n, l, q, seed=n, n_pairs=0)[0], device=cuda)
     w = torch.tensor(np.random.default_rng(n).uniform(0.05, 1.0, n), dtype=dtype, device=cuda)
@@ -76,6 +80,8 @@ def test_weighted_gram_kernel_equals_plain(cuda, n, l, q, dtype):
     torch.cuda.synchronize()
     assert ck.weighted_gram.launches == before + 1
     assert got.dtype == dtype and got.shape == (l * q, l * q)
+    # no atomics, sums in a fixed order: the same bits in every run
+    assert torch.equal(got, ck.weighted_gram(codes, w, q))
     # sums of non-negative terms: zero exactly where there are no terms
     assert torch.equal(got == 0, want == 0)
     assert torch.equal(got, got.T)
@@ -85,8 +91,24 @@ def test_weighted_gram_kernel_equals_plain(cuda, n, l, q, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,l,q,dtype", SPLIT_CASES)
+def test_weighted_gram_split_n_is_active(cuda, n, l, q, dtype):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    assert ck._gram_plan(n, l * q, sms, itemsize)[0] > 1
+
+
+@pytest.mark.gpu
 def test_weighted_gram_out_of_range_codes_raise_on_card(cuda):
     codes = torch.full((8, 5), 5, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        ck.weighted_gram(codes, torch.ones(8, device=cuda), 5)
+
+
+@pytest.mark.gpu
+def test_weighted_gram_wide_codes_out_of_range_raise_on_card(cuda):
+    # 261 would wrap to a valid int8 code: checked before the cast
+    codes = torch.full((8, 5), 261, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         ck.weighted_gram(codes, torch.ones(8, device=cuda), 5)
 

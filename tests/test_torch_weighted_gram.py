@@ -154,3 +154,79 @@ def test_weighted_gram_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "find_nvcc", lambda: None)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build("weighted_gram")
+
+
+def _split_cases():
+    rng = np.random.default_rng(11)
+    n = 10**6
+    below_pow2 = [np.nextafter(np.float32(2.0**-e), np.float32(0)) for e in range(0, 21)]
+    return {
+        "random": rng.uniform(1.0 / n, 1.0, size=4096),
+        "reciprocals": 1.0 / np.array([1, 2, 3, 7, 11, 999, 1000, 4097, 65537, 999983, 10**6]),
+        "edges": np.array([1.0, 1.0 / n, 3 * 2.0**-24, *below_pow2]),
+    }
+
+
+@pytest.mark.parametrize("case", ["random", "reciprocals", "edges"])
+def test_bf16_split_is_exact(case):
+    w = torch.tensor(_split_cases()[case].astype(np.float32))
+    pieces = ck._bf16_split(w)
+    assert pieces.dtype == torch.bfloat16 and pieces.shape == (3, w.numel())
+    p = pieces.float()
+    # every partial sum is a float32, so the order does not matter
+    assert torch.equal((p[0] + p[1]) + p[2], w)
+    assert torch.equal(p[0] + (p[1] + p[2]), w)
+    np.testing.assert_array_equal(p.double().sum(0).numpy(), w.double().numpy())
+
+
+@pytest.mark.parametrize("n,l,q", SHAPES)
+def test_three_piece_product_equals_jax(n, l, q):
+    """The kernel's arithmetic on the CPU: three bf16 weight pieces against
+    the 0/1 one-hot, products exact, sums in float32."""
+    msa, w = family(n, l, q, seed=n + l + q)
+    w32 = w.astype(np.float32)
+    x = torch.nn.functional.one_hot(torch.tensor(msa).long(), q).float().reshape(n, l * q)
+    pieces = ck._bf16_split(torch.tensor(w32)).float()
+    got = sum(x.T @ (x * piece[:, None]) for piece in pieces).numpy()
+    onehot = np.eye(q, dtype=np.float32)[msa].reshape(n, l * q)
+    pallas = pk.weighted_gram(
+        jnp.asarray(onehot), jnp.asarray(w32), block_n=16, block_k=128, interpret=True
+    )
+    np.testing.assert_allclose(got, np.asarray(pallas), rtol=1e-6, atol=0)
+
+
+SM90 = 132  # streaming multiprocessors of an H100 SXM
+
+
+@pytest.mark.parametrize(
+    "n,k,splits",
+    [
+        (4096, 21000, 1),  # protein scale: 13695 tiles fill the card
+        (2030, 4095, 1),  # PF02826 shape: 528 tiles
+        (2704, 510, "many"),  # RF00167 shape: 10 tiles
+        (2000, 130, "many"),  # K = 130: 3 tiles, one ragged
+    ],
+)
+def test_gram_plan_splits(n, k, splits):
+    s, chunk, ws = ck._gram_plan(n, k, SM90)
+    if splits == 1:
+        assert s == 1 and ws == 0
+    else:
+        assert s > 1
+        side = -(-k // 128)  # 128 x 128 tiles on and above the diagonal
+        assert ws == s * side * (side + 1) // 2 * 128 * 128 * 4
+
+
+@pytest.mark.parametrize(
+    "n,k,itemsize",
+    [(1, 15, 4), (30, 130, 4), (63, 130, 4), (64, 130, 4), (65, 510, 4), (130, 130, 4),
+     (300, 1281, 8), (2704, 510, 8), (10**5, 120 * 5, 4), (4096, 21000, 4), (0, 15, 4)],
+)
+def test_gram_plan_chunks_cover_n_and_respect_cap(n, k, itemsize):
+    s, chunk, ws = ck._gram_plan(n, k, SM90, itemsize)
+    assert chunk % 64 == 0 and chunk > 0
+    assert s * chunk >= n  # every sequence in a chunk
+    if n:
+        assert (s - 1) * chunk < n  # no empty chunk, even when N < splits x stage
+    assert ws <= max(k * k * itemsize, 64 << 20)
+    assert (s > 1) == (ws > 0)

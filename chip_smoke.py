@@ -53,12 +53,17 @@ RNA_SHAPE = (2704, 102, 5)  # RF00167 shape
 PF_SHAPE = (2030, 195, 21)  # PF02826 shape
 MF_SHAPE = (4096, 1000, 21)  # the JAX package's protein-scale mean-field shape
 PEAK = {  # NVIDIA H100 SXM data sheet, dense, at its 700 W power limit
-    "bf16": 989e12, "f64": 67e12, "int8": 1979e12, "bytes": 3.35e12,
+    "bf16": 989e12, "f64_tensor": 67e12, "int8": 1979e12, "bytes": 3.35e12,
+    "f32": 67e12, "f64": 34e12,  # outside the tensor cores
 }
 GRAM_TOL = {  # (rtol, atol) on the Meff-normalised Gram
     torch.float32: (1e-5, 1e-6),
     torch.float64: (1e-12, 1e-15),
 }
+# largest relative error of the float32 Gram against float64 on the same
+# weights: three bf16 pieces give ~4e-7 (as cuBLAS fp32 does), dropping the
+# third gives ~7e-6 (tests/test_torch_weighted_gram.py)
+GRAM_REL_F64 = 2e-6
 
 
 def check(cond: bool, msg: str) -> None:
@@ -154,15 +159,26 @@ def reset_launches() -> None:
         getattr(ck, name).launches = 0
 
 
-def gram_bound(n, k, dtype):
-    """The least time of the Gram on an H100 (700 W): the larger of the
-    upper triangle's N*K*(K+1) flop, three exact bf16 tensor-core passes at
-    989 TFLOP/s (f32) or once at the 67 TFLOP/s of the f64 tensor cores, and
-    writing K^2 elements at 3.35 TB/s."""
+def gram_bound(n, l, q, dtype):
+    """The least time of the Gram on an H100 (700 W): the larger of its
+    non-zero products, one add per sequence and site pair on the upper
+    triangle (N*L*(L+1)/2, an FMA's 2 flop each at the float32 or float64
+    rate outside the tensor cores), and its bytes (codes and weights read,
+    K^2 elements written) at 3.35 TB/s."""
+    item = 4 if dtype == torch.float32 else 8
+    adds = n * l * (l + 1) / 2
+    return bound_of(2 * adds / PEAK["f32" if item == 4 else "f64"],
+                    (n * l + n * item + (l * q) ** 2 * item) / PEAK["bytes"])
+
+
+def gram_dense_bound(n, k, dtype):
+    """The same for the dense one-hot product the kernel runs: the upper
+    triangle's N*K*(K+1) flop as three exact bf16 tensor-core passes at 989
+    TFLOP/s (f32), or once at the 67 TFLOP/s of the f64 tensor cores."""
     flop = n * k * (k + 1)
     if dtype == torch.float32:
         return bound_of(3 * flop / PEAK["bf16"], k * k * 4 / PEAK["bytes"])
-    return bound_of(flop / PEAK["f64"], k * k * 8 / PEAK["bytes"])
+    return bound_of(flop / PEAK["f64_tensor"], k * k * 8 / PEAK["bytes"])
 
 
 def bound_of(op_s: float, byte_s: float):
@@ -193,8 +209,9 @@ def rel_err_f64(got, want64) -> float:
 def phase_gram(dev):
     """weighted_gram kernel vs plain version: the same zero pattern, the
     rest within GRAM_TOL[dtype] of the Meff-normalised Gram, bitwise
-    symmetric and the same in two runs; times beside the library call (one
-    matmul on the prebuilt one-hot) and the bound."""
+    symmetric and the same in two runs, and at RF00167 and PF02826 shape
+    within GRAM_REL_F64 of float64; times beside the library call (one
+    matmul on the prebuilt one-hot) and the bounds."""
     cases = [("rf00167", RNA_SHAPE, torch.float32), ("pf02826", PF_SHAPE, torch.float32),
              ("ragged", (1000, 97, 21), torch.float32), ("protein", MF_SHAPE, torch.float32),
              ("f64", (300, 61, 21), torch.float64)]
@@ -215,9 +232,12 @@ def phase_gram(dev):
         rel = ""
         if name in ("rf00167", "pf02826"):  # what fp32 accumulation costs, both ways
             want64 = ck.weighted_gram_reference(codes, w.double(), q)
-            rel = (f"largest relative error vs float64: kernel {rel_err_f64(got, want64):.3e}, "
-                   f"cuBLAS fp32 {rel_err_f64(want, want64):.3e}; ")
+            kernel_rel = rel_err_f64(got, want64)
+            rel = (f"largest relative error vs float64: kernel {kernel_rel:.3e} "
+                   f"(limit {GRAM_REL_F64}), cuBLAS fp32 {rel_err_f64(want, want64):.3e}; ")
             del want64
+            check(kernel_rel <= GRAM_REL_F64,
+                  f"weighted_gram relative error vs float64 {kernel_rel:.3e} on {name}")
         meff = w.sum()
         rtol, atol = GRAM_TOL[dtype]
         err = (got.div_(meff) - want.div_(meff)).abs_()
@@ -238,7 +258,8 @@ def phase_gram(dev):
         del x, xw
         dev_ms = device_ms(kernel, ("gram_", "transpose_codes"), reps)
         plain_ms = cuda_ms(lambda: ck.weighted_gram_reference(codes, w, q), 3 if big else 10)
-        bound = gram_bound(n, l * q, dtype)
+        bound = gram_bound(n, l, q, dtype)
+        dense = gram_dense_bound(n, l * q, dtype)
         timing[name] = (ms, plain_ms, lib_ms, bound)
         torch.cuda.empty_cache()
         print(f"phase 5 weighted_gram {name} N={n} L={l} q={q} {str(dtype)[6:]} "
@@ -247,8 +268,9 @@ def phase_gram(dev):
               f"max abs err {case_err:.3e} (rtol {rtol}, atol {atol}), "
               f"kernel {ms:.4f} ms ({ms_a:.4f}, {ms_b:.4f}; device {dev_ms:.4f}), "
               f"library {lib_ms:.4f} ms ({lib_a:.4f}, {lib_b:.4f}), plain {plain_ms:.4f} ms, "
-              f"bound {bound[0]:.4f} ms by {bound[1]} ({100 * bound[0] / ms:.1f}% of it)",
-              flush=True)
+              f"bound {bound[0]:.4f} ms by {bound[1]} ({100 * bound[0] / ms:.1f}% of it), "
+              f"dense-formulation bound {dense[0]:.4f} ms by {dense[1]} "
+              f"({100 * dense[0] / ms:.1f}% of it)", flush=True)
     return max_err, timing
 
 

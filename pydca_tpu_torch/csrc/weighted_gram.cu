@@ -12,13 +12,17 @@
 // by Meff, as with the TPU kernel.  A first pass (transpose_codes_kernel)
 // copies the int8 codes transposed, (L, npad) with npad a multiple of 64,
 // so the sequences of one site are contiguous, sets a flag for codes
-// outside [0, q) that the launcher reads after waiting for the stream (the
+// outside [0, q) that the launcher reads after waiting for this pass (the
 // call's one host sync; the wrapper raises on it), and splits the weights.
 //
-// What bounds it on an H100: the tensor cores.  The upper triangle is
-// N*K*(K+1) flop (1.8e12 at N = 4096, K = 21000); run as three exact bf16
-// passes (below) that is 5.4e12 flop against 989 TFLOP/s, 5.5 ms, while the
-// output (K^2 * 4 bytes = 1.76 GB) takes 0.53 ms to write at 3.35 TB/s.
+// What bounds it on an H100 (700 W): writing the output.  K^2 * 4 bytes
+// (1.76 GB at N = 4096, K = 21000) take 0.53 ms at 3.35 TB/s, while the
+// non-zero products, N*L*(L+1)/2 adds on the upper triangle (2.0e9), take
+// 0.06 ms at 67 TFLOP/s.  This design multiplies the one-hot densely
+// instead: N*K*(K+1) flop (1.8e12), three exact bf16 passes (below) of
+// 5.4e12 flop against 989 TFLOP/s, 5.5 ms.  A sparse formulation that adds
+// each weight into its L*(L+1)/2 elements in a fixed order is what could
+// reach the output bound.
 //
 // Design, float32 (gram_tc_kernel):
 //   1. Exact fp32 from bf16 tensor cores.  Every product is w[n] or 0.  An
@@ -532,7 +536,7 @@ __global__ void __launch_bounds__(THREADS) gram_reduce_kernel(
 
 // The range check's flag: pinned host memory mapped into the device (the
 // same address on both sides under unified addressing), one per host
-// thread (a call waits for its stream before it returns).
+// thread (a call waits for the pass that writes it before it returns).
 int* range_flag() {
   thread_local int* flag = nullptr;
   if (flag == nullptr &&
@@ -573,10 +577,16 @@ int launch(const void* codes, const void* w, void* out, void* ct, void* wpk, voi
       static_cast<const int8_t*>(codes), static_cast<int8_t*>(ct), flag,
       sizeof(T) == 4 ? static_cast<const float*>(w) : nullptr, static_cast<uint32_t*>(wpk),
       n, l, npad, q);
+  // the range check's host sync: after the first pass only, so the tile
+  // kernel and the reduction run while the caller goes on
+  cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) err = cudaStreamSynchronize(st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (*reinterpret_cast<volatile int*>(flag)) return -1;
   const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(splits));
   T* ws_t = static_cast<T*>(ws);
   if constexpr (sizeof(T) == 4) {
-    const cudaError_t err = allow_tc_smem();
+    err = allow_tc_smem();
     if (err != cudaSuccess) return static_cast<int>(err);
     gram_tc_kernel<<<grid, THREADS, SMEM_TC, st>>>(
         static_cast<const int8_t*>(ct), static_cast<const uint4*>(wpk),
@@ -589,10 +599,7 @@ int launch(const void* codes, const void* w, void* out, void* ct, void* wpk, voi
   if (splits > 1)
     gram_reduce_kernel<T><<<dim3(static_cast<unsigned>(tiles), TILE / RROWS), THREADS, 0, st>>>(
         ws_t, static_cast<T*>(out), static_cast<int>(k), splits);
-  cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess) err = cudaStreamSynchronize(st);  // the range check's host sync
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return *reinterpret_cast<volatile int*>(flag) ? -1 : 0;
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -605,9 +612,10 @@ int launch(const void* codes, const void* w, void* out, void* ct, void* wpk, voi
 // tiles * 128^2 elements (tiles = the upper-triangle tile count; else
 // null): `splits` chunks of `chunk_len` sequences (a multiple of 64) run as
 // their own blocks and a second kernel sums their partial tiles.  Runs on
-// `stream`, then waits for it to read the range check.  Returns 0, -1 when
-// a code lies outside [0, q) (the output is then meaningless), or a
-// non-zero CUDA error for a refused launch or invalid sizes.
+// `stream`; waits for the first pass to read the range check, and returns
+// with the rest enqueued.  Returns 0, -1 when a code lies outside [0, q)
+// (nothing past the first pass is launched then), or a non-zero CUDA error
+// for a refused launch or invalid sizes.
 extern "C" int weighted_gram_f32(const void* codes, const void* w, void* out, void* ct,
                                  void* wpk, void* ws, int n, int npad, int l, int q,
                                  int splits, int chunk_len, void* stream) {

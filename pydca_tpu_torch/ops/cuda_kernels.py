@@ -204,38 +204,22 @@ def _gram_plan(n: int, k: int, sms: int, itemsize: int = 4):
     """``(splits, chunk, workspace_bytes)`` for the Gram kernel.
 
     One block per upper-triangle 128 x 128 tile and chunk of ``chunk``
-    sequences (a multiple of the 64-sequence stage; ``splits`` chunks, none
-    empty).
-    Split-N is considered only while the tiles are fewer than two per SM;
-    then ``splits`` minimises a cost model in microseconds: waves of one
-    block per SM times the chunk's stages, plus the reduction pass (a
-    launch and reading ``splits`` partial tiles).  The workspace stays under
-    max(output bytes, 64 MiB).
+    sequences (whole 64-sequence stages; ``splits`` chunks, none empty).
+    Both tile kernels hold one block per SM, so while the tiles are fewer
+    than the SMs, N is cut into about ``ceil(sms / tiles)`` chunks, one wave
+    of blocks: at most one chunk per stage, and fewer when the workspace
+    (one partial tile per tile and chunk) would pass max(output bytes,
+    64 MiB).  ``scripts/torch_gram_splits.py`` times the other counts.
     """
     side = -(-k // _GRAM_TILE)
     tiles = side * (side + 1) // 2
     stages = max(1, -(-n // _GRAM_STAGE))
-    stage_us = 1.0 if itemsize == 4 else 10.0  # tensor cores vs f64 CUDA cores
-    cap = max(k * k * itemsize, _GRAM_WS_FLOOR)
     tile_bytes = _GRAM_TILE * _GRAM_TILE * itemsize
-
-    def waves(blocks: int) -> int:
-        return -(-blocks // sms)
-
-    best = (waves(tiles) * (stages * stage_us + 2.0), 1, stages, 0)
-    if tiles < 2 * sms:
-        for splits in range(2, stages + 1):
-            per = -(-stages // splits)
-            if -(-stages // per) != splits:  # the same chunks as fewer splits
-                continue
-            ws = splits * tiles * tile_bytes
-            if ws > cap:
-                break
-            cost = waves(tiles * splits) * (per * stage_us + 2.0) + 3.0 + ws / 2.5e6
-            if cost < best[0]:
-                best = (cost, splits, per, ws)
-    _, splits, per, ws = best
-    return splits, per * _GRAM_STAGE, ws
+    cap = max(k * k * itemsize, _GRAM_WS_FLOOR)
+    want = max(1, min(stages, -(-sms // tiles), cap // (tiles * tile_bytes)))
+    per = -(-stages // want)
+    splits = -(-stages // per)  # no empty chunk
+    return splits, per * _GRAM_STAGE, splits * tiles * tile_bytes if splits > 1 else 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -305,10 +289,10 @@ def weighted_gram(codes: torch.Tensor, weights: torch.Tensor, q: int) -> torch.T
         )
     if err > 0:
         raise RuntimeError(f"weighted_gram launch failed: CUDA error {err}")
-    weighted_gram.launches += 1
-    if err < 0:  # the kernel found codes outside [0, q): say which
+    if err < 0:  # the first pass found codes outside [0, q): say which
         _check_code_range(codes, q)
         raise ValueError(f"codes must lie in [0, {q})")
+    weighted_gram.launches += 1
     return out
 
 

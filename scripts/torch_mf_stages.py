@@ -1,63 +1,39 @@
-"""Device time of each step of the port's mean-field path on one GPU.
+"""Stage times of the port's mean-field path on one GPU.
 
     env PYTHONPATH=. python scripts/torch_mf_stages.py [N L q]
 
-Runs the steps of ``MeanFieldDCA._run_fused_pipeline`` (weights, Gram, C,
-Cholesky factor, Cholesky inverse, symmetrise and negate, FN + APC + the
-one fetch) on a synthetic planted family (default N = 4096, L = 1000,
-q = 21, float32), each between two CUDA events, three times; prints the
-card, every run, and the mean of the last two (warm) runs.  Then the host
-sort of the pairs.  Needs a CUDA card.
+Drives the engine that ``mfdca compute_fn --apc`` runs,
+``MeanFieldDCA(...).compute_sorted_FN_APC()``, on a synthetic planted
+family (default N = 4096, L = 1000, q = 21, float32), three times with a
+fresh engine, and prints each run's stage timers (weights, gram, corr,
+inverse, score: host wall, each stage ending in a synchronise; score holds
+the host sort of the pairs) and the mean of the last two (warm) runs.  A
+fourth run under torch.profiler gives the device time of all its kernels
+and of those that take most of it.  Last, on the engine's own C
+(``construct_corr_mat``), CUDA events time ``ops/linalg.spd_inverse`` and
+the library Cholesky factor it starts with.  Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
-from pydca_tpu_torch import score, stats
-from pydca_tpu_torch.device import set_precision
+from pydca_tpu_torch.meanfield import MeanFieldDCA
+from pydca_tpu_torch.ops import linalg
 from pydca_tpu_torch.synthetic import planted_family
 
-STEPS = ("weights", "gram", "corr", "cholesky_ex", "cholesky_inverse",
-         "symmetrise_negate", "fn_apc_fetch")
+STAGES = ("weights", "gram", "corr", "inverse", "score")
 
 
-def run_once(codes: torch.Tensor, l: int, q: int, pc: float = 0.5, seqid: float = 0.8):
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(STEPS) + 1)]
-    torch.cuda.synchronize()
-    ev[0].record()
-    w = stats.sequence_weights(codes, seqid, q)
-    ev[1].record()
-    gram = stats.weighted_gram(codes, w, q)
-    ev[2].record()
-    fi_reg = stats.regularize_fi(torch.diagonal(gram).reshape(l, q), q, pc)
-    c = stats.corr_mat_from_gram(gram, fi_reg, pc, l, q)
-    del gram
-    ev[3].record()
-    # the body of ops/linalg.spd_inverse and MeanFieldDCA._cholesky_couplings
-    chol, info = torch.linalg.cholesky_ex(c)
-    diag = chol.diagonal()
-    diag.copy_(torch.where(info == 0, diag, torch.ones_like(diag)))
-    ev[4].record()
-    inv = torch.cholesky_inverse(chol)
-    del chol
-    ev[5].record()
-    couplings = (inv + inv.mT).mul_(0.5).neg_()
-    del inv
-    ev[6].record()
-    fn_raw = score.frobenius_norms_from_matrix(couplings, l, q - 1)
-    fn_apc = score.apc(fn_raw, l)
-    ok = (info == 0) & torch.isfinite(couplings[0, 0])
-    host = torch.cat([ok.to(fn_raw.dtype).reshape(1), fn_raw, fn_apc]).cpu().numpy()
-    ev[7].record()
-    torch.cuda.synchronize()
-    del c, couplings
-    return [ev[i].elapsed_time(ev[i + 1]) for i in range(len(STEPS))], host
+def run_once(codes: np.ndarray, biomolecule: str) -> list:
+    inst = MeanFieldDCA(codes, biomolecule, device="cuda")
+    inst.compute_sorted_FN_APC()
+    return [1e3 * inst.timers.elapsed(s) for s in STAGES]
 
 
 def main() -> int:
@@ -65,27 +41,46 @@ def main() -> int:
         print("torch_mf_stages: no CUDA card", file=sys.stderr)
         return 1
     n, l, q = (int(a) for a in sys.argv[1:4]) if len(sys.argv) >= 4 else (4096, 1000, 21)
-    set_precision()
+    biomolecule = {21: "protein", 5: "rna"}[q]
     smi = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
     print(subprocess.run(smi, capture_output=True, text=True).stdout.strip(), flush=True)
-    codes = torch.tensor(planted_family(n, l, q, seed=2, n_pairs=20)[0], device="cuda")
+    codes = planted_family(n, l, q, seed=2, n_pairs=20)[0]
     runs = []
     for r in range(3):
-        ms, host = run_once(codes, l, q)
-        runs.append(ms)
+        runs.append(run_once(codes, biomolecule))
         torch.cuda.empty_cache()
-        print(f"run {r}: " + ", ".join(f"{s} {t:.3f} ms" for s, t in zip(STEPS, ms))
-              + f"; device sum {sum(ms):.3f} ms", flush=True)
+        print(f"run {r}: " + ", ".join(f"{s} {t:.3f} ms" for s, t in zip(STAGES, runs[-1]))
+              + f"; sum {sum(runs[-1]):.3f} ms", flush=True)
     warm = np.mean(runs[1:], axis=0)
-    print(f"N={n} L={l} q={q} float32, warm (mean of runs 1-2):", flush=True)
-    for s, t in zip(STEPS, warm):
-        print(f"  {s:18s} {t:9.3f} ms  {100 * t / warm.sum():5.1f}%", flush=True)
-    print(f"  {'device sum':18s} {warm.sum():9.3f} ms", flush=True)
-    p = l * (l - 1) // 2
-    t0 = time.perf_counter()
-    score.sorted_scores(host[1 + p:], l)
-    print(f"  host sorted_scores of {p} pairs {1e3 * (time.perf_counter() - t0):.3f} ms",
-          flush=True)
+    print(f"N={n} L={l} q={q} float32, stage timers, warm (mean of runs 1-2):", flush=True)
+    for s, t in zip(STAGES, warm):
+        print(f"  {s:8s} {t:9.3f} ms  {100 * t / warm.sum():5.1f}%", flush=True)
+    print(f"  {'sum':8s} {warm.sum():9.3f} ms", flush=True)
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        run_once(codes, biomolecule)
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.device_time_total, reverse=True)
+    total = sum(e.device_time_total for e in kernels) / 1e3
+    print(f"run 3 under torch.profiler: device time {total:.3f} ms", flush=True)
+    for e in kernels[:8]:
+        print(f"  {e.key[:60]:60s} x{e.count} {e.device_time_total / 1e3:9.3f} ms",
+              flush=True)
+
+    c = MeanFieldDCA(codes, biomolecule, device="cuda").construct_corr_mat()
+    for name, fn in (("linalg.spd_inverse", lambda: linalg.spd_inverse(c)),
+                     ("torch.linalg.cholesky_ex", lambda: torch.linalg.cholesky_ex(c))):
+        ms = []
+        for _ in range(3):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+        print(f"  {name:26s} on C {c.shape[0]}^2: {', '.join(f'{t:.3f}' for t in ms)} ms",
+              flush=True)
     return 0
 
 

@@ -91,6 +91,20 @@ def test_weighted_gram_kernel_equals_plain(cuda, n, l, q, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,l,q", [(2704, 102, 5), (2030, 195, 21)])
+def test_weighted_gram_f32_close_to_float64(cuda, n, l, q):
+    # exact fp32 from three bf16 pieces: ~4e-7 of float64 on the same
+    # weights, as cuBLAS fp32; two pieces alone give ~7e-6
+    codes = torch.tensor(planted_family(n, l, q, seed=n + l, n_pairs=0)[0], device=cuda)
+    w = torch.tensor(np.random.default_rng(n).uniform(0.05, 1.0, n), dtype=torch.float32,
+                     device=cuda)
+    got = ck.weighted_gram(codes, w, q).double()
+    want = ck.weighted_gram_reference(codes, w.double(), q)
+    nz = want != 0
+    assert float(((got - want).abs()[nz] / want[nz]).max()) <= 2e-6
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n,l,q,dtype", SPLIT_CASES)
 def test_weighted_gram_split_n_is_active(cuda, n, l, q, dtype):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count

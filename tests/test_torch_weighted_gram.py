@@ -20,6 +20,7 @@ from pydca_tpu_torch import stats as tstats
 from pydca_tpu_torch.ops import _build
 from pydca_tpu_torch.ops import cuda_kernels as ck
 from pydca_tpu_torch.ops import linalg as tlinalg
+from pydca_tpu_torch.synthetic import planted_family
 
 SHAPES = [(50, 7, 5), (64, 11, 21), (97, 37, 21)]  # the last is ragged in N and K
 
@@ -195,6 +196,38 @@ def test_three_piece_product_equals_jax(n, l, q):
     np.testing.assert_allclose(got, np.asarray(pallas), rtol=1e-6, atol=0)
 
 
+GRAM_REL_F64 = 2e-6  # chip_smoke.py's limit on the card's float32 Gram vs float64
+
+
+def _staged_pieces_gram(x, pieces):
+    """The kernel's order: per 64-sequence stage, the pieces' products
+    summed afresh, then added into a float32 total."""
+    total = torch.zeros(x.shape[1], x.shape[1])
+    for s in range(0, x.shape[0], 64):
+        xs = x[s : s + 64]
+        total += sum(xs.T @ (xs * piece[s : s + 64, None]) for piece in pieces)
+    return total
+
+
+@pytest.mark.parametrize("n,l,q", [(2704, 102, 5), (1000, 97, 21)])
+def test_float64_limit_sees_a_missing_piece(n, l, q):
+    """GRAM_REL_F64 holds the three pieces and rejects the first two alone
+    (each weight then off by up to 2^-17 of itself), on the data of
+    chip_smoke.py's phase 5."""
+    codes = torch.tensor(planted_family(n, l, q, seed=n + l, n_pairs=0)[0])
+    w = torch.tensor(np.random.default_rng(n).uniform(0.05, 1.0, n), dtype=torch.float32)
+    x = torch.nn.functional.one_hot(codes.long(), q).float().reshape(n, l * q)
+    pieces = ck._bf16_split(w).float()
+    want = ck.weighted_gram_reference(codes, w.double(), q)
+    nz = want != 0
+
+    def rel(got):
+        return float(((got.double() - want).abs()[nz] / want[nz]).max())
+
+    assert rel(_staged_pieces_gram(x, pieces)) <= GRAM_REL_F64 / 2
+    assert rel(_staged_pieces_gram(x, pieces[:2])) > 2 * GRAM_REL_F64
+
+
 SM90 = 132  # streaming multiprocessors of an H100 SXM
 
 
@@ -215,6 +248,21 @@ def test_gram_plan_splits(n, k, splits):
         assert s > 1
         side = -(-k // 128)  # 128 x 128 tiles on and above the diagonal
         assert ws == s * side * (side + 1) // 2 * 128 * 128 * 4
+
+
+@pytest.mark.parametrize(
+    "n,k,itemsize,plan",
+    [
+        (2704, 510, 4, (11, 256)),  # 10 tiles: 14 wanted, 43 stages in 11 chunks of 4
+        (2000, 130, 4, (32, 64)),  # 3 tiles: one chunk per stage
+        (1000, 2037, 4, (1, 1024)),  # 136 tiles fill the 132 SMs
+        (300, 1281, 8, (2, 192)),  # 66 tiles: 2 wanted, 5 stages in 2 chunks of 3
+        (4096, 21000, 4, (1, 4096)),
+    ],
+)
+def test_gram_plan_follows_the_rule(n, k, itemsize, plan):
+    # one wave of one block per SM, whole stages, no empty chunk
+    assert ck._gram_plan(n, k, SM90, itemsize)[:2] == plan
 
 
 @pytest.mark.parametrize(

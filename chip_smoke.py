@@ -6,10 +6,10 @@ Builds the port's CUDA kernels from ``pydca_tpu_torch/csrc`` with nvcc
 (one process per source, in parallel) and, for each of the two paths:
 
 - plmDCA: checks ``identity_counts`` against its plain PyTorch version on
-  the card, with a library matmul and the bound at the main shape (phase
-  2), drives ``plmdca compute_fn --apc`` at PF02826 width
-  (N = 16384, L = 195, q = 21; phase 3) and compares a CPU and a GPU run of
-  the same RNA-shaped family (phase 4);
+  the card up to N = 10^5 and times it beside its bound, with a library
+  matmul at the main shape (phase 2), drives ``plmdca compute_fn --apc``
+  at PF02826 width (N = 16384, L = 195, q = 21; phase 3) and compares a CPU
+  and a GPU run of the same RNA-shaped family (phase 4);
 - mean-field: checks ``weighted_gram`` against its plain version and times
   it beside one library matmul and its bound (phase 5), drives ``mfdca
   compute_fn --apc`` at protein scale (N = 4096, L = 1000, q = 21; phase 6)
@@ -49,6 +49,7 @@ REPLACES = {  # the TPU kernel each one replaces (its def line)
     "weighted_gram": "pydca_tpu/ops/pallas_kernels.py:176",
 }
 MAIN_SHAPE = (16384, 195, 21)  # PF02826 width at the depth of a deep family
+RNA_DEEP_SHAPE = (100000, 120, 5)  # the JAX package's deep weights shape (bench.py:284)
 RNA_SHAPE = (2704, 102, 5)  # RF00167 shape
 PF_SHAPE = (2030, 195, 21)  # PF02826 shape
 MF_SHAPE = (4096, 1000, 21)  # the JAX package's protein-scale mean-field shape
@@ -105,10 +106,11 @@ def edge_family(dev):
 
 
 def phase_kernel(dev):
-    """Kernel vs plain version: exact equality at every shape; times."""
+    """Kernel vs plain version: exact equality at every shape; times (CUDA
+    events with the wrapper, and the device time of its kernels)."""
     cases = []
     for name, (n, l, q) in (("rf00167", RNA_SHAPE), ("pf02826_deep", MAIN_SHAPE),
-                            ("ragged", (1000, 97, 21))):
+                            ("ragged", (1000, 97, 21)), ("rna_deep", RNA_DEEP_SHAPE)):
         codes, _ = planted_family(n, l, q, seed=n)
         cases.append((name, torch.tensor(codes, device=dev), 0.8 * l, q, None))
     codes, l, q = edge_family(dev)
@@ -127,23 +129,29 @@ def phase_kernel(dev):
         err = int((got - want).abs().max())
         max_err = max(max_err, err)
         big = codes.shape[0] >= 10000
-        ms = cuda_ms(lambda: ck.identity_counts(codes, thr, q, valid=valid), 5 if big else 20)
+        kernel = lambda: ck.identity_counts(codes, thr, q, valid=valid)
+        ms = cuda_ms(kernel, 5 if big else 20)
+        dev_ms = device_ms(kernel, ("identity_",), 5 if big else 20)
         plain_ms = cuda_ms(
             lambda: ck.identity_counts_reference(codes, thr, q, valid=valid), 3 if big else 10
         )
         n, l = codes.shape
+        bound = identity_bound(n, l, q)
+        sparse = identity_sparse_bound(n, l, q)
+        lib_ms = None
         extra = ""
-        lib_ms = bound = None
-        if name == "pf02826_deep":  # the library call and the bound of the main-path shape
+        if name == "pf02826_deep":  # the library call of the main-path shape
             x = torch.nn.functional.one_hot(codes.long(), q).float().reshape(n, l * q)
             lib_ms = cuda_ms(lambda: x @ x.T, 3)
             del x
             torch.cuda.empty_cache()
-            bound = identity_bound(n, l, q)
-            extra = f", library {lib_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]})"
+            extra = f", library {lib_ms:.4f} ms"
         timing[name] = (ms, plain_ms, lib_ms, bound)
         print(f"phase 2 kernel {name} N={n} L={l} q={q} valid={valid is not None}: "
-              f"equal, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{extra}", flush=True)
+              f"equal, kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms"
+              f"{extra}, bound {bound[0]:.4f} ms by {bound[1]} "
+              f"({100 * bound[0] / ms:.1f}% of it), 2:4-sparse formulation {sparse:.4f} ms "
+              f"({100 * sparse / ms:.1f}% of it)", flush=True)
     return max_err, timing
 
 
@@ -152,6 +160,15 @@ def identity_bound(n, l, q):
     larger of the N(N+1)/2 row pairs' one-hot products (L*q int8 multiply-
     adds each) at 1979 TOP/s and reading the N*L code bytes at 3.35 TB/s."""
     return bound_of(n * (n + 1) / 2 * l * q * 2 / PEAK["int8"], n * l / PEAK["bytes"])
+
+
+def identity_sparse_bound(n, l, q):
+    """Milliseconds of the same product in a formulation that the data-sheet
+    bound leaves out: ordered by (position, state) with q padded to a
+    multiple of 4, the one-hot A operand has at most one non-zero in each
+    group of 4, which is the 2:4 pattern of the sparse int8 wgmma, at twice
+    the dense rate.  A diagnostic printed beside the bound, not the bound."""
+    return 1e3 * n * (n + 1) / 2 * l * (-(-q // 4) * 4) * 2 / (2 * PEAK["int8"])
 
 
 def reset_launches() -> None:

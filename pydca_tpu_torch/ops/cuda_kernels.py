@@ -20,6 +20,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import math
 from typing import Optional
 
 import numpy as np
@@ -41,6 +42,10 @@ def _thr_f32(thr: float) -> float:
     """The threshold as the float32 value the JAX paths compare against
     (``jnp.float32(thr)``, ``pydca_tpu/stats.py:166,181``)."""
     return float(np.float32(thr))
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 def identity_counts_reference(
@@ -90,6 +95,45 @@ def _check_code_range(codes: torch.Tensor, q: int) -> None:
             raise ValueError(f"codes must lie in [0, {q}); found [{lo}, {hi}]")
 
 
+# twins of csrc/identity_counts.cu's constants; the scratch size comes from
+# the library (identity_counts_scratch_bytes), the tests hold these to it
+_IC_TILE = 128  # tile edge (rows of A and of B)
+_IC_KB = 128  # positions per stage: L is padded to a multiple
+_IC_PAD = 0x7F  # the code of padding: equals no state (q <= 127)
+_IC_SHIFT = 14  # a match adds 0x80 * 0x80 = 2^14 to the s32 accumulator
+_IC_MAX_LEN = (1 << 17) - 1  # so that L << 14 fits in s32
+
+
+def _identity_plan(n: int, l: int):
+    """``(npad, lpad, tiles)`` of the identity-count kernel, the tests'
+    statement of its plan: the padded codes are (npad, lpad), npad = 128 T
+    with T = ceil(N / 128) row tiles, lpad = L rounded up to 128, and the
+    1-D grid has one block per upper-triangle tile, T(T+1)/2."""
+    side = -(-n // _IC_TILE)
+    return side * _IC_TILE, _round_up(l, _IC_KB), side * (side + 1) // 2
+
+
+def _identity_min_acc(thr: float) -> int:
+    """The kernel's form of the float32 threshold: the least accumulator
+    that passes.  A count m <= L < 2^17 is exact in float32, so
+    ``float32(m) > thr32`` exactly when m >= floor(thr32) + 1, and the
+    accumulator holds m << 14: 0 when every count passes (thr32 < 0),
+    0xFFFFFFFF when none can (NaN, or thr32 >= the longest L)."""
+    t = _thr_f32(thr)
+    if math.isnan(t) or t >= _IC_MAX_LEN:
+        return 0xFFFFFFFF
+    if t < 0:
+        return 0
+    return (math.floor(t) + 1) << _IC_SHIFT
+
+
+def _identity_tile_of(t: int):
+    """``(I, J)``, I <= J, of block ``t = J(J+1)/2 + I``: the kernel's
+    ``tile_of``."""
+    j = (math.isqrt(8 * t + 1) - 1) // 2
+    return t - j * (j + 1) // 2, j
+
+
 def identity_counts(
     codes: torch.Tensor,
     thr: float,
@@ -122,16 +166,20 @@ def identity_counts(
         raise ValueError(f"unsupported device {codes.device}")
 
     lib = _identity_counts_lib()
-    if n > lib.identity_counts_max_rows():
+    max_n = lib.identity_counts_max_rows()
+    if n > max_n or l > _IC_MAX_LEN:
         raise ValueError(
-            f"N = {n} exceeds the kernel's grid limit "
-            f"{lib.identity_counts_max_rows()}"
+            f"(N, L) = ({n}, {l}) exceeds the kernel's limits "
+            f"N <= {max_n}, L <= {_IC_MAX_LEN}"
         )
     # the range check above makes this cast lossless; done once per call
     c8 = codes.to(torch.int8).contiguous()
     v8 = None
     if valid is not None:
         v8 = valid.to(torch.bool).contiguous()
+    padded = torch.empty(
+        lib.identity_counts_scratch_bytes(n, l), dtype=torch.uint8, device=codes.device
+    )
     out = torch.zeros(n, dtype=torch.int32, device=codes.device)
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
@@ -139,9 +187,11 @@ def identity_counts(
             c8.data_ptr(),
             None if v8 is None else v8.data_ptr(),
             out.data_ptr(),
+            padded.data_ptr(),
             n,
             l,
-            _thr_f32(thr),
+            q,
+            _identity_min_acc(thr),
             stream,
         )
     if err != 0:
@@ -153,16 +203,19 @@ def identity_counts(
 identity_counts.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
 def _identity_counts_lib() -> ctypes.CDLL:
     lib = _build.load("identity_counts")
     fn = lib.identity_counts_launch
     fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     lib.identity_counts_max_rows.argtypes = []
     lib.identity_counts_max_rows.restype = ctypes.c_int
+    lib.identity_counts_scratch_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.identity_counts_scratch_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -220,10 +273,6 @@ def _gram_plan(n: int, k: int, sms: int, itemsize: int = 4):
     per = -(-stages // want)
     splits = -(-stages // per)  # no empty chunk
     return splits, per * _GRAM_STAGE, splits * tiles * tile_bytes if splits > 1 else 0
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
 
 
 @functools.lru_cache(maxsize=None)

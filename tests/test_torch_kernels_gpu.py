@@ -28,17 +28,41 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,l,q", [(1, 3, 5), (65, 64, 5), (1000, 97, 21), (2704, 102, 5)])
+@pytest.mark.parametrize(
+    "n,l,q",
+    [
+        (1, 3, 5),
+        (65, 64, 5),
+        (128, 128, 5),  # one full tile, one full position block
+        (129, 129, 21),  # a second row tile and position block, one row/position each
+        (257, 1000, 21),  # three row tiles, protein length
+        (1000, 97, 21),
+        (2704, 102, 5),
+    ],
+)
 def test_identity_counts_kernel_equals_plain(cuda, n, l, q):
     codes = torch.tensor(planted_family(n, l, q, seed=n, n_pairs=0)[0], device=cuda)
+    # about a fifth of the rows invalid, in every row tile
     valid = torch.tensor(np.random.default_rng(n).random(n) > 0.2, device=cuda)
+    npad, lpad, _ = ck._identity_plan(n, l)  # the scratch the launcher pads into
+    assert ck._identity_counts_lib().identity_counts_scratch_bytes(n, l) == npad * lpad
     for v in (None, valid):
         before = ck.identity_counts.launches
         got = ck.identity_counts(codes, 0.8 * l, q, valid=v)
         want = ck.identity_counts_reference(codes, 0.8 * l, q, valid=v)
+        again = ck.identity_counts(codes, 0.8 * l, q, valid=v)
         torch.cuda.synchronize()
         assert torch.equal(got, want)  # integer counts: exact
-        assert ck.identity_counts.launches == before + 1
+        assert torch.equal(got, again)  # integer atomics: the same in every run
+        assert ck.identity_counts.launches == before + 2
+
+
+@pytest.mark.gpu
+def test_identity_counts_too_long_raises_on_card(cuda):
+    # a match adds 2^14 to an s32 accumulator: L < 2^17
+    codes = torch.zeros((2, 1 << 17), dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="limits"):
+        ck.identity_counts(codes, 1.0, 5)
 
 
 @pytest.mark.gpu

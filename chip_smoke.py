@@ -13,7 +13,12 @@ Builds the port's CUDA kernels from ``pydca_tpu_torch/csrc`` with nvcc
 - mean-field: checks ``weighted_gram`` against its plain version and times
   it beside one library matmul and its bound (phase 5), drives ``mfdca
   compute_fn --apc`` at protein scale (N = 4096, L = 1000, q = 21; phase 6)
-  and compares a CPU and a GPU run of a PF02826-width family (phase 7).
+  and compares a CPU and a GPU run of a PF02826-width family (phase 7);
+- DI: drives ``plmdca compute_di --apc`` at PF02826 width, deep (phase 8)
+  and ``mfdca compute_di --apc`` at protein scale (phase 9), each with the
+  two-site fixed point's time, iteration histogram and bound, then holds
+  DI-APC on the CPU against the card on the engines of phases 4 and 7 and
+  writes ``compute_params`` from their card engines (phase 10).
 
 One line per phase; the next-to-last line is the kernel record (JSON), the
 last line the device record (JSON).  Exits non-zero, with no result, when
@@ -34,6 +39,7 @@ import numpy as np
 import torch
 
 from pydca_tpu_torch import alphabets
+from pydca_tpu_torch import score
 from pydca_tpu_torch.cli import mfdca_main, plmdca_main
 from pydca_tpu_torch.device import set_precision
 from pydca_tpu_torch.ops import _build
@@ -367,6 +373,160 @@ def phase_meanfield_cpu_vs_cuda(tmp):
           f"difference {diff:.3e} (1.583e-04 with the fp32 CUDA-core Gram kernel), "
           f"relative to the largest score {rel:.3e}; "
           f"wall cpu {runs['cpu'][2]:.2f} s cuda {runs['cuda'][2]:.2f} s", flush=True)
+    return fa, runs
+
+
+def check_ranked(scores, l, pairs, what):
+    """A ranked score list: every pair once, finite, descending, and the
+    planted pairs at the calibrated share among the top."""
+    check(len(scores) == l * (l - 1) // 2,
+          f"{what}: {len(scores)} score lines, expected {l * (l - 1) // 2}")
+    vals = np.array([s for _, s in scores])
+    check(bool(np.isfinite(vals).all()), f"{what}: non-finite scores")
+    check(bool((np.diff(vals) <= 0).all()), f"{what}: scores not in descending order")
+    share = planted_recovery(scores, pairs, PLANTED_TOP)
+    check(share >= PLANTED_MIN_SHARE,
+          f"{what}: planted pairs in top {PLANTED_TOP}: {share:.2f} < {PLANTED_MIN_SHARE}")
+    return share
+
+
+def two_site_report(inst, q, itemsize):
+    """The fixed point of a DI run: iteration histogram, the live pairs at
+    each compaction, its bytes bound (each live pair reads its exp(J) block
+    and the transpose, 2*q^2 elements, once per iteration, at 3.35 TB/s)
+    and its share of the bound; checks that the live counts only fall."""
+    st = inst.two_site_stats
+    iters = st.iters.cpu().numpy()
+    lives = [n for _, n, _ in st.live]
+    check(lives == sorted(lives, reverse=True), f"live pair counts rose: {lives}")
+    compactions = [(k, n) for (k, n, ws), nxt in zip(st.live, st.live[1:]) if nxt[2] < ws]
+    bound_ms = 1e3 * float(iters.sum()) * 2 * q * q * itemsize / PEAK["bytes"]
+    fixed_s = inst.timers.elapsed("two_site")
+    text = (f"fixed point {fixed_s:.3f} s over {len(iters)} pairs, iterations median "
+            f"{np.median(iters):.0f} p99 {np.percentile(iters, 99):.0f} max {iters.max()}, "
+            f"{int(iters.sum())} pair-iterations, {len(st.live)} host reads; live pairs "
+            f"at each compaction (iteration, live) {compactions}; bound {bound_ms:.4f} ms "
+            f"by bytes ({100 * bound_ms / (1e3 * fixed_s):.2f}% of it)")
+    return text, bound_ms, compactions
+
+
+def fixed_point_device(inst, l, q):
+    """One more run of the engine's fixed point under torch.profiler: its
+    host wall and the device time of all its kernels (ms)."""
+    blocks, fi = inst.coupling_blocks(), inst.get_reg_single_site_freqs()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        score.two_site_model_fields(blocks, fi, l, q)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    return wall, sum(e.device_time_total for e in prof.key_averages()) / 1e3
+
+
+def stage_text(inst, names):
+    return " ".join(f"{s} {inst.timers.elapsed(s):.3f} s" for s in names)
+
+
+def phase_plm_di(tmp):
+    """``plmdca compute_di --apc`` at PF02826 width, deep, through the CLI."""
+    n, l, q = MAIN_SHAPE
+    codes, pairs = planted_family(n, l, q, seed=0, n_pairs=20)
+    fa = os.path.join(tmp, "planted_protein_di.fa")
+    write_family_fasta(fa, codes, alphabets.PROTEIN)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    inst = plmdca_main.run_plm_dca([
+        "compute_di", "protein", fa, "--apc", "--max_iterations", "100",
+        "--device", "cuda", "--output_dir", os.path.join(tmp, "plm_di"),
+    ])
+    wall = time.perf_counter() - t0
+    launches = ck.identity_counts.launches
+    check(launches > 0, "the plm DI path never launched the identity_counts kernel")
+    header, scores = read_scores(os.path.join(tmp, "plm_di", "PLMDCA_apc_di_scores_planted_protein_di.txt"))
+    check(len(header) > 0, "output has no # header")
+    share = check_ranked(scores, l, pairs, "plm DI-APC")
+    res = inst.fit_result
+    report, _, _ = two_site_report(inst, q, 4)
+    print(f"phase 8 plm DI path N={inst.num_sequences} L={l} q={q}: {len(scores)} pairs, "
+          f"planted recovery {share:.2f} (top {PLANTED_TOP}); fit {res.num_iters} iterations "
+          f"converged {res.converged}; "
+          f"{stage_text(inst, ('weights', 'fit', 'blocks', 'two_site', 'di', 'sort'))}; "
+          f"{report}; CLI wall {wall:.3f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel launches "
+          f"{{'identity_counts': {launches}}}", flush=True)
+
+
+def phase_mf_di(tmp):
+    """``mfdca compute_di --apc`` at protein scale through the CLI: both
+    kernels, the Gram once."""
+    n, l, q = MF_SHAPE
+    codes, pairs = planted_family(n, l, q, seed=2, n_pairs=20)
+    fa = os.path.join(tmp, "planted_mf_di.fa")
+    write_family_fasta(fa, codes, alphabets.PROTEIN)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    inst = mfdca_main.run_meanfield_dca([
+        "compute_di", "protein", fa, "--apc", "--device", "cuda",
+        "--output_dir", os.path.join(tmp, "mf_di"),
+    ])
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(ck, k).launches for k in KERNELS}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for k, v in launches.items():
+        check(v > 0, f"the mean-field DI path never launched the {k} kernel")
+    check(launches["weighted_gram"] == 1,
+          f"the mean-field DI path launched weighted_gram {launches['weighted_gram']} times")
+    header, scores = read_scores(os.path.join(tmp, "mf_di", "MFDCA_apc_di_scores_planted_mf_di.txt"))
+    check(len(header) > 0, "output has no # header")
+    share = check_ranked(scores, l, pairs, "mean-field DI-APC")
+    report, bound_ms, compactions = two_site_report(inst, q, 4)
+    check(len(compactions) > 0, "the protein-scale fixed point never compacted")
+    wall_ms, dev_ms = fixed_point_device(inst, l, q)
+    stages = ("weights", "gram", "corr", "inverse", "score", "blocks", "two_site", "di", "sort")
+    print(f"phase 9 mean-field DI path N={inst.num_sequences} L={l} q={q}: {len(scores)} pairs, "
+          f"planted recovery {share:.2f} (top {PLANTED_TOP}); {stage_text(inst, stages)}; "
+          f"{report}; again under torch.profiler: wall {wall_ms:.3f} ms, device {dev_ms:.3f} ms "
+          f"(idle {100 * (1 - dev_ms / wall_ms):.1f}%, {100 * bound_ms / dev_ms:.2f}% of the "
+          f"bound by device time); CLI wall {wall:.3f} s; peak memory {peak:.2f} GiB; "
+          f"LU fallback {inst.lu_fallback}; kernel launches {launches}", flush=True)
+
+
+def count_rows(path):
+    with open(path) as fh:
+        return sum(1 for line in fh if not line.startswith("#"))
+
+
+def phase_di_cpu_vs_cuda(tmp, plm_fa, plm_runs, mf_fa, mf_runs):
+    """DI-APC of the engines of phases 4 and 7 on the CPU against the card
+    (no second fit), then ``compute_params`` from their card engines."""
+    parts = []
+    for what, runs, l in (("plm", plm_runs, RNA_SHAPE[1]), ("mean-field", mf_runs, PF_SHAPE[1])):
+        di = {d: runs[d][0].compute_sorted_DI_APC() for d in ("cpu", "cuda")}
+        rho = spearman(di["cpu"], di["cuda"], l)
+        top = top_k_overlap(di["cpu"], di["cuda"], 20)
+        check(rho >= 0.98 and top >= 0.9,
+              f"CPU vs GPU {what} DI-APC: spearman {rho:.4f}, top-20 overlap {top:.2f}")
+        a, b = dict(di["cpu"]), dict(di["cuda"])
+        diff = max(abs(a[k] - b[k]) for k in a)
+        rel = diff / max(abs(v) for v in a.values())
+        parts.append(f"{what} L={l}: spearman {rho:.4f} top-20 overlap {top:.2f}, largest "
+                     f"DI-APC difference {diff:.3e} ({rel:.3e} of the largest score)")
+    for what, cli, fa, runs, l in (("mfdca", mfdca_main, mf_fa, mf_runs, PF_SHAPE[1]),
+                                   ("plmdca", plmdca_main, plm_fa, plm_runs, RNA_SHAPE[1])):
+        out = os.path.join(tmp, f"{what}_params")
+        os.makedirs(out)
+        cli.write_outputs(runs["cuda"][0], "compute_params", fa, out)
+        stem = os.path.splitext(os.path.basename(fa))[0]
+        rows = {k: count_rows(os.path.join(out, f"{k}_{stem}.txt")) for k in ("fields", "couplings")}
+        check(rows == {"fields": l, "couplings": l},
+              f"{what} compute_params wrote {rows} rows, expected {l} each")
+        parts.append(f"{what} compute_params on the card: {rows['fields']} field rows, "
+                     f"{rows['couplings']} coupling rows")
+    print("phase 10 DI-APC cpu vs cuda; " + "; ".join(parts), flush=True)
 
 
 def read_scores(path):
@@ -475,10 +635,17 @@ def main() -> int:
               f"cuda {runs['cuda'][0].fit_result.num_iters}; wall cpu "
               f"{runs['cpu'][2]:.2f} s cuda {runs['cuda'][2]:.2f} s", flush=True)
 
+        plm_fa, plm_runs = fa, runs
+
         # ---- phases 5-7: the mean-field path
         gram_err, gram_timing = phase_gram(dev)
         mf_launches = phase_meanfield(tmp)
-        phase_meanfield_cpu_vs_cuda(tmp)
+        mf_fa, mf_runs = phase_meanfield_cpu_vs_cuda(tmp)
+
+        # ---- phases 8-10: DI on both paths, compute_params
+        phase_plm_di(tmp)
+        phase_mf_di(tmp)
+        phase_di_cpu_vs_cuda(tmp, plm_fa, plm_runs, mf_fa, mf_runs)
 
     records = []
     for name, (ms, plain_ms, lib_ms, bound), n_launch, err in (

@@ -1,13 +1,15 @@
 """``mfdca`` entry point of the port — mean-field DCA.
 
 Port of ``pydca_tpu/cli/mfdca_main.py`` (which mirrors the reference CLI,
-``pydca/mfdca_main.py``): same subcommands, flags and output naming
-``MFDCA_{apc,raw}_fn_scores_<msa>.txt``, plus ``--device {cuda,cpu}``.
-Ported so far: ``compute_fn`` with and without ``--apc`` on one device.
-Every other subcommand and flag value is accepted by the parser and
-rejected with ``NotImplementedError`` naming its ROADMAP item.
+``pydca/mfdca_main.py``): same subcommands, flags and output files, plus
+``--device {cuda,cpu}``.  Ported: ``compute_fn``, ``compute_di`` (each
+with and without ``--apc``), ``compute_fields``, ``compute_params``,
+``compute_fi``, ``compute_fij`` and ``compute_weights`` on one device.
+``warmup``, ``compute_fn_batch``, ``--refseq_file`` and a mesh over more
+than one card are accepted by the parser and rejected with
+``NotImplementedError`` naming their ROADMAP item.
 
-Run as ``python -m pydca_tpu_torch.cli.mfdca_main compute_fn protein
+Run as ``python -m pydca_tpu_torch.cli.mfdca_main compute_di protein
 <msa> --apc --device cuda``.
 """
 
@@ -25,14 +27,18 @@ from ..meanfield import MeanFieldDCA
 
 logger = logging.getLogger(__name__)
 
+DCA_COMPUTATION_SUBCOMMANDS = (
+    "compute_di",
+    "compute_fn",
+    "compute_params",
+    "compute_fi",
+    "compute_fij",
+    "compute_fields",
+    "compute_weights",
+)
+
 # subcommand -> the ROADMAP Queue 1 item that ports it
 _UNPORTED_COMMANDS = {
-    "compute_di": "Queue 1 #8 (DI scoring)",
-    "compute_params": "Queue 1 #9 (mfdca compute_params)",
-    "compute_fi": "Queue 1 #9 (mfdca compute_fi)",
-    "compute_fij": "Queue 1 #9 (mfdca compute_fij)",
-    "compute_fields": "Queue 1 #9 (mfdca compute_fields)",
-    "compute_weights": "Queue 1 #9 (mfdca compute_weights)",
     "warmup": "Queue 1 #14 (cold start / warmup)",
     "compute_fn_batch": "Queue 1 #11 (family batches)",
 }
@@ -45,13 +51,13 @@ def build_parser() -> argparse.ArgumentParser:
     )
     subparsers = parser.add_subparsers(dest="the_command", required=True)
     for name, desc in [
-        ("compute_di", "compute direct-information DCA scores (not ported)"),
+        ("compute_di", "compute direct-information DCA scores"),
         ("compute_fn", "compute Frobenius-norm DCA scores"),
-        ("compute_params", "extract fields and ranked couplings (not ported)"),
-        ("compute_fi", "compute (regularized) single-site frequencies (not ported)"),
-        ("compute_fij", "compute (regularized) pair-site frequencies (not ported)"),
-        ("compute_fields", "compute local fields (not ported)"),
-        ("compute_weights", "compute per-sequence reweighting factors (not ported)"),
+        ("compute_params", "extract fields and ranked couplings"),
+        ("compute_fi", "compute (regularized) single-site frequencies"),
+        ("compute_fij", "compute (regularized) pair-site frequencies"),
+        ("compute_fields", "compute local fields"),
+        ("compute_weights", "compute per-sequence reweighting factors"),
     ]:
         sp = subparsers.add_parser(name, help=desc)
         sp.add_argument("biomolecule", choices=["protein", "PROTEIN", "rna", "RNA"])
@@ -133,6 +139,9 @@ def execute_from_command_line(
     verbose=False,
     output_dir=None,
     apc=False,
+    ranked_by=None,
+    linear_dist=None,
+    num_site_pairs=None,
     mesh="auto",
     device="cuda",
 ):
@@ -151,25 +160,127 @@ def execute_from_command_line(
         base, _ = os.path.splitext(os.path.basename(msa_file))
         output_dir = "MFDCA_output_" + base
     dca_utilities.create_directories(output_dir)
-
-    if apc:
-        score_type = "MFDCA Frobenius norm, average product corrected (APC)"
-        sorted_fn = inst.compute_sorted_FN_APC()
-        prefix = "MFDCA_apc_fn_scores_"
-    else:
-        score_type = "MFDCA raw Frobenius norm"
-        sorted_fn = inst.compute_sorted_FN()
-        prefix = "MFDCA_raw_fn_scores_"
-    path = dca_utilities.get_dca_output_file_path(
-        output_dir, msa_file, prefix=prefix, postfix=".txt"
-    )
-    # the header holds Meff, which the pipeline has computed by now
-    dca_utilities.write_sorted_dca_scores(
-        path, sorted_fn, metadata=dca_utilities.mfdca_param_metadata(inst),
-        score_type=score_type,
-    )
+    write_outputs(inst, the_command, msa_file, output_dir, apc=apc,
+                  ranked_by=ranked_by, linear_dist=linear_dist,
+                  num_site_pairs=num_site_pairs)
     logger.info("mfDCA stage timings:\n%s", inst.timers.summary())
     return inst
+
+
+def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
+                  ranked_by=None, linear_dist=None, num_site_pairs=None):
+    """Compute what ``the_command`` asks of the engine ``inst`` and write its
+    files into ``output_dir`` (``pydca_tpu/cli/mfdca_main.py:154-277``).
+    Each header is built after the compute: it holds Meff, the weights'
+    sum, which the compute has made by then."""
+    if the_command not in DCA_COMPUTATION_SUBCOMMANDS:
+        raise SystemExit(f"unknown command {the_command}")
+
+    def param_metadata():
+        return dca_utilities.mfdca_param_metadata(inst)
+
+    def path_of(prefix):
+        return dca_utilities.get_dca_output_file_path(
+            output_dir, msa_file, prefix=prefix, postfix=".txt"
+        )
+
+    if the_command == "compute_di":
+        if apc:
+            sorted_di = inst.compute_sorted_DI_APC()
+            score_type = " MF DI average product corrected (APC)"
+            path = path_of("MFDCA_apc_di_scores_")
+        else:
+            sorted_di = inst.compute_sorted_DI()
+            score_type = "raw DI"
+            path = path_of("MFDCA_raw_di_scores_")
+        dca_utilities.write_sorted_dca_scores(
+            path, sorted_di, metadata=param_metadata(), score_type=score_type
+        )
+
+    if the_command == "compute_fn":
+        if apc:
+            score_type = "MFDCA Frobenius norm, average product corrected (APC)"
+            sorted_fn = inst.compute_sorted_FN_APC()
+            path = path_of("MFDCA_apc_fn_scores_")
+        else:
+            score_type = "MFDCA raw Frobenius norm"
+            sorted_fn = inst.compute_sorted_FN()
+            path = path_of("MFDCA_raw_fn_scores_")
+        dca_utilities.write_sorted_dca_scores(
+            path, sorted_fn, metadata=param_metadata(), score_type=score_type
+        )
+
+    if the_command == "compute_fields":
+        fields = inst.compute_fields()
+        metadata = param_metadata() + dca_utilities.residue_repr_metadata(
+            inst.biomolecule
+        )
+        dca_utilities.write_fields_csv(
+            path_of("fields_"), sorted(fields.items()), metadata=metadata
+        )
+
+    if the_command == "compute_params":
+        fields, couplings = inst.compute_params(
+            ranked_by=ranked_by,
+            linear_dist=linear_dist,
+            num_site_pairs=num_site_pairs,
+        )
+        meta = list(param_metadata())
+        meta.append(
+            "#\tTotal number of sites whose fields are extracted: {}".format(
+                len(fields)
+            )
+        )
+        dca_utilities.write_fields_csv(path_of("fields_"), fields, metadata=meta)
+        meta = list(param_metadata())
+        meta.append(
+            "#\tTotal number of site pairs whose couplings are extracted: {}".format(
+                len(couplings)
+            )
+        )
+        meta.append(
+            "#\tDCA ranking method used: {}".format(
+                (ranked_by or "FN_APC").upper()
+            )
+        )
+        meta.append(
+            "#\tMinimum separation beteween site pairs in sequence: |i - j| > {}".format(
+                linear_dist if linear_dist is not None else 4
+            )
+        )
+        dca_utilities.write_couplings_csv(path_of("couplings_"), couplings, metadata=meta)
+
+    if the_command == "compute_weights":
+        weights = inst.get_sequences_weight().cpu().numpy()
+        dca_utilities.write_sequence_weights(
+            path_of("weights_"), weights, ids=inst.msa.ids, metadata=param_metadata()
+        )
+
+    if the_command == "compute_fi":
+        fi = inst.get_reg_single_site_freqs().cpu().numpy()
+        metadata = param_metadata() + dca_utilities.residue_repr_metadata(
+            inst.biomolecule
+        )
+        dca_utilities.write_single_site_freqs(
+            path_of("fi_"),
+            fi,
+            seqs_len=inst.sequences_len,
+            num_site_states=inst.num_site_states,
+            metadata=metadata,
+        )
+
+    if the_command == "compute_fij":
+        fij = inst.get_reg_pair_site_freqs().cpu().numpy()
+        metadata = param_metadata() + dca_utilities.residue_repr_metadata(
+            inst.biomolecule
+        )
+        dca_utilities.write_pair_site_freqs(
+            path_of("fij_"),
+            fij,
+            seqs_len=inst.sequences_len,
+            num_site_states=inst.num_site_states,
+            metadata=metadata,
+        )
 
 
 def run_meanfield_dca(argv=None):
@@ -185,6 +296,9 @@ def run_meanfield_dca(argv=None):
         verbose=args.verbose,
         output_dir=args.output_dir,
         apc=args.apc,
+        ranked_by=getattr(args, "ranked_by", None),
+        linear_dist=getattr(args, "linear_dist", None),
+        num_site_pairs=getattr(args, "num_site_pairs", None),
         mesh=args.mesh,
         device=args.device,
     )

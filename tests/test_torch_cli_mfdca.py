@@ -84,12 +84,6 @@ def test_planted_pairs_recovered(tmp_path):
 @pytest.mark.parametrize(
     "extra,match",
     [
-        (["compute_di"], "Queue 1 #8"),
-        (["compute_params"], "Queue 1 #9 \\(mfdca compute_params"),
-        (["compute_fi"], "Queue 1 #9 \\(mfdca compute_fi\\)"),
-        (["compute_fij"], "Queue 1 #9 \\(mfdca compute_fij"),
-        (["compute_fields"], "Queue 1 #9 \\(mfdca compute_fields"),
-        (["compute_weights"], "Queue 1 #9 \\(mfdca compute_weights"),
         (["warmup"], "Queue 1 #14"),
         (["compute_fn_batch"], "Queue 1 #11"),
         (["compute_fn", "--refseq_file", "ref.fa"], "Queue 1 #12"),

@@ -161,3 +161,46 @@ def test_meanfield_cuda_equals_cpu(cuda):
     assert torch.equal(runs["cpu"][0], runs["cuda"][0])
     assert spearman(runs["cpu"][1], runs["cuda"][1], 80) >= 0.98
     assert top_k_overlap(runs["cpu"][1], runs["cuda"][1], 20) >= 0.9
+
+
+@pytest.mark.gpu
+def test_two_site_fixed_point_cuda_equals_cpu(cuda):
+    from pydca_tpu_torch import score
+
+    l, q = 60, 21
+    rng = np.random.default_rng(6)
+    blocks = torch.tensor(rng.normal(scale=0.5, size=(l * (l - 1) // 2, q - 1, q - 1)))
+    fi = torch.tensor(0.5 / q + 0.5 * rng.dirichlet(np.full(q, 0.5), size=l))
+    hi_c, hj_c, st_c = score.two_site_model_fields(blocks, fi, l, q, return_iters=True)
+    hi_g, hj_g, st_g = score.two_site_model_fields(
+        blocks.to(cuda), fi.to(cuda), l, q, return_iters=True
+    )
+    torch.testing.assert_close(hi_g.cpu(), hi_c, rtol=1e-10, atol=0)
+    torch.testing.assert_close(hj_g.cpu(), hj_c, rtol=1e-10, atol=0)
+    assert torch.equal(st_g.iters.cpu(), st_c.iters)
+    di_c = score.direct_information(blocks, fi, l, q)
+    di_g = score.direct_information(blocks.to(cuda), fi.to(cuda), l, q)
+    torch.testing.assert_close(di_g.cpu(), di_c, rtol=1e-10, atol=1e-15)
+
+
+@pytest.mark.gpu
+def test_protein_scale_coupling_blocks_gather_memory(cuda):
+    """L = 1000, q = 21: the (P, 20, 20) gather from the permuted view of
+    the 20000^2 couplings holds at most couplings + 2 x blocks."""
+    from pydca_tpu_torch.meanfield import _pair_blocks
+
+    l, qm1 = 1000, 20
+    couplings = torch.randn(l * qm1, l * qm1, device=cuda)
+    p = l * (l - 1) // 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    blocks = _pair_blocks(couplings, l, qm1)
+    torch.cuda.synchronize()
+    block_bytes = p * qm1 * qm1 * 4
+    assert torch.cuda.max_memory_allocated() <= base + 2 * block_bytes
+    assert blocks.shape == (p, qm1, qm1)
+    j4 = couplings.reshape(l, qm1, l, qm1)
+    iu, ju = np.triu_indices(l, k=1)
+    for k in (0, 123456, p - 1):
+        assert torch.equal(blocks[k], j4[iu[k], :, ju[k], :])

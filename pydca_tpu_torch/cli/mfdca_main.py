@@ -27,16 +27,6 @@ from ..meanfield import MeanFieldDCA
 
 logger = logging.getLogger(__name__)
 
-DCA_COMPUTATION_SUBCOMMANDS = (
-    "compute_di",
-    "compute_fn",
-    "compute_params",
-    "compute_fi",
-    "compute_fij",
-    "compute_fields",
-    "compute_weights",
-)
-
 # subcommand -> the ROADMAP Queue 1 item that ports it
 _UNPORTED_COMMANDS = {
     "warmup": "Queue 1 #14 (cold start / warmup)",
@@ -173,9 +163,6 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
     files into ``output_dir`` (``pydca_tpu/cli/mfdca_main.py:154-277``).
     Each header is built after the compute: it holds Meff, the weights'
     sum, which the compute has made by then."""
-    if the_command not in DCA_COMPUTATION_SUBCOMMANDS:
-        raise SystemExit(f"unknown command {the_command}")
-
     def param_metadata():
         return dca_utilities.mfdca_param_metadata(inst)
 
@@ -225,30 +212,10 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
             linear_dist=linear_dist,
             num_site_pairs=num_site_pairs,
         )
-        meta = list(param_metadata())
-        meta.append(
-            "#\tTotal number of sites whose fields are extracted: {}".format(
-                len(fields)
-            )
+        dca_utilities.write_params(
+            path_of("fields_"), path_of("couplings_"), fields, couplings,
+            param_metadata(), ranked_by=ranked_by, linear_dist=linear_dist,
         )
-        dca_utilities.write_fields_csv(path_of("fields_"), fields, metadata=meta)
-        meta = list(param_metadata())
-        meta.append(
-            "#\tTotal number of site pairs whose couplings are extracted: {}".format(
-                len(couplings)
-            )
-        )
-        meta.append(
-            "#\tDCA ranking method used: {}".format(
-                (ranked_by or "FN_APC").upper()
-            )
-        )
-        meta.append(
-            "#\tMinimum separation beteween site pairs in sequence: |i - j| > {}".format(
-                linear_dist if linear_dist is not None else 4
-            )
-        )
-        dca_utilities.write_couplings_csv(path_of("couplings_"), couplings, metadata=meta)
 
     if the_command == "compute_weights":
         weights = inst.get_sequences_weight().cpu().numpy()

@@ -227,26 +227,10 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
             linear_dist=linear_dist,
             num_site_pairs=num_site_pairs,
         )
-        meta = list(param_metadata)
-        meta.append(
-            "#\tTotal number of sites whose fields are extracted: {}".format(
-                len(fields)
-            )
+        dca_utilities.write_params(
+            path_of("fields_"), path_of("couplings_"), fields, couplings,
+            param_metadata, ranked_by=ranked_by, linear_dist=linear_dist,
         )
-        dca_utilities.write_fields_csv(path_of("fields_"), fields, metadata=meta)
-        meta = list(param_metadata)
-        meta.append(
-            "#\tTotal number of site pairs whose couplings are extracted: {}".format(
-                len(couplings)
-            )
-        )
-        meta.append("#\tDCA ranking method used: {}".format((ranked_by or "FN_APC").upper()))
-        meta.append(
-            "#\tMinimum separation beteween site pairs in sequence: |i - j| > {}".format(
-                linear_dist if linear_dist is not None else 4
-            )
-        )
-        dca_utilities.write_couplings_csv(path_of("couplings_"), couplings, metadata=meta)
 
 
 def run_plm_dca(argv=None):

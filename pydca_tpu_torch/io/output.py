@@ -4,7 +4,8 @@ header blocks.
 Copy of the writers of ``pydca_tpu/io/output.py`` that the ported
 subcommands use, which replicate the reference's output formats exactly
 (``pydca/dca_utilities/dca_utilities.py``): site pairs are written
-1-indexed and files carry ``#`` metadata headers.
+1-indexed and files carry ``#`` metadata headers.  :func:`write_params`
+writes ``compute_params``' two files for both CLIs.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ __all__ = [
     "write_sorted_dca_scores",
     "write_couplings_csv",
     "write_fields_csv",
+    "write_params",
     "write_single_site_freqs",
     "write_pair_site_freqs",
     "write_sequence_weights",
@@ -150,6 +152,34 @@ def write_fields_csv(file_name, fields, metadata=None) -> None:
             for f in site_fields:
                 fh.write(f",{f}")
             fh.write("\n")
+
+
+def write_params(
+    fields_file, couplings_file, fields, couplings, metadata,
+    ranked_by=None, linear_dist=None,
+) -> None:
+    """``compute_params``' two files: the fields and the ranked couplings,
+    each under ``metadata`` and its own count lines
+    (``pydca_tpu/cli/mfdca_main.py:198-234``,
+    ``pydca_tpu/cli/plmdca_main.py:233-265``)."""
+    meta = list(metadata)
+    meta.append(
+        "#\tTotal number of sites whose fields are extracted: {}".format(len(fields))
+    )
+    write_fields_csv(fields_file, fields, metadata=meta)
+    meta = list(metadata)
+    meta.append(
+        "#\tTotal number of site pairs whose couplings are extracted: {}".format(
+            len(couplings)
+        )
+    )
+    meta.append("#\tDCA ranking method used: {}".format((ranked_by or "FN_APC").upper()))
+    meta.append(
+        "#\tMinimum separation beteween site pairs in sequence: |i - j| > {}".format(
+            linear_dist if linear_dist is not None else 4
+        )
+    )
+    write_couplings_csv(couplings_file, couplings, metadata=meta)
 
 
 def write_single_site_freqs(

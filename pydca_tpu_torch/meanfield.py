@@ -216,16 +216,10 @@ class MeanFieldDCA:
 
         Kept once computed, from the pipeline's Gram or the cached one, so
         DI and the fields launch no second Gram (the Gram kernel is
-        deterministic: the values are the same).  Without either, a Gram is
-        built for it and not kept.
+        deterministic: the values are the same).
         """
         if self.__fi is None:
-            gram = self.__gram
-            if gram is None:
-                gram = stats.weighted_gram(
-                    self._msa_tensor(), self.get_sequences_weight(), self.msa.q
-                )
-            self.__fi = _gram_fi(gram, self.msa.seqs_len, self.msa.q)
+            self.__fi = _gram_fi(self._get_gram(), self.msa.seqs_len, self.msa.q)
         return self.__fi
 
     def get_reg_single_site_freqs(self) -> torch.Tensor:
@@ -412,20 +406,8 @@ class MeanFieldDCA:
     def _di_scores(self) -> torch.Tensor:
         """DI (P,) on the device, each step a timed stage; the fixed point's
         statistics are kept in ``two_site_stats``."""
-        l, q = self.msa.seqs_len, self.msa.q
         self.compute_couplings()  # the pipeline times its own stages
-        with self.timers.stage("blocks"):
-            blocks = self.coupling_blocks()
-            fi_reg = self.get_reg_single_site_freqs()
-            sync(self.device)
-        with self.timers.stage("two_site"):
-            hi, hj, self.two_site_stats = score_mod.two_site_model_fields(
-                blocks, fi_reg, l, q, return_iters=True
-            )
-            sync(self.device)
-        with self.timers.stage("di"):
-            di = score_mod.di_from_fields(blocks, hi, hj, fi_reg, l, q)
-            sync(self.device)
+        di, self.two_site_stats = score_mod.engine_di(self)
         return di
 
     def compute_sorted_FN(self, seqbackmapper=None):

@@ -769,20 +769,8 @@ class PlmDCA:
     def _di_scores(self) -> torch.Tensor:
         """DI (P,) on the device, each step a timed stage; the fixed point's
         statistics are kept in ``two_site_stats``."""
-        l, q = self.msa.seqs_len, self.msa.q
         self._theta()  # the fit is timed as its own stage
-        with self.timers.stage("blocks"):
-            blocks = self.coupling_blocks()
-            fi_reg = self.get_reg_single_site_freqs()
-            sync(self.device)
-        with self.timers.stage("two_site"):
-            hi, hj, self.two_site_stats = score_mod.two_site_model_fields(
-                blocks, fi_reg, l, q, return_iters=True
-            )
-            sync(self.device)
-        with self.timers.stage("di"):
-            di = score_mod.di_from_fields(blocks, hi, hj, fi_reg, l, q)
-            sync(self.device)
+        di, self.two_site_stats = score_mod.engine_di(self)
         return di
 
     def _sorted(self, scores: torch.Tensor):

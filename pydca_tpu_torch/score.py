@@ -18,6 +18,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .device import sync
+
 __all__ = [
     "gauge_shift",
     "frobenius_norms",
@@ -28,6 +30,7 @@ __all__ = [
     "two_site_model_fields",
     "di_from_fields",
     "direct_information",
+    "engine_di",
     "reject_seqbackmapper",
     "ranking_method",
     "ranked_pairs",
@@ -253,15 +256,32 @@ def di_from_fields(
 
 
 def direct_information(
-    blocks: torch.Tensor, fi_reg: torch.Tensor, l: int, q: int, *,
-    return_iters: bool = False,
-):
+    blocks: torch.Tensor, fi_reg: torch.Tensor, l: int, q: int
+) -> torch.Tensor:
     """Direct information per pair, ``(P,)``: :func:`two_site_model_fields`
-    then :func:`di_from_fields`.  With ``return_iters=True`` returns
-    ``(di, TwoSiteStats)``."""
-    hi, hj, stats = two_site_model_fields(blocks, fi_reg, l, q, return_iters=True)
-    di = di_from_fields(blocks, hi, hj, fi_reg, l, q)
-    return (di, stats) if return_iters else di
+    then :func:`di_from_fields`."""
+    hi, hj = two_site_model_fields(blocks, fi_reg, l, q)
+    return di_from_fields(blocks, hi, hj, fi_reg, l, q)
+
+
+def engine_di(engine) -> Tuple[torch.Tensor, TwoSiteStats]:
+    """An engine's DI ``(P,)`` on its device and the fixed point's
+    statistics, in three timed stages of ``engine.timers``: ``blocks`` (the
+    coupling blocks and the regularized ``fi``), ``two_site`` (the fixed
+    point) and ``di``.  The engine has fitted its couplings already."""
+    l, q = engine.msa.seqs_len, engine.msa.q
+    timers, device = engine.timers, engine.device
+    with timers.stage("blocks"):
+        blocks = engine.coupling_blocks()
+        fi_reg = engine.get_reg_single_site_freqs()
+        sync(device)
+    with timers.stage("two_site"):
+        hi, hj, stats = two_site_model_fields(blocks, fi_reg, l, q, return_iters=True)
+        sync(device)
+    with timers.stage("di"):
+        di = di_from_fields(blocks, hi, hj, fi_reg, l, q)
+        sync(device)
+    return di, stats
 
 
 def reject_seqbackmapper(seqbackmapper) -> None:

@@ -174,10 +174,6 @@ def test_return_iters_is_off_by_default():
     assert len(out) == 2
     di = tscore.direct_information(torch.tensor(blocks), torch.tensor(fi), l, q)
     assert di.shape == (l * (l - 1) // 2,)
-    di2, st = tscore.direct_information(
-        torch.tensor(blocks), torch.tensor(fi), l, q, return_iters=True
-    )
-    assert torch.equal(di, di2) and st.iters.shape == di.shape
 
 
 # --------------------------------------------------------- mean-field engine
@@ -288,6 +284,33 @@ def test_meanfield_di_path_builds_one_gram(monkeypatch):
                                   .reshape(-1, 21).numpy())
     t.get_reg_pair_site_freqs()
     assert len(calls) == 2 and t._MeanFieldDCA__gram is not None
+
+
+@pytest.mark.parametrize("explicit_fi", [False, True])
+def test_meanfield_freqs_before_the_pipeline_build_one_gram(monkeypatch, explicit_fi):
+    """Called before any couplings, fi then fij (or C from one given
+    frequency) share one cached Gram."""
+    calls = []
+    gram = tstats.weighted_gram
+
+    def counting(*args):
+        calls.append(1)
+        return gram(*args)
+
+    monkeypatch.setattr(tstats, "weighted_gram", counting)
+    _, j, t = engines("small_msa", torch.float64)
+    fi = t.get_reg_single_site_freqs()
+    if explicit_fi:
+        c = t.construct_corr_mat(reg_fi=fi)
+        np.testing.assert_allclose(c.numpy(), np.asarray(j.construct_corr_mat()),
+                                   rtol=1e-10, atol=1e-14)
+    else:
+        fij = t.get_reg_pair_site_freqs()
+        np.testing.assert_allclose(fij.numpy(), np.asarray(j.get_reg_pair_site_freqs()),
+                                   rtol=1e-10, atol=1e-14)
+    np.testing.assert_allclose(fi.numpy(), np.asarray(j.get_reg_single_site_freqs()),
+                               rtol=1e-10, atol=1e-14)
+    assert len(calls) == 1
 
 
 @pytest.mark.parametrize("which", MF_FAMILIES)

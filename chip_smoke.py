@@ -18,7 +18,13 @@ Builds the port's CUDA kernels from ``pydca_tpu_torch/csrc`` with nvcc
   and ``mfdca compute_di --apc`` at protein scale (phase 9), each with the
   two-site fixed point's time, iteration histogram and bound, then holds
   DI-APC on the CPU against the card on the engines of phases 4 and 7 and
-  writes ``compute_params`` from their card engines (phase 10).
+  writes ``compute_params`` from their card engines (phase 10);
+- streaming of deep alignments: ``plmdca compute_fn --apc`` at PF02826
+  width past the 1 GiB logits threshold (N = 70000), where the engine
+  streams by itself, held to a fused fit of the same codes and weights on
+  the card (phase 11), and ``PlmDCA`` at N = 10^5, L = 1000, q = 21 for two
+  iterations, with one streamed evaluation under ``torch.profiler``
+  (phase 12).
 
 One line per phase; the next-to-last line is the kernel record (JSON), the
 last line the device record (JSON).  Exits non-zero, with no result, when
@@ -39,9 +45,11 @@ import numpy as np
 import torch
 
 from pydca_tpu_torch import alphabets
+from pydca_tpu_torch import plm
 from pydca_tpu_torch import score
 from pydca_tpu_torch.cli import mfdca_main, plmdca_main
 from pydca_tpu_torch.device import set_precision
+from pydca_tpu_torch.io.fasta import MSA
 from pydca_tpu_torch.ops import _build
 from pydca_tpu_torch.ops import cuda_kernels as ck
 from pydca_tpu_torch.synthetic import (
@@ -59,6 +67,8 @@ RNA_DEEP_SHAPE = (100000, 120, 5)  # the JAX package's deep weights shape (bench
 RNA_SHAPE = (2704, 102, 5)  # RF00167 shape
 PF_SHAPE = (2030, 195, 21)  # PF02826 shape
 MF_SHAPE = (4096, 1000, 21)  # the JAX package's protein-scale mean-field shape
+STREAM_SHAPE = (70000, 195, 21)  # PF02826 width past the 1 GiB logits threshold
+DEEP_SHAPE = (100000, 1000, 21)  # deep protein, D = 220300500 parameters
 PEAK = {  # NVIDIA H100 SXM data sheet, dense, at its 700 W power limit
     "bf16": 989e12, "f64_tensor": 67e12, "int8": 1979e12, "bytes": 3.35e12,
     "f32": 67e12, "f64": 34e12,  # outside the tensor cores
@@ -529,6 +539,135 @@ def phase_di_cpu_vs_cuda(tmp, plm_fa, plm_runs, mf_fa, mf_runs):
     print("phase 10 DI-APC cpu vs cuda; " + "; ".join(parts), flush=True)
 
 
+def fit_text(res, fit_s):
+    """Iterations, evaluations, host syncs per iteration, s per iteration
+    and per evaluation, and the fit's wall of one L-BFGS result."""
+    iters = max(res.num_iters, 1)
+    return (f"{res.num_iters} iterations, {res.n_evals} evaluations, "
+            f"{res.host_syncs / iters:.2f} host syncs/iter, {fit_s / iters:.4f} s/iter, "
+            f"{fit_s / res.n_evals:.4f} s/eval, fit {fit_s:.3f} s")
+
+
+def fn_apc_of(x, l, q):
+    """Sorted FN-APC of a flat parameter vector on the card."""
+    p = l * (l - 1) // 2
+    blocks = x[l * q :].reshape(p, q, q)[:, : q - 1, : q - 1]
+    return score.sorted_scores(score.apc(score.frobenius_norms(blocks), l), l)
+
+
+def phase_stream_cli(tmp, dev):
+    """``plmdca compute_fn --apc`` past the 1 GiB logits threshold at
+    PF02826 width: the engine streams by itself over 2 blocks; then the
+    fused loop fits the same codes and weights on the card."""
+    n, l, q = STREAM_SHAPE
+    codes, pairs = planted_family(n, l, q, seed=11, n_pairs=20)
+    fa = os.path.join(tmp, "planted_stream.fa")
+    write_family_fasta(fa, codes, alphabets.PROTEIN)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    inst, (header, scores) = run_cli("protein", fa, os.path.join(tmp, "stream"), dev.type)
+    wall = time.perf_counter() - t0
+    launches = ck.identity_counts.launches
+    stream_peak = torch.cuda.max_memory_allocated() / 2**30
+    want_block = plm.streaming_block(inst.num_sequences, l, q)
+    check(inst.seq_block == want_block == 65552,
+          f"streaming route: seq_block {inst.seq_block}, expected 65552")
+    check(launches == 1, f"the streamed plm path launched identity_counts {launches} times")
+    check(len(header) > 0, "output has no # header")
+    share = check_ranked(scores, l, pairs, "streamed plm FN-APC")
+    res, timers = inst.fit_result, inst.timers
+
+    msa = torch.from_numpy(inst.msa.data).to(dev)
+    weights = inst.compute_seqs_weight()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fused = plm.fit_plm(msa, weights, inst.lambda_h, inst.lambda_J, l, q,
+                        max_iterations=inst.max_iterations)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    fused_peak = torch.cuda.max_memory_allocated() / 2**30
+    fused_scores = fn_apc_of(fused.x, l, q)
+    rho = spearman(scores, fused_scores, l)
+    top = top_k_overlap(scores, fused_scores, 20)
+    check(rho >= 0.98 and top >= 0.9,
+          f"streamed vs fused FN-APC: spearman {rho:.4f}, top-20 overlap {top:.2f}")
+    print(f"phase 11 streamed plm path N={inst.num_sequences} L={l} q={q}: seq_block "
+          f"{inst.seq_block} ({-(-inst.num_sequences // inst.seq_block)} blocks); "
+          f"{len(scores)} pairs, planted recovery {share:.2f} (top {PLANTED_TOP}); "
+          f"weights {timers.elapsed('weights'):.3f} s; streamed: {fit_text(res, timers.elapsed('fit'))}, "
+          f"peak {stream_peak:.2f} GiB; fused on the card: {fit_text(fused, fused_s)}, "
+          f"peak {fused_peak:.2f} GiB; streamed vs fused spearman {rho:.4f} top-20 overlap "
+          f"{top:.2f}, fx {res.fx:.6g} vs {fused.fx:.6g}; CLI wall {wall:.3f} s; "
+          f"kernel launches {{'identity_counts': {launches}}}", flush=True)
+
+
+def streamed_eval_profile(inst, msa, l, q):
+    """One more streamed evaluation at the fitted parameters under
+    ``torch.profiler``: host wall ms, device ms, the products' (cuBLAS
+    gemm kernels') device ms and the four longest kernels."""
+    theta = inst.fit_result.x
+    weights = inst.compute_seqs_weight()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        plm.plm_loss_and_grad_chunked(theta, msa, weights, inst.lambda_h, inst.lambda_J,
+                                      l, q, inst.seq_block)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+    device = sum(e.device_time_total for e in events) / 1e3
+    products = sum(e.device_time_total for e in events if "gemm" in e.key.lower()) / 1e3
+    top = "; ".join(f"{e.key[:60]} {e.device_time_total / 1e3:.1f} ms" for e in events[:4])
+    return wall, device, products, top
+
+
+def phase_stream_deep(dev):
+    """``PlmDCA`` at N = 10^5, L = 1000, q = 21 through the engine, two
+    iterations: the streamed route with 8 blocks of 12782 sequences."""
+    n, l, q = DEEP_SHAPE
+    t0 = time.perf_counter()
+    codes, _ = planted_family(n, l, q, seed=12, n_pairs=20)
+    draw_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    inst = plm.PlmDCA(MSA(data=codes, alphabet=alphabets.PROTEIN), "protein",
+                      max_iterations=2, device=dev.type)
+    scores = inst.compute_sorted_FN_APC()
+    wall = time.perf_counter() - t0
+    launches = ck.identity_counts.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(inst.seq_block == plm.streaming_block(n, l, q) == 12782,
+          f"deep streaming route: seq_block {inst.seq_block}, expected 12782")
+    check(launches == 1, f"the deep streamed path launched identity_counts {launches} times")
+    p = l * (l - 1) // 2
+    check(len(scores) == p, f"deep: {len(scores)} scores, expected {p}")
+    check(bool(np.isfinite([s for _, s in scores]).all()), "deep: non-finite scores")
+    res, timers = inst.fit_result, inst.timers
+    msa = torch.from_numpy(codes).to(dev)
+    wall_ms, dev_ms, mm_ms, top = streamed_eval_profile(inst, msa, l, q)
+    dim = l * q + p * q * q
+    state_gib = (2 * 5 + 2) * dim * 4 / 2**30  # x, g and the 2m = 10 history rows
+    bound_ms = 1e3 * 2 * 2 * n * (l * q) ** 2 / PEAK["f32"]
+    fit_s = timers.elapsed("fit")
+    print(f"phase 12 deep streamed plm N={n} L={l} q={q} D={dim}: seq_block {inst.seq_block} "
+          f"({-(-n // inst.seq_block)} blocks); {len(scores)} finite scores; family drawn on "
+          f"the host in {draw_s:.2f} s; weights {timers.elapsed('weights'):.3f} s; "
+          f"{fit_text(res, fit_s)}; score {timers.elapsed('score'):.3f} s; one evaluation "
+          f"again under torch.profiler: wall {wall_ms:.1f} ms, device {dev_ms:.1f} ms, the "
+          f"two products {mm_ms:.1f} ms ({100 * mm_ms / dev_ms:.1f}% of the device time; "
+          f"longest kernels: {top}); "
+          f"flop bound {bound_ms:.1f} ms at 67 TFLOP/s f32 ({100 * bound_ms / wall_ms:.1f}% "
+          f"of the evaluation's wall, {100 * bound_ms / (1e3 * fit_s / res.n_evals):.1f}% of "
+          f"the fit's s/eval); peak memory {peak:.2f} GiB (state x, g and 10 history rows "
+          f"{state_gib:.2f} GiB); engine wall {wall:.3f} s; kernel launches "
+          f"{{'identity_counts': {launches}}}", flush=True)
+
+
 def read_scores(path):
     header, scores = [], []
     with open(path) as fh:
@@ -646,6 +785,10 @@ def main() -> int:
         phase_plm_di(tmp)
         phase_mf_di(tmp)
         phase_di_cpu_vs_cuda(tmp, plm_fa, plm_runs, mf_fa, mf_runs)
+
+        # ---- phases 11-12: streaming of deep alignments
+        phase_stream_cli(tmp, dev)
+        phase_stream_deep(dev)
 
     records = []
     for name, (ms, plain_ms, lib_ms, bound), n_launch, err in (

@@ -3,9 +3,10 @@
 Port of ``pydca_tpu/cli/plmdca_main.py`` (which mirrors the reference CLI,
 ``pydca/plmdca_main.py``): same subcommands, flags and output files, plus
 ``--device {cuda,cpu}``.  Ported: ``compute_fn`` and ``compute_di`` (each
-with and without ``--apc``) and ``compute_params`` on one device.
-``warmup``, ``compute_fn_batch`` and the flag values the port cannot
-honour yet are accepted by the parser and rejected with
+with and without ``--apc``) and ``compute_params`` on one device, with
+``--seq_block`` (the streamed loss; past 1 GiB of logits the engine
+streams by itself).  ``warmup``, ``compute_fn_batch`` and the flag values
+the port cannot honour yet are accepted by the parser and rejected with
 ``NotImplementedError`` naming their ROADMAP item.
 
 Run as ``python -m pydca_tpu_torch.cli.plmdca_main compute_di protein
@@ -56,7 +57,11 @@ def build_parser() -> argparse.ArgumentParser:
             "--device", choices=["cuda", "cpu"], default="cuda",
             help="device to run on (default cuda; no fallback to cpu)",
         )
-        sp.add_argument("--seq_block", type=int, help="not ported (streaming)")
+        sp.add_argument(
+            "--seq_block", type=int,
+            help="stream the loss over sequence blocks of this size "
+            "(auto-enabled for very deep alignments)",
+        )
         sp.add_argument(
             "--precision", choices=["auto", "bfloat16", "float32"],
             help="matmul operand precision; only float32 (= auto) is ported",
@@ -98,8 +103,8 @@ def _reject_command(the_command) -> None:
         )
 
 
-def _reject_unported(the_command, refseq_file, checkpoint, seq_block,
-                     precision, param_space, mesh, device) -> None:
+def _reject_unported(the_command, refseq_file, checkpoint, precision,
+                     param_space, mesh, device) -> None:
     """Raise ``NotImplementedError`` for every request the port cannot
     honour yet; nothing is silently ignored."""
     _reject_command(the_command)
@@ -111,10 +116,6 @@ def _reject_unported(the_command, refseq_file, checkpoint, seq_block,
         raise NotImplementedError(
             "--checkpoint (and the retry loop) is not ported yet "
             "(ROADMAP Queue 1 #6)"
-        )
-    if seq_block is not None:
-        raise NotImplementedError(
-            "--seq_block (streaming) is not ported yet (ROADMAP Queue 1 #10)"
         )
     if precision in ("bfloat16", "bf16"):
         raise NotImplementedError(
@@ -159,8 +160,8 @@ def execute_from_command_line(
     device="cuda",
 ):
     """Run one subcommand; returns the engine (its timers and fit result)."""
-    _reject_unported(the_command, refseq_file, checkpoint, seq_block,
-                     precision, param_space, mesh, device)
+    _reject_unported(the_command, refseq_file, checkpoint, precision,
+                     param_space, mesh, device)
     if verbose:
         configure_logging()
     inst = PlmDCA(
@@ -173,6 +174,7 @@ def execute_from_command_line(
         num_threads=num_threads,
         verbose=verbose,
         device=device,
+        seq_block=seq_block,
     )
     if not output_dir:
         base, _ = os.path.splitext(os.path.basename(msa_file))

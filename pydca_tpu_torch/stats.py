@@ -62,7 +62,7 @@ def sequence_weights(
 
 
 def single_site_freqs(
-    msa: torch.Tensor, weights: torch.Tensor, q: int
+    msa: torch.Tensor, weights: torch.Tensor, q: int, block: Optional[int] = None
 ) -> torch.Tensor:
     """Weighted single-site frequencies ``fi`` of shape ``(L, q)``.
 
@@ -70,11 +70,17 @@ def single_site_freqs(
     (reference: ``pydca/meanfield_dca/msa_numerics.py:53-89``).  A weighted
     sum in the weights' dtype (float32 with TF32 off: the JAX package runs
     this contraction at ``Precision.HIGHEST``, ``stats.py:209``).
+    ``block``: add the sums up over blocks of this many sequences, so that
+    at most one block's one-hot is alive (the streamed plm route).
     """
     n, l = msa.shape
-    x = torch.nn.functional.one_hot(msa.long(), q).to(weights.dtype)
-    fi = (weights @ x.reshape(n, l * q)).reshape(l, q)
-    return fi / weights.sum()
+    step = max(n, 1) if block is None else int(block)
+    fi = None
+    for start in range(0, n, step):
+        x = torch.nn.functional.one_hot(msa[start : start + step].long(), q).to(weights.dtype)
+        part = weights[start : start + step] @ x.reshape(-1, l * q)
+        fi = part if fi is None else fi.add_(part)
+    return fi.reshape(l, q) / weights.sum()
 
 
 def weighted_gram(msa: torch.Tensor, weights: torch.Tensor, q: int) -> torch.Tensor:

@@ -204,3 +204,44 @@ def test_protein_scale_coupling_blocks_gather_memory(cuda):
     iu, ju = np.triu_indices(l, k=1)
     for k in (0, 123456, p - 1):
         assert torch.equal(blocks[k], j4[iu[k], :, ju[k], :])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("block", [64, 250, 1000])
+def test_streamed_loss_and_grad_cuda_equals_cpu(cuda, block):
+    """The streamed objective on the card against the CPU: 16 blocks (the
+    last one short), 4 equal blocks and one block of 1000 rows."""
+    from pydca_tpu_torch import plm
+
+    n, l, q = 1000, 40, 21
+    codes = torch.tensor(planted_family(n, l, q, seed=8, n_pairs=4)[0])
+    rng = np.random.default_rng(8)
+    w = torch.tensor(rng.uniform(0.1, 1.0, n), dtype=torch.float32)
+    theta = torch.tensor(rng.normal(scale=0.05, size=l * q + l * (l - 1) // 2 * q * q),
+                         dtype=torch.float32)
+    f_cpu, g_cpu = plm.plm_loss_and_grad_chunked(theta, codes, w, 7.8, 7.8, l, q, block)
+    f_gpu, g_gpu = plm.plm_loss_and_grad_chunked(theta.to(cuda), codes.to(cuda), w.to(cuda),
+                                                 7.8, 7.8, l, q, block)
+    torch.testing.assert_close(f_gpu.cpu(), f_cpu, rtol=1e-5, atol=0)
+    torch.testing.assert_close(g_gpu.cpu(), g_cpu, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_streamed_fit_on_card_launches_identity_counts(cuda):
+    """A small streamed fit through the engine on the card: the route, one
+    launch of the CUDA identity_counts, and the ranking of the CPU's."""
+    from pydca_tpu_torch.io.fasta import MSA
+    from pydca_tpu_torch.alphabets import PROTEIN
+    from pydca_tpu_torch.plm import PlmDCA
+
+    codes = planted_family(1500, 60, 21, seed=9, n_pairs=8)[0]
+    msa = MSA(data=codes, alphabet=PROTEIN)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        before = ck.identity_counts.launches
+        inst = PlmDCA(msa, "protein", device=device, seq_block=512, max_iterations=40)
+        runs[device] = inst.compute_sorted_FN_APC()
+        assert inst.seq_block == 512
+        assert ck.identity_counts.launches - before == (1 if device == "cuda" else 0)
+    assert spearman(runs["cpu"], runs["cuda"], 60) >= 0.98
+    assert top_k_overlap(runs["cpu"], runs["cuda"], 20) >= 0.9

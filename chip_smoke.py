@@ -24,7 +24,15 @@ Builds the port's CUDA kernels from ``pydca_tpu_torch/csrc`` with nvcc
   streams by itself, held to a fused fit of the same codes and weights on
   the card (phase 11), and ``PlmDCA`` at N = 10^5, L = 1000, q = 21 for two
   iterations, with one streamed evaluation under ``torch.profiler``
-  (phase 12).
+  (phase 12);
+- checkpoints: fits interrupted at 10 iterations and resumed from their
+  npz file to 20 against uninterrupted 20-iteration fits, fused at phase
+  3's codes and streamed at phase 11's, and a fit whose third chunk fails
+  once, recovered by the bounded retry (phase 13);
+- family batches: ``plmdca compute_fn_batch --apc`` and ``mfdca
+  compute_fn_batch --apc`` on the JAX package's 32-family RNA sweep, on the
+  card and on the CPU, and on 12 planted protein families at Pfam widths
+  on the card, each family launching the kernels once (phase 14).
 
 One line per phase; the next-to-last line is the kernel record (JSON), the
 last line the device record (JSON).  Exits non-zero, with no result, when
@@ -34,6 +42,7 @@ there is no card or any phase fails.  Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -45,8 +54,10 @@ import numpy as np
 import torch
 
 from pydca_tpu_torch import alphabets
+from pydca_tpu_torch import family
 from pydca_tpu_torch import plm
 from pydca_tpu_torch import score
+from pydca_tpu_torch import stats
 from pydca_tpu_torch.cli import mfdca_main, plmdca_main
 from pydca_tpu_torch.device import set_precision
 from pydca_tpu_torch.io.fasta import MSA
@@ -54,7 +65,8 @@ from pydca_tpu_torch.ops import _build
 from pydca_tpu_torch.ops import cuda_kernels as ck
 from pydca_tpu_torch.synthetic import (
     PLANTED_MIN_SHARE, PLANTED_TOP, planted_family, planted_recovery,
-    spearman, top_k_overlap, write_family_fasta,
+    protein_family_sweep, rna_family_sweep, spearman, top_k_overlap,
+    write_family_fasta,
 )
 
 KERNELS = ("identity_counts", "weighted_gram")
@@ -602,6 +614,7 @@ def phase_stream_cli(tmp, dev):
           f"peak {fused_peak:.2f} GiB; streamed vs fused spearman {rho:.4f} top-20 overlap "
           f"{top:.2f}, fx {res.fx:.6g} vs {fused.fx:.6g}; CLI wall {wall:.3f} s; "
           f"kernel launches {{'identity_counts': {launches}}}", flush=True)
+    return inst
 
 
 def streamed_eval_profile(inst, msa, l, q):
@@ -668,6 +681,259 @@ def phase_stream_deep(dev):
           f"{{'identity_counts': {launches}}}", flush=True)
 
 
+class IoClock:
+    """Times every checkpoint save and load of ``plm.fit_plm`` (the
+    module's ``_save_state`` / ``_load_state`` wrapped in place)."""
+
+    def __init__(self):
+        self.saves, self.loads = [], []
+        self._real = (plm._save_state, plm._load_state)
+
+        def save(path, state):
+            t0 = time.perf_counter()
+            self._real[0](path, state)
+            self.saves.append(time.perf_counter() - t0)
+
+        def load(path, device):
+            t0 = time.perf_counter()
+            state = self._real[1](path, device)
+            torch.cuda.synchronize()
+            self.loads.append(time.perf_counter() - t0)
+            return state
+
+        plm._save_state, plm._load_state = save, load
+
+    def close(self):
+        plm._save_state, plm._load_state = self._real
+
+
+class Warnings(logging.Handler):
+    """Collects the WARNING records of one logger."""
+
+    def __init__(self, name):
+        super().__init__(logging.WARNING)
+        self.records, self.logger = [], logging.getLogger(name)
+        self.logger.addHandler(self)
+
+    def emit(self, record):
+        self.records.append(record.getMessage())
+
+    def close(self):
+        self.logger.removeHandler(self)
+        super().close()
+
+
+def resume_case(tmp, name, codes, l, q, lam, block):
+    """An uninterrupted 20-iteration fit, a 10-iteration fit that writes
+    its checkpoint and a 20-iteration fit that resumes from it; each fit
+    takes its weights anew (one identity_counts launch), as the engine
+    does.  Chunks and saves every 5 iterations."""
+    def fit(iters, path=None):
+        weights = stats.sequence_weights(codes, 0.8, q)
+        t0 = time.perf_counter()
+        res = plm.fit_plm(codes, weights, lam, lam, l, q, max_iterations=iters, chunk_size=5,
+                          checkpoint_path=path, checkpoint_every=5, seq_block=block)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    full, full_s = fit(20)
+    path = os.path.join(tmp, f"{name}.npz")
+    clock = IoClock()
+    try:
+        part, part_s = fit(10, path)
+        size = os.path.getsize(path)
+        resumed, resumed_s = fit(20, path)
+    finally:
+        clock.close()
+    check(part.num_iters == 10, f"{name}: the interrupted fit ran {part.num_iters} iterations")
+    check(resumed.num_iters == full.num_iters,
+          f"{name}: resumed k {resumed.num_iters} != uninterrupted {full.num_iters}")
+    bitwise = torch.equal(resumed.x, full.x)
+    rel = float(((resumed.x - full.x).abs() / full.x.abs().clamp_min(1e-30)).max())
+    check(bitwise or torch.allclose(resumed.x, full.x, rtol=1e-6, atol=0),
+          f"{name}: resumed x differs from the uninterrupted fit (largest relative {rel:.3e})")
+    saving, ckpt_s = sum(clock.saves), part_s + resumed_s
+    text = (f"{name}: file {size / 1e6:.1f} MB, {len(clock.saves)} saves of "
+            f"{saving / len(clock.saves):.3f} s, load {clock.loads[0]:.3f} s, resumed at k "
+            f"{part.num_iters} to k {resumed.num_iters}, x bitwise {bitwise} (largest relative "
+            f"difference {rel:.3e}); checkpointed fits {ckpt_s:.3f} s, saving "
+            f"{100 * saving / ckpt_s:.1f}% of it; uninterrupted fit {full_s:.3f} s")
+    return full, fit, text
+
+
+def phase_checkpoint(tmp, dev, main_inst, stream_inst):
+    """Checkpoints on the card: resume (fused and streamed) and the
+    bounded retry (``plm.fit_plm(checkpoint_path=...)``)."""
+    l, q = main_inst.sequences_len, main_inst.num_site_states
+    codes = torch.from_numpy(main_inst.msa.data).to(dev)
+    torch.cuda.empty_cache()
+    reset_launches()
+    full, fit, text_a = resume_case(tmp, "fused", codes, l, q, main_inst.lambda_h, None)
+
+    # (b) the third chunk takes two steps, then stops half way through a
+    # third (x moved alone) and fails: the state in memory is unusable
+    real = plm._plm_fused_steps
+    calls = []
+
+    def flaky(st, *args):
+        calls.append(1)
+        if len(calls) == 3:
+            real(st, *args[:-1], 2)
+            st.x.mul_(1.5)
+            raise RuntimeError("injected device fault")
+        return real(st, *args)
+
+    caught = Warnings("pydca_tpu_torch.plm")
+    plm._plm_fused_steps = flaky
+    try:
+        retried, retry_s = fit(20, os.path.join(tmp, "retry.npz"))
+    finally:
+        plm._plm_fused_steps = real
+        caught.close()
+    retries = sum("resuming from checkpoint" in m for m in caught.records)
+    check(retries == 1, f"retry: {retries} retries logged, expected 1")
+    retry_bitwise = torch.equal(retried.x, full.x)
+    check(retried.num_iters == full.num_iters
+          and (retry_bitwise or torch.allclose(retried.x, full.x, rtol=1e-6, atol=0)),
+          "retry: the recovered fit differs from the uninterrupted one")
+    del codes
+    torch.cuda.empty_cache()
+
+    stream_codes = torch.from_numpy(stream_inst.msa.data).to(dev)
+    _, _, text_c = resume_case(tmp, "streamed", stream_codes, stream_inst.sequences_len,
+                               stream_inst.num_site_states, stream_inst.lambda_h,
+                               stream_inst.seq_block)
+    launches = ck.identity_counts.launches
+    check(launches == 7, f"checkpoint phase launched identity_counts {launches} times, expected 7")
+    print(f"phase 13 checkpoints: (a) {text_a}; (b) retry: chunk 3 failed half way (2 steps "
+          f"and x moved alone), {retries} retry from the file, k {retried.num_iters}, x bitwise "
+          f"{retry_bitwise}, fit {retry_s:.3f} s; (c) {text_c}; kernel launches "
+          f"{{'identity_counts': {launches}}}", flush=True)
+    return launches
+
+
+def write_sweep(tmp, name, codes_list, alphabet):
+    os.makedirs(os.path.join(tmp, name))
+    files = []
+    for k, codes in enumerate(codes_list):
+        files.append(os.path.join(tmp, name, f"fam{k:02d}.fa"))
+        write_family_fasta(files[-1], codes, alphabet)
+    return files
+
+
+def run_batch(tmp, cli, biomolecule, files, device, flags):
+    """One ``compute_fn_batch --apc`` run: its BatchRun, wall, launches,
+    peak memory and the score lists of its files in input order."""
+    out = os.path.join(tmp, f"{cli}_{biomolecule}_{device}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    argv = ["compute_fn_batch", biomolecule, *files, "--apc", "--device", device,
+            "--output_dir", out] + flags
+    t0 = time.perf_counter()
+    run = (plmdca_main.run_plm_dca if cli == "plmdca" else mfdca_main.run_meanfield_dca)(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: getattr(ck, k).launches for k in KERNELS}
+    scores = [read_scores(p)[1] for p in run.paths]
+    return run, wall, launches, torch.cuda.max_memory_allocated() / 2**30, scores
+
+
+def fits_text(run, wall):
+    """The fit side of a plm batch: walls, iterations, family-iterations/s
+    and per-family ms/iteration."""
+    fit_s = sum(f.seconds for f in run.fits)
+    iters = sum(f.num_iters for f in run.fits)
+    per = sorted(1e3 * f.seconds / max(f.num_iters, 1) for f in run.fits)
+    return (f"CLI wall {wall:.3f} s, fit wall {fit_s:.3f} s, {iters} iterations "
+            f"({sum(f.n_evals for f in run.fits)} evaluations, "
+            f"{sum(f.host_syncs for f in run.fits) / iters:.2f} host syncs/iteration), "
+            f"{iters / fit_s:.1f} family-iterations/s, ms/iteration per family min "
+            f"{per[0]:.2f} median {float(np.median(per)):.2f} max {per[-1]:.2f}")
+
+
+def family_busy(msas, dev):
+    """The largest family's 20-iteration fit again under ``torch.profiler``:
+    host wall ms, device ms and the busy share."""
+    msa = max(msas, key=lambda m: m.num_seqs * m.seqs_len)
+    l, q = msa.seqs_len, msa.q
+    codes = torch.from_numpy(msa.data).to(dev)
+    w = family._weights_of(codes, 0.8, q)
+    lam = float(np.float32(0.2 * (l - 1)))
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st = family._fit_one(codes, w, lam, lam, l, q, max_iterations=20)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    device = sum(e.device_time_total for e in prof.key_averages()) / 1e3
+    return (f"the largest family ({msa.num_seqs} x {l}, {st.k} iterations) under "
+            f"torch.profiler: wall {wall:.1f} ms, device {device:.1f} ms, busy "
+            f"{100 * device / wall:.1f}%")
+
+
+def phase_families(tmp, dev):
+    """``compute_fn_batch --apc`` through both CLIs: the JAX package's RNA
+    sweep on the card and on the CPU, then planted protein families."""
+    files = write_sweep(tmp, "rna_sweep", rna_family_sweep(), alphabets.RNA)
+    nf = len(files)
+    runs = {}
+    for device in ("cuda", "cpu"):
+        runs[device] = {cli: run_batch(tmp, cli, "rna", files, device, flags)
+                        for cli, flags in (("plmdca", ["--max_iterations", "20"]),
+                                           ("mfdca", []))}
+    plm_gpu, mf_gpu = runs["cuda"]["plmdca"], runs["cuda"]["mfdca"]
+    check(plm_gpu[2] == {"identity_counts": nf, "weighted_gram": 0},
+          f"RNA plm batch launches {plm_gpu[2]}, expected identity_counts {nf}")
+    check(mf_gpu[2] == {"identity_counts": nf, "weighted_gram": nf},
+          f"RNA mean-field batch launches {mf_gpu[2]}, expected {nf} of each")
+    batch = family.FamilyBatch([plm.read_msa(f, "rna") for f in files])
+    check(torch.equal(family.family_sequence_weights(batch, device=dev).cpu(),
+                      family.family_sequence_weights(batch, device="cpu")),
+          "RNA sweep: family weights differ between the card and the CPU")
+    worst = {}
+    for cli in ("plmdca", "mfdca"):
+        pairs = zip(batch.msas, runs["cpu"][cli][4], runs["cuda"][cli][4])
+        stats_f = [(spearman(a, b, m.seqs_len), top_k_overlap(a, b, 20)) for m, a, b in pairs]
+        worst[cli] = (min(r for r, _ in stats_f), min(t for _, t in stats_f))
+        check(worst[cli][0] >= 0.98 and worst[cli][1] >= 0.9,
+              f"RNA {cli} batch cpu vs cuda: worst family spearman {worst[cli][0]:.4f}, "
+              f"top-20 overlap {worst[cli][1]:.2f}")
+    busy = family_busy(batch.msas, dev)
+    print(f"phase 14 (a) RNA sweep, {nf} families q 5: weights equal on the card and the CPU; "
+          f"plm cuda: {fits_text(plm_gpu[0], plm_gpu[1])}, peak {plm_gpu[3]:.2f} GiB; plm cpu: "
+          f"{fits_text(runs['cpu']['plmdca'][0], runs['cpu']['plmdca'][1])}; worst family cpu vs "
+          f"cuda plm spearman {worst['plmdca'][0]:.4f} top-20 {worst['plmdca'][1]:.2f}, mean-field "
+          f"{worst['mfdca'][0]:.4f} / {worst['mfdca'][1]:.2f}; mean-field CLI wall cuda "
+          f"{mf_gpu[1]:.3f} s cpu {runs['cpu']['mfdca'][1]:.3f} s; {busy}; kernel launches plm "
+          f"{plm_gpu[2]}, mean-field {mf_gpu[2]}", flush=True)
+
+    sweep = protein_family_sweep()
+    files = write_sweep(tmp, "protein_sweep", [c for c, _ in sweep], alphabets.PROTEIN)
+    nf = len(files)
+    plm_run = run_batch(tmp, "plmdca", "protein", files, "cuda", [])
+    mf_run = run_batch(tmp, "mfdca", "protein", files, "cuda", [])
+    check(plm_run[2] == {"identity_counts": nf, "weighted_gram": 0},
+          f"protein plm batch launches {plm_run[2]}, expected identity_counts {nf}")
+    check(mf_run[2] == {"identity_counts": nf, "weighted_gram": nf},
+          f"protein mean-field batch launches {mf_run[2]}, expected {nf} of each")
+    shares = {}
+    for cli, run in (("plm", plm_run), ("mean-field", mf_run)):
+        shares[cli] = [check_ranked(sc, c.shape[1], pairs, f"protein {cli} family {k}")
+                       for k, (sc, (c, pairs)) in enumerate(zip(run[4], sweep))]
+    shapes = [c.shape for c, _ in sweep]
+    print(f"phase 14 (b) protein sweep, {nf} planted families q 21, N {min(n for n, _ in shapes)}-"
+          f"{max(n for n, _ in shapes)}, L {min(l for _, l in shapes)}-{max(l for _, l in shapes)}: "
+          f"planted recovery min plm {min(shares['plm']):.2f} mean-field "
+          f"{min(shares['mean-field']):.2f} (top {PLANTED_TOP}); plm: "
+          f"{fits_text(plm_run[0], plm_run[1])}, peak {plm_run[3]:.2f} GiB; mean-field CLI wall "
+          f"{mf_run[1]:.3f} s, peak {mf_run[3]:.2f} GiB; kernel launches plm {plm_run[2]}, "
+          f"mean-field {mf_run[2]}", flush=True)
+    ident = sum(r[2]["identity_counts"] for r in (plm_gpu, mf_gpu, plm_run, mf_run))
+    gram = sum(r[2]["weighted_gram"] for r in (mf_gpu, mf_run))
+    return ident, gram
+
+
 def read_scores(path):
     header, scores = [], []
     with open(path) as fh:
@@ -727,6 +993,7 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         inst, (header, scores) = run_cli("protein", fa, os.path.join(tmp, "main"), "cuda")
+        inst_main = inst
         launches = ck.identity_counts.launches
         check(launches > 0, "main path never launched the identity_counts kernel")
         res, timers = inst.fit_result, inst.timers
@@ -787,13 +1054,19 @@ def main() -> int:
         phase_di_cpu_vs_cuda(tmp, plm_fa, plm_runs, mf_fa, mf_runs)
 
         # ---- phases 11-12: streaming of deep alignments
-        phase_stream_cli(tmp, dev)
+        stream_inst = phase_stream_cli(tmp, dev)
         phase_stream_deep(dev)
+
+        # ---- phases 13-14: checkpoints, family batches
+        ckpt_launches = phase_checkpoint(tmp, dev, inst_main, stream_inst)
+        del stream_inst
+        fam_ident, fam_gram = phase_families(tmp, dev)
 
     records = []
     for name, (ms, plain_ms, lib_ms, bound), n_launch, err in (
-        ("identity_counts", timing["pf02826_deep"], launches, max_err),
-        ("weighted_gram", gram_timing["protein"], mf_launches, gram_err),
+        ("identity_counts", timing["pf02826_deep"], launches + ckpt_launches + fam_ident,
+         max_err),
+        ("weighted_gram", gram_timing["protein"], mf_launches + fam_gram, gram_err),
     ):
         records.append({
             "name": name, "route": "cuda", "source": f"pydca_tpu_torch/csrc/{name}.cu",

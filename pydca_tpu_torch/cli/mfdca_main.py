@@ -4,10 +4,11 @@ Port of ``pydca_tpu/cli/mfdca_main.py`` (which mirrors the reference CLI,
 ``pydca/mfdca_main.py``): same subcommands, flags and output files, plus
 ``--device {cuda,cpu}``.  Ported: ``compute_fn``, ``compute_di`` (each
 with and without ``--apc``), ``compute_fields``, ``compute_params``,
-``compute_fi``, ``compute_fij`` and ``compute_weights`` on one device.
-``warmup``, ``compute_fn_batch``, ``--refseq_file`` and a mesh over more
-than one card are accepted by the parser and rejected with
-``NotImplementedError`` naming their ROADMAP item.
+``compute_fi``, ``compute_fij`` and ``compute_weights`` on one device, and
+``compute_fn_batch`` over many families (:mod:`pydca_tpu_torch.family`).
+``warmup``, ``--refseq_file`` and a mesh over more than one card are
+accepted by the parser and rejected with ``NotImplementedError`` naming
+their ROADMAP item.
 
 Run as ``python -m pydca_tpu_torch.cli.mfdca_main compute_di protein
 <msa> --apc --device cuda``.
@@ -22,15 +23,17 @@ import os
 import torch
 
 from ..config_log import configure_logging
+from ..family import BatchRun, FamilyBatch, family_meanfield_scores
 from ..io import output as dca_utilities
+from ..io.fasta import read_msa
 from ..meanfield import MeanFieldDCA
+from ..profiling import StageTimers
 
 logger = logging.getLogger(__name__)
 
 # subcommand -> the ROADMAP Queue 1 item that ports it
 _UNPORTED_COMMANDS = {
     "warmup": "Queue 1 #14 (cold start / warmup)",
-    "compute_fn_batch": "Queue 1 #11 (family batches)",
 }
 
 
@@ -82,14 +85,20 @@ def build_parser() -> argparse.ArgumentParser:
     sw.add_argument("--mesh", choices=["auto", "single"], default="auto")
     sw.add_argument("--verbose", action="store_true")
 
-    sb = subparsers.add_parser("compute_fn_batch", help="not ported")
+    sb = subparsers.add_parser(
+        "compute_fn_batch", help="FN scores for many MSA families, one after another",
+    )
     sb.add_argument("biomolecule", choices=["protein", "PROTEIN", "rna", "RNA"])
-    sb.add_argument("msa_files", nargs="+")
+    sb.add_argument("msa_files", nargs="+", help="one FASTA file per family")
     sb.add_argument("--seqid", type=float)
     sb.add_argument("--pseudocount", type=float)
     sb.add_argument("--output_dir")
     sb.add_argument("--verbose", action="store_true")
     sb.add_argument("--apc", action="store_true")
+    sb.add_argument(
+        "--device", choices=["cuda", "cpu"], default="cuda",
+        help="device to run on (default cuda; no fallback to cpu)",
+    )
     return parser
 
 
@@ -250,9 +259,63 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
         )
 
 
+def execute_batch(
+    msa_files,
+    biomolecule,
+    seqid=None,
+    pseudocount=None,
+    output_dir=None,
+    apc=False,
+    verbose=False,
+    device="cuda",
+):
+    """N families -> per-family mean-field scores -> per-family files
+    (``pydca_tpu/cli/mfdca_main.py:280-332``).  Returns a
+    :class:`~pydca_tpu_torch.family.BatchRun` (no fits)."""
+    if verbose:
+        configure_logging()
+    timers = StageTimers()
+    with timers.stage("read"):
+        msas = [read_msa(f, biomolecule) for f in msa_files]
+    with timers.stage("compute"):
+        scores_per_family = family_meanfield_scores(
+            FamilyBatch(msas),
+            seqid=0.8 if seqid is None else float(seqid),
+            pseudocount=0.5 if pseudocount is None else float(pseudocount),
+            apc=apc,
+            device=device,
+        )
+    if not output_dir:
+        output_dir = "MFDCA_batch_output"
+    dca_utilities.create_directories(output_dir)
+    if apc:
+        prefix = "MFDCA_apc_fn_scores_"
+        score_type = "MFDCA Frobenius norm, average product corrected (APC)"
+    else:
+        prefix = "MFDCA_raw_fn_scores_"
+        score_type = "MFDCA raw Frobenius norm"
+    with timers.stage("write"):
+        paths = dca_utilities.write_batch_scores(
+            output_dir, msa_files, msas, scores_per_family, prefix, score_type
+        )
+    logger.info("mfDCA family batch of %d MSAs:\n%s", len(msas), timers.summary())
+    return BatchRun(paths, [], timers)
+
+
 def run_meanfield_dca(argv=None):
     args = build_parser().parse_args(argv)
     _reject_command(args.the_command)
+    if args.the_command == "compute_fn_batch":
+        return execute_batch(
+            msa_files=args.msa_files,
+            biomolecule=args.biomolecule,
+            seqid=args.seqid,
+            pseudocount=args.pseudocount,
+            output_dir=args.output_dir,
+            apc=args.apc,
+            verbose=args.verbose,
+            device=args.device,
+        )
     return execute_from_command_line(
         msa_file=args.msa_file,
         biomolecule=args.biomolecule,

@@ -5,9 +5,11 @@ Port of ``pydca_tpu/cli/plmdca_main.py`` (which mirrors the reference CLI,
 ``--device {cuda,cpu}``.  Ported: ``compute_fn`` and ``compute_di`` (each
 with and without ``--apc``) and ``compute_params`` on one device, with
 ``--seq_block`` (the streamed loss; past 1 GiB of logits the engine
-streams by itself).  ``warmup``, ``compute_fn_batch`` and the flag values
-the port cannot honour yet are accepted by the parser and rejected with
-``NotImplementedError`` naming their ROADMAP item.
+streams by itself) and ``--checkpoint`` (resume and bounded retry), and
+``compute_fn_batch`` over many families (:mod:`pydca_tpu_torch.family`).
+``warmup`` and the flag values the port cannot honour yet are accepted by
+the parser and rejected with ``NotImplementedError`` naming their ROADMAP
+item.
 
 Run as ``python -m pydca_tpu_torch.cli.plmdca_main compute_di protein
 <msa> --apc --device cuda``.
@@ -16,18 +18,30 @@ Run as ``python -m pydca_tpu_torch.cli.plmdca_main compute_di protein
 from __future__ import annotations
 
 import argparse
+import logging
 import os
 
 import torch
 
 from ..config_log import configure_logging
+from ..family import (
+    BatchRun,
+    FamilyBatch,
+    FamilyFit,
+    family_plm_fit,
+    family_plm_fit_bucketed,
+    family_plm_scores,
+)
 from ..io import output as dca_utilities
+from ..io.fasta import read_msa
 from ..plm import PlmDCA
+from ..profiling import StageTimers
+
+logger = logging.getLogger(__name__)
 
 # subcommand -> the ROADMAP Queue 1 item that ports it
 _UNPORTED_COMMANDS = {
     "warmup": "Queue 1 #14 (cold start / warmup)",
-    "compute_fn_batch": "Queue 1 #11 (family batches)",
 }
 
 
@@ -70,7 +84,11 @@ def build_parser() -> argparse.ArgumentParser:
             "--param_space", choices=["auto", "w2", "compact"],
             help="optimizer parameterization; only compact (= auto) is ported",
         )
-        sp.add_argument("--checkpoint", metavar="PATH", help="not ported")
+        sp.add_argument(
+            "--checkpoint", metavar="PATH",
+            help="periodically save the optimizer state to PATH and resume "
+            "from it if it exists",
+        )
         sp.add_argument(
             "--mesh", choices=["auto", "single"], default="auto",
             help="auto (default) / single; more than one device is not ported",
@@ -90,9 +108,26 @@ def build_parser() -> argparse.ArgumentParser:
     sw = subparsers.add_parser("warmup", help="not ported")
     sw.add_argument("biomolecule", choices=["protein", "PROTEIN", "rna", "RNA"])
     sw.add_argument("msa_file")
-    sb = subparsers.add_parser("compute_fn_batch", help="not ported")
+    sb = subparsers.add_parser(
+        "compute_fn_batch",
+        help="FN scores for many MSA families, fitted one after another",
+    )
     sb.add_argument("biomolecule", choices=["protein", "PROTEIN", "rna", "RNA"])
-    sb.add_argument("msa_files", nargs="+")
+    sb.add_argument("msa_files", nargs="+", help="one FASTA file per family")
+    sb.add_argument("--seqid", type=float)
+    sb.add_argument("--max_iterations", type=int)
+    sb.add_argument("--output_dir")
+    sb.add_argument("--verbose", action="store_true")
+    sb.add_argument("--apc", action="store_true")
+    sb.add_argument(
+        "--no_bucket", action="store_true",
+        help="one padded block instead of (N, L) buckets (the layout of the "
+        "padded parameters; each family is fitted at its own size either way)",
+    )
+    sb.add_argument(
+        "--device", choices=["cuda", "cpu"], default="cuda",
+        help="device to run on (default cuda; no fallback to cpu)",
+    )
     return parser
 
 
@@ -103,19 +138,14 @@ def _reject_command(the_command) -> None:
         )
 
 
-def _reject_unported(the_command, refseq_file, checkpoint, precision,
-                     param_space, mesh, device) -> None:
+def _reject_unported(the_command, refseq_file, precision, param_space, mesh,
+                     device) -> None:
     """Raise ``NotImplementedError`` for every request the port cannot
     honour yet; nothing is silently ignored."""
     _reject_command(the_command)
     if refseq_file:
         raise NotImplementedError(
             "--refseq_file is not ported yet (ROADMAP Queue 1 #12, backmapping)"
-        )
-    if checkpoint:
-        raise NotImplementedError(
-            "--checkpoint (and the retry loop) is not ported yet "
-            "(ROADMAP Queue 1 #6)"
         )
     if precision in ("bfloat16", "bf16"):
         raise NotImplementedError(
@@ -160,8 +190,7 @@ def execute_from_command_line(
     device="cuda",
 ):
     """Run one subcommand; returns the engine (its timers and fit result)."""
-    _reject_unported(the_command, refseq_file, checkpoint, precision,
-                     param_space, mesh, device)
+    _reject_unported(the_command, refseq_file, precision, param_space, mesh, device)
     if verbose:
         configure_logging()
     inst = PlmDCA(
@@ -175,6 +204,7 @@ def execute_from_command_line(
         verbose=verbose,
         device=device,
         seq_block=seq_block,
+        checkpoint_path=checkpoint,
     )
     if not output_dir:
         base, _ = os.path.splitext(os.path.basename(msa_file))
@@ -235,9 +265,87 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
         )
 
 
+def execute_batch(
+    msa_files,
+    biomolecule,
+    seqid=None,
+    max_iterations=None,
+    output_dir=None,
+    apc=False,
+    verbose=False,
+    bucket=True,
+    device="cuda",
+):
+    """N families -> per-family fits -> per-family ranked score files
+    (``pydca_tpu/cli/plmdca_main.py:268-344``).  By default the families
+    are taken bucket by bucket (``family_plm_fit_bucketed``); ``bucket=False``
+    pads them to one block.  Each family is fitted at its own size either
+    way.  Returns a :class:`~pydca_tpu_torch.family.BatchRun`."""
+    if verbose:
+        configure_logging()
+    timers = StageTimers()
+    with timers.stage("read"):
+        msas = [read_msa(f, biomolecule) for f in msa_files]
+    seqid_v = 0.8 if seqid is None else float(seqid)
+    iters = 100 if max_iterations is None else int(max_iterations)
+    fits = [None] * len(msas)
+
+    def record(f, st, seconds):
+        fits[f] = FamilyFit(st.k, st.n_evals, st.host_syncs, seconds)
+        logger.info("family %d (N=%d, L=%d): %d iterations, %d evaluations, %.3f s",
+                    f, msas[f].num_seqs, msas[f].seqs_len, st.k, st.n_evals, seconds)
+
+    with timers.stage("compute"):
+        if bucket:
+            scores_per_family, stats_d = family_plm_fit_bucketed(
+                msas, seqid=seqid_v, max_iterations=iters, apc=apc, device=device,
+                progress_fn=record,
+            )
+        else:
+            batch = FamilyBatch(msas)
+            thetas, _ = family_plm_fit(batch, seqid=seqid_v, max_iterations=iters,
+                                       device=device, progress_fn=record)
+            scores_per_family = family_plm_scores(batch, thetas, apc=apc)
+            stats_d = None
+    # the port fits each family unpadded: the padded-FLOP figures describe
+    # the JAX package's vmap, not this run
+    buckets = "" if stats_d is None else (
+        " in {num_buckets} buckets (a padded vmap would do {bucketed_waste:.2f}x the "
+        "useful FLOPs; single block {single_block_waste:.2f}x)".format(**stats_d))
+    logger.info("family batch: %d families%s, each fitted at its own size (%d iterations, "
+                "%.3f s of fits)", len(msas), buckets, sum(f.num_iters for f in fits),
+                sum(f.seconds for f in fits))
+    if not output_dir:
+        output_dir = "PLMDCA_batch_output"
+    dca_utilities.create_directories(output_dir)
+    if apc:
+        prefix = "PLMDCA_apc_fn_scores_"
+        score_type = "PLMDCA Frobenius norm, average product corrected (APC)"
+    else:
+        prefix = "PLMDCA_raw_fn_scores_"
+        score_type = "PLMDCA Frobenius norm, non-APC (not average product corrected)"
+    with timers.stage("write"):
+        paths = dca_utilities.write_batch_scores(
+            output_dir, msa_files, msas, scores_per_family, prefix, score_type
+        )
+    return BatchRun(paths, fits, timers)
+
+
 def run_plm_dca(argv=None):
     args = build_parser().parse_args(argv)
     _reject_command(args.the_command)
+    if args.the_command == "compute_fn_batch":
+        return execute_batch(
+            msa_files=args.msa_files,
+            biomolecule=args.biomolecule,
+            seqid=args.seqid,
+            max_iterations=args.max_iterations,
+            output_dir=args.output_dir,
+            apc=args.apc,
+            verbose=args.verbose,
+            bucket=not args.no_bucket,
+            device=args.device,
+        )
     return execute_from_command_line(
         msa_file=args.msa_file,
         biomolecule=args.biomolecule,

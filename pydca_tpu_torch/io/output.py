@@ -5,7 +5,8 @@ Copy of the writers of ``pydca_tpu/io/output.py`` that the ported
 subcommands use, which replicate the reference's output formats exactly
 (``pydca/dca_utilities/dca_utilities.py``): site pairs are written
 1-indexed and files carry ``#`` metadata headers.  :func:`write_params`
-writes ``compute_params``' two files for both CLIs.
+writes ``compute_params``' two files and :func:`write_batch_scores`
+``compute_fn_batch``'s, for both CLIs.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ __all__ = [
     "write_couplings_csv",
     "write_fields_csv",
     "write_params",
+    "write_batch_scores",
     "write_single_site_freqs",
     "write_pair_site_freqs",
     "write_sequence_weights",
@@ -180,6 +182,27 @@ def write_params(
         )
     )
     write_couplings_csv(couplings_file, couplings, metadata=meta)
+
+
+def write_batch_scores(output_dir, msa_files, msas, scores_per_family, prefix,
+                       score_type) -> List[str]:
+    """``compute_fn_batch``'s files: one ranked score file per family, each
+    under a header that says the family was computed in a batch
+    (``pydca_tpu/cli/plmdca_main.py:318-344``,
+    ``pydca_tpu/cli/mfdca_main.py:306-332``).  Returns the paths."""
+    paths = []
+    for msa_file, msa, scores in zip(msa_files, msas, scores_per_family):
+        meta = [
+            "# PARAMETERS USED FOR THIS COMPUTATION: ",
+            "#      Sequence type: {}".format(msa.alphabet.name),
+            "#      Total number of sequences in alignment data: {}".format(msa.num_seqs),
+            "#      Length of sequences in alignment data: {}".format(msa.seqs_len),
+            "#      Computed in a family batch of {} MSAs".format(len(msas)),
+        ]
+        path = get_dca_output_file_path(output_dir, msa_file, prefix=prefix, postfix=".txt")
+        write_sorted_dca_scores(path, scores, metadata=meta, score_type=score_type)
+        paths.append(path)
+    return paths
 
 
 def write_single_site_freqs(

@@ -22,6 +22,11 @@ workarounds are not ported:
   instead of zero-weight padded ``(nb, block, L)`` blocks: the last block
   may be short.
 
+Checkpoints (``fit_plm(checkpoint_path=...)``) are the JAX package's npz
+files, key for key (``_save_state`` / ``_load_state``): either package
+resumes the other's file, and a failed chunk is retried at most twice from
+the file.
+
 The fused loop's structure is the JAX package's (see the note above
 ``pydca_tpu/plm.py::_plm_fused_steps``): logits are linear along a search
 direction, so a line-search trial is one elementwise pass over the
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import functools
 import logging
+import os
 from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
@@ -619,6 +625,165 @@ def _plm_lbfgs_steps(st: LBFGSState, msa, weights, lambda_h, lambda_j,
     return lbfgs_steps(fun, st, num_steps)
 
 
+# ------------------------------------------------------------ checkpoints
+def _generic_from_fused(st: PlmFusedState) -> LBFGSState:
+    """Fused -> generic state (``pydca_tpu/plm.py:1154-1170``): the same
+    iterate and history, ``rho = 1 / (s . y)`` from the diagonal of the
+    cached ``S Y^T`` block, 0 on an empty slot."""
+    m = st.z.shape[0] // 2
+    sy = torch.diagonal(st.zzt[:m, m:])
+    rho = torch.where(sy != 0, 1.0 / torch.where(sy == 0, torch.ones_like(sy), sy),
+                      torch.zeros_like(sy))
+    return LBFGSState(
+        x=st.x, f=st.f, g=st.g, z=st.z, rho=rho, k=st.k, done=st.done,
+        converged=st.converged, ls_failed=st.ls_failed, n_evals=st.n_evals,
+        host_syncs=st.host_syncs,
+    )
+
+
+def _fused_from_generic(gst: LBFGSState, x1h, maskq, weights, lambda_h, lambda_j,
+                        l: int, q: int, epsilon: float = 1e-3) -> PlmFusedState:
+    """Generic -> fused state at the checkpointed iterate
+    (``pydca_tpu/plm.py:864-915, 1400-1416``): one forward for the carried
+    logits, one gradient, and the history caches ``zzt = Z Z^T`` and
+    ``zg = Z g`` rebuilt, so the resume is exact to float recompute, not
+    bitwise."""
+    lq = l * q
+    lh, lj = _F32(lambda_h), _F32(lambda_j)
+    x = gst.x
+    logits = _logits_mm(x1h, _expand_w4(x[lq:], l, q), q, l).add_(x[:lq].reshape(l, q).T[None])
+    picked = _picked(logits, maskq)
+    g = _grad_at(logits, x1h, maskq, weights, x, float(lh), float(lj), l, q)
+    m2 = gst.z.shape[0]
+    st = PlmFusedState(
+        x=x, f=_F32(0), g=g, z=gst.z,
+        zzt=torch.zeros((m2, m2), dtype=torch.float32),
+        zg=torch.zeros((m2,), dtype=torch.float32),
+        gg=_F32(0), xx=_F32(0), rh=_F32(0), rj=_F32(0),
+        logits=logits, picked=picked, k=gst.k, done=gst.done,
+        converged=gst.converged, ls_failed=gst.ls_failed, n_evals=gst.n_evals,
+        host_syncs=gst.host_syncs,
+    )
+    vals = fetch_f32(
+        st, _nll_at(logits, picked, weights), torch.dot(x[:lq], x[:lq]),
+        torch.dot(x[lq:], x[lq:]), torch.dot(g, g), torch.matmul(gst.z, gst.z.T),
+        torch.matmul(gst.z, g),
+    )
+    nll, st.rh, st.rj, st.gg = vals[:4]
+    st.zzt = torch.tensor(vals[4 : 4 + m2 * m2], dtype=torch.float32).reshape(m2, m2)
+    st.zg = torch.tensor(vals[4 + m2 * m2 :], dtype=torch.float32)
+    st.f = _F32(nll + lh * st.rh + lj * st.rj)
+    st.xx = _F32(st.rh + st.rj)
+    st.converged = gst.converged or gradient_converged(st.gg, st.xx, epsilon)
+    st.done = st.converged or gst.done
+    return st
+
+
+def _save_state(path: str, state) -> None:
+    """Write ``state`` to the npz file ``path`` in the JAX package's format
+    (``pydca_tpu/plm.py:1469-1495``): the same keys, shapes and dtypes
+    (flat reference-layout D vectors, float32 arrays and 0-d scalars,
+    int32 ``k`` and ``n_evals``, bool flags), so that either package
+    resumes the other's file.  A fused state keeps its caches (resume is
+    bitwise) and its ``(2m, D)`` history as ``z``; a generic state splits
+    the history into ``s_hist`` and ``y_hist``.  The file is written next
+    to ``path`` and renamed over it, so a process that dies while writing
+    leaves the last checkpoint whole."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+
+    def host(t):
+        return t.detach().cpu().numpy().astype(np.float32, copy=False)
+
+    def f32(v):
+        return np.asarray(v, np.float32)
+
+    if isinstance(state, PlmFusedState):
+        arrays = dict(
+            x=host(state.x), f=f32(state.f), g=host(state.g), z=host(state.z),
+            zzt=host(state.zzt), zg=host(state.zg), gg=f32(state.gg), xx=f32(state.xx),
+            rh=f32(state.rh), rj=f32(state.rj), logits=host(state.logits),
+            picked=host(state.picked),
+        )
+    else:
+        m = state.z.shape[0] // 2
+        arrays = dict(
+            x=host(state.x), f=f32(state.f), g=host(state.g), s_hist=host(state.z[:m]),
+            y_hist=host(state.z[m:]), rho=host(state.rho),
+        )
+    arrays.update(
+        k=np.asarray(state.k, np.int32), done=np.asarray(bool(state.done)),
+        converged=np.asarray(bool(state.converged)),
+        ls_failed=np.asarray(bool(state.ls_failed)),
+        n_evals=np.asarray(state.n_evals, np.int32),
+    )
+    if isinstance(state, PlmFusedState):
+        arrays["z_bf16"] = np.asarray(False)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as fh:
+        np.savez(fh, **arrays)
+    os.replace(tmp, path)
+
+
+def _load_state(path: str, device):
+    """Read a checkpoint of either package (``pydca_tpu/plm.py:1498-1524``):
+    a :class:`PlmFusedState` when the file holds the fused caches, else an
+    ``ops.lbfgs.LBFGSState``.  The D-vectors, the history and the carried
+    logits go to ``device``; ``zzt``, ``zg`` and ``rho`` stay CPU tensors
+    and the scalars host values.  A fused file written with bfloat16
+    history rows (the JAX package's TPU default) loads exactly, since its
+    rows are stored as float32; the fit goes on with float32 rows."""
+    dev = torch.device(device)
+    with np.load(path if path.endswith(".npz") else path + ".npz") as z:
+
+        def on_host(key):
+            return torch.from_numpy(np.asarray(z[key], np.float32))
+
+        def on_dev(key):
+            return on_host(key).to(dev)
+
+        flags = dict(k=int(z["k"]), done=bool(z["done"]), converged=bool(z["converged"]),
+                     ls_failed=bool(z["ls_failed"]))
+        if "zzt" in z.files:
+            if "z_bf16" in z.files and bool(z["z_bf16"]):
+                logger.info(
+                    "checkpoint %s holds bfloat16 history rows; continuing with "
+                    "float32 rows (bfloat16 history: ROADMAP Queue 1 #6)", path,
+                )
+            return PlmFusedState(
+                x=on_dev("x"), f=_F32(z["f"]), g=on_dev("g"), z=on_dev("z"),
+                zzt=on_host("zzt"), zg=on_host("zg"), gg=_F32(z["gg"]), xx=_F32(z["xx"]),
+                rh=_F32(z["rh"]), rj=_F32(z["rj"]), logits=on_dev("logits"),
+                picked=on_dev("picked"), n_evals=int(z["n_evals"]), **flags,
+            )
+        for key in ("x", "f", "g", "s_hist", "y_hist", "rho"):
+            if key not in z.files:
+                raise KeyError(f"checkpoint missing field {key}")
+        hist = np.concatenate([np.asarray(z["s_hist"], np.float32),
+                               np.asarray(z["y_hist"], np.float32)])
+        return LBFGSState(
+            x=on_dev("x"), f=_F32(z["f"]), g=on_dev("g"), z=torch.from_numpy(hist).to(dev),
+            rho=on_host("rho"),
+            # checkpoints from before the JAX package counted evaluations
+            n_evals=int(z["n_evals"]) if "n_evals" in z.files else 0, **flags,
+        )
+
+
+def _check_space(state, path: str, l: int, q: int) -> None:
+    """A checkpoint must hold this fit's compact parameter vector: a
+    ``param_space="w2"`` file (``Lq + (Lq)^2`` entries, ``pydca_tpu/plm.py:1287``)
+    is refused rather than read as another layout."""
+    lq = l * q
+    size = state.x.shape[0]
+    if size == lq + lq * lq:
+        raise NotImplementedError(
+            f"checkpoint {path} is in the w2 parameter space, which is not ported "
+            "yet (ROADMAP Queue 1 #10)"
+        )
+    dim = lq + l * (l - 1) // 2 * q * q
+    if size != dim:
+        raise ValueError(f"checkpoint {path} holds {size} parameters; this fit has {dim}")
+
+
 def fit_plm(
     msa: torch.Tensor,
     weights: torch.Tensor,
@@ -631,6 +796,8 @@ def fit_plm(
     m: int = 5,
     chunk_size: Optional[int] = 50,
     progress_fn=None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 50,
     seq_block: Optional[int] = None,
 ) -> LBFGSResult:
     """Run the plmDCA optimization on ``msa.device``.
@@ -642,25 +809,72 @@ def fit_plm(
     ``chunk_size`` iterations (``None``: one chunk); ``progress_fn(state)``
     is called after each chunk.  Reference budget: m=5, epsilon=1e-3,
     ftol=1e-4, <= ``max_iterations`` iterations (``plmdcaBackend.cpp:68-75``).
+
+    ``checkpoint_path`` (``pydca_tpu/plm.py:1262-1385``; ``.npz`` is
+    appended to a bare path): resume from the file when it exists, in
+    whichever format it holds (the loop the arguments ask for continues);
+    save the state after a chunk once ``checkpoint_every`` iterations have
+    passed since the last save, and when the fit ends.  A chunk that raises
+    ``RuntimeError`` (a device fault; never ``NotImplementedError``) is
+    retried at most twice, each time from the file: a chunk updates the
+    state in place, so the state in memory after an error is never
+    continued.  Without a checkpoint the error propagates.
     """
     weights = weights.to(torch.float32)
     step = max_iterations if chunk_size is None else int(chunk_size)
-    if seq_block is not None:
-        block = int(seq_block)
+    use_fused = seq_block is None
+    block = None if use_fused else int(seq_block)
+    if checkpoint_path is not None and not checkpoint_path.endswith(".npz"):
+        checkpoint_path = checkpoint_path + ".npz"
+    if use_fused:
+        x1h, maskq = _prep_msa(msa, l, q)
+
+    def restore():
+        """The checkpoint's state, in the form of this fit's loop."""
+        state = _load_state(checkpoint_path, msa.device)
+        _check_space(state, checkpoint_path, l, q)
+        if use_fused and not isinstance(state, PlmFusedState):
+            return _fused_from_generic(state, x1h, maskq, weights, lambda_h, lambda_j, l, q)
+        if not use_fused and isinstance(state, PlmFusedState):
+            return _generic_from_fused(state)
+        return state
+
+    if checkpoint_path is not None and os.path.exists(checkpoint_path):
+        state = restore()
+        logger.info("resumed plmDCA optimizer state at iteration %d", state.k)
+    elif use_fused:
+        state = _plm_fused_state0(msa, weights, lambda_h, lambda_j, l, q, m)
+    else:
         state = _plm_lbfgs_state0(msa, weights, lambda_h, lambda_j, l, q, m, block)
-        while state.k < max_iterations and not state.done:
-            todo = min(step, max_iterations - state.k)
-            _plm_lbfgs_steps(state, msa, weights, lambda_h, lambda_j, l, q, todo, block)
-            if progress_fn is not None:
-                progress_fn(state)
-        return result_from_state(state)
-    x1h, maskq = _prep_msa(msa, l, q)
-    state = _plm_fused_state0(msa, weights, lambda_h, lambda_j, l, q, m)
+    last_saved = state.k
+    retries = 2
     while state.k < max_iterations and not state.done:
         todo = min(step, max_iterations - state.k)
-        _plm_fused_steps(state, x1h, maskq, weights, lambda_h, lambda_j, l, q, todo)
+        try:
+            if use_fused:
+                _plm_fused_steps(state, x1h, maskq, weights, lambda_h, lambda_j, l, q, todo)
+            else:
+                _plm_lbfgs_steps(state, msa, weights, lambda_h, lambda_j, l, q, todo, block)
+        except NotImplementedError:
+            raise
+        except RuntimeError as exc:
+            if retries <= 0 or checkpoint_path is None or not os.path.exists(checkpoint_path):
+                raise
+            retries -= 1
+            logger.warning(
+                "device error during L-BFGS chunk (%s); resuming from checkpoint %s "
+                "(%d retries left)", exc, checkpoint_path, retries,
+            )
+            state = restore()
+            continue
         if progress_fn is not None:
             progress_fn(state)
+        ended = state.done or state.k >= max_iterations
+        if checkpoint_path is not None and (state.k - last_saved >= checkpoint_every or ended):
+            _save_state(checkpoint_path, state)
+            last_saved = state.k
+    if not use_fused:
+        return result_from_state(state)
     return LBFGSResult(
         x=state.theta(),
         fx=float(state.f),
@@ -684,6 +898,8 @@ class PlmDCA:
     ``seq_block``: fit with the loss streamed over blocks of this many
     sequences; ``None`` streams by itself past ``STREAMING_LOGITS_BYTES``
     of logits (:func:`streaming_block`), as the JAX engine does.
+    ``checkpoint_path``: save the optimizer state there and resume from it
+    (:func:`fit_plm`), on either fit route.
     """
 
     def __init__(
@@ -699,6 +915,7 @@ class PlmDCA:
         *,
         device,
         seq_block: Optional[int] = None,
+        checkpoint_path: Optional[str] = None,
     ):
         self.device = resolve_device(device)
         set_precision()
@@ -721,6 +938,7 @@ class PlmDCA:
             raise PlmDCAException(f"invalid seq_block {seq_block}; must be >= 1")
         self.__seq_block = None if seq_block is None else int(seq_block)
         self.__verbose = bool(verbose)
+        self.__checkpoint_path = checkpoint_path
         self.__theta: Optional[torch.Tensor] = None
         self.__weights: Optional[torch.Tensor] = None
         self.__fit_result: Optional[LBFGSResult] = None
@@ -804,6 +1022,7 @@ class PlmDCA:
                     self.__lambda_h, self.__lambda_j, l, q,
                     max_iterations=self.__max_iterations,
                     progress_fn=_progress if self.__verbose else None,
+                    checkpoint_path=self.__checkpoint_path,
                     seq_block=self.__seq_block,
                 )
                 sync(self.device)

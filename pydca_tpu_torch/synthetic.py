@@ -8,6 +8,10 @@ probability ``couple_prob``, ``s_j`` is set to ``pi_ij(s_i)`` for a fixed
 random permutation ``pi_ij`` of the q states.  A plmDCA fit or a
 mean-field run should rank the planted pairs near the top of its FN-APC
 list.
+
+Two family sweeps feed the family batches (``compute_fn_batch``): the JAX
+package's RNA sweep (:func:`rna_family_sweep`) and planted protein
+families at Pfam widths (:func:`protein_family_sweep`).
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ __all__ = [
     "PLANTED_MIN_SHARE",
     "planted_family",
     "planted_recovery",
+    "protein_family_sweep",
+    "rna_family_sweep",
     "spearman",
     "top_k_overlap",
     "write_family_fasta",
@@ -91,6 +97,41 @@ def planted_family(
         sel = rng.random(n) < couple_prob
         codes[sel, j] = perm[codes[sel, i]]
     return codes.astype(np.int8), pairs
+
+
+def rna_family_sweep(families: int = 32, seed: int = 2) -> List[np.ndarray]:
+    """The JAX package's family sweep (``bench.py:468-491``): ``families``
+    RNA-like alignments (q = 5), N uniform in [64, 512] and L uniform in
+    [16, 64] drawn from ``seed``, family k from 16 ancestors with 15% of
+    its states redrawn (seed k).  Codes (N, L) int8 per family."""
+    nmax, lmax, q = 512, 64, 5
+    rng = np.random.default_rng(seed)
+
+    def synth(n, l, k):
+        r = np.random.default_rng(k)
+        base = r.integers(0, q, size=(16, l))
+        msa = base[r.integers(0, 16, size=n)]
+        flip = r.random((n, l)) < 0.15
+        return np.where(flip, r.integers(0, q, size=(n, l)), msa).astype(np.int8)
+
+    return [
+        synth(int(rng.integers(nmax // 8, nmax + 1)), int(rng.integers(lmax // 4, lmax + 1)), k)
+        for k in range(families)
+    ]
+
+
+def protein_family_sweep(families: int = 12, seed: int = 3):
+    """Planted protein families (q = 21) at Pfam widths: N log-uniform in
+    [1024, 8192] and L uniform in [80, 300] drawn from ``seed``, family k
+    from :func:`planted_family` with seed ``1000 * seed + k``.  Returns
+    ``[(codes, planted pairs), ...]``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for k in range(families):
+        n = int(round(np.exp(rng.uniform(np.log(1024), np.log(8192)))))
+        l = int(rng.integers(80, 301))
+        out.append(planted_family(n, l, 21, seed=1000 * seed + k))
+    return out
 
 
 def write_family_fasta(path: str, codes: np.ndarray, alphabet: Alphabet) -> None:

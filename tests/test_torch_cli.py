@@ -151,7 +151,7 @@ def test_port_never_imports_jax():
         "pydca_tpu_torch.cli.mfdca_main, pydca_tpu_torch.meanfield, "
         "pydca_tpu_torch.plm, pydca_tpu_torch.score, pydca_tpu_torch.io.output, "
         "pydca_tpu_torch.ops.linalg, pydca_tpu_torch.ops.lbfgs, pydca_tpu_torch.stats, "
-        "pydca_tpu_torch.synthetic\n"
+        "pydca_tpu_torch.synthetic, pydca_tpu_torch.family\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'pydca_tpu.')) or m == 'pydca_tpu')\n"
         "assert not bad, bad\n"
     )
@@ -164,9 +164,7 @@ def test_port_never_imports_jax():
     "extra,match",
     [
         (["warmup"], "Queue 1 #14"),
-        (["compute_fn_batch"], "Queue 1 #11"),
         (["compute_fn", "--refseq_file", "ref.fa"], "Queue 1 #12"),
-        (["compute_fn", "--checkpoint", "ck.npz"], "Queue 1 #6"),
         (["compute_fn", "--precision", "bfloat16"], "Queue 1 #6"),
         (["compute_fn", "--param_space", "w2"], "Queue 1 #10"),
     ],
@@ -176,7 +174,7 @@ def test_unported_options_raise(tmp_path, extra, match):
     write_family_fasta(fa, planted_family(20, 12, 5, n_pairs=1)[0], talph.RNA)
     cmd, flags = extra[0], extra[1:]
     argv = [cmd, "rna", fa, "--device", "cpu", "--output_dir", str(tmp_path)] + flags
-    if cmd in ("warmup", "compute_fn_batch"):
+    if cmd == "warmup":
         argv = [cmd, "rna", fa]
     with pytest.raises(NotImplementedError, match=match):
         tcli.run_plm_dca(argv)

@@ -85,7 +85,6 @@ def test_planted_pairs_recovered(tmp_path):
     "extra,match",
     [
         (["warmup"], "Queue 1 #14"),
-        (["compute_fn_batch"], "Queue 1 #11"),
         (["compute_fn", "--refseq_file", "ref.fa"], "Queue 1 #12"),
     ],
 )
@@ -94,7 +93,7 @@ def test_unported_options_raise(tmp_path, extra, match):
     write_family_fasta(fa, planted_family(20, 12, 5, n_pairs=1)[0], talph.RNA)
     cmd, flags = extra[0], extra[1:]
     argv = [cmd, "rna", fa, "--device", "cpu", "--output_dir", str(tmp_path)] + flags
-    if cmd in ("warmup", "compute_fn_batch"):
+    if cmd == "warmup":
         argv = [cmd, "rna", fa]
     with pytest.raises(NotImplementedError, match=match):
         tcli.run_meanfield_dca(argv)

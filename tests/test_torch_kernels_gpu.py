@@ -245,3 +245,48 @@ def test_streamed_fit_on_card_launches_identity_counts(cuda):
         assert ck.identity_counts.launches - before == (1 if device == "cuda" else 0)
     assert spearman(runs["cpu"], runs["cuda"], 60) >= 0.98
     assert top_k_overlap(runs["cpu"], runs["cuda"], 20) >= 0.9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seqid", [0.8, 1.0])
+def test_family_weights_launch_identity_counts_per_family(cuda, seqid):
+    """Family weights on the card: one launch of the CUDA identity_counts
+    per family, on each family's own rows and sites (the pad token never
+    reaches the kernel), equal to the CPU's plain counts' weights."""
+    from pydca_tpu_torch.alphabets import PROTEIN
+    from pydca_tpu_torch.family import FamilyBatch, family_sequence_weights
+    from pydca_tpu_torch.io.fasta import MSA
+
+    shapes = [(300, 40), (1000, 97), (129, 129), (2500, 60)]
+    batch = FamilyBatch([MSA(data=planted_family(n, l, 21, seed=n, n_pairs=2)[0],
+                             alphabet=PROTEIN) for n, l in shapes])
+    before = ck.identity_counts.launches
+    got = family_sequence_weights(batch, seqid, device=cuda)
+    assert ck.identity_counts.launches - before == len(shapes)
+    want = family_sequence_weights(batch, seqid, device="cpu")
+    assert ck.identity_counts.launches - before == len(shapes)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got.cpu() == 0, torch.from_numpy(~batch.seq_mask))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seq_block", [None, 256], ids=["fused", "generic"])
+def test_checkpoint_resume_on_card_is_bitwise(cuda, tmp_path, seq_block):
+    """A fit interrupted at 10 iterations and resumed from its file equals
+    the uninterrupted 20-iteration fit on the card, bit for bit."""
+    from pydca_tpu_torch.plm import fit_plm
+
+    codes = torch.tensor(planted_family(1200, 40, 21, seed=4, n_pairs=6)[0], device=cuda)
+    w = stats.sequence_weights(codes, 0.8, 21)
+    lam = 0.2 * 39
+
+    def fit(iters, ckpt=None):
+        return fit_plm(codes, w, lam, lam, 40, 21, max_iterations=iters, chunk_size=5,
+                       checkpoint_path=ckpt, checkpoint_every=5, seq_block=seq_block)
+
+    full = fit(20)
+    ckpt = str(tmp_path / "state.npz")
+    fit(10, ckpt)
+    resumed = fit(20, ckpt)
+    assert resumed.num_iters == full.num_iters
+    assert torch.equal(resumed.x, full.x)

@@ -32,7 +32,8 @@ Builds the port's CUDA kernels from ``pydca_tpu_torch/csrc`` with nvcc
 - family batches: ``plmdca compute_fn_batch --apc`` and ``mfdca
   compute_fn_batch --apc`` on the JAX package's 32-family RNA sweep, on the
   card and on the CPU, and on 12 planted protein families at Pfam widths
-  on the card, each family launching the kernels once (phase 14).
+  on the card, each family launching the kernels once, after both kernels
+  are held against their plain versions on every family's codes (phase 14).
 
 One line per phase; the next-to-last line is the kernel record (JSON), the
 last line the device record (JSON).  Exits non-zero, with no result, when
@@ -872,11 +873,44 @@ def family_busy(msas, dev):
             f"{100 * device / wall:.1f}%")
 
 
+def family_kernel_checks(msas, dev, what):
+    """Both kernels against their plain versions on every family's own
+    codes, at the sweep's shapes (partial tiles, N split across the SMs):
+    ``identity_counts`` exactly, ``weighted_gram`` on the family path's
+    float32 weights with the same zero pattern and within GRAM_TOL of the
+    Meff-normalised Gram, as phase 5 holds it.  Returns the largest errors."""
+    rtol, atol = GRAM_TOL[torch.float32]
+    ident_err, gram_err = 0, 0.0
+    for k, msa in enumerate(msas):
+        l, q = msa.seqs_len, msa.q
+        codes = torch.from_numpy(msa.data.astype(np.int8)).to(dev)
+        thr = float(np.float32(0.8 * l))
+        counts = ck.identity_counts(codes, thr, q)
+        plain = ck.identity_counts_reference(codes, thr, q)
+        ident_err = max(ident_err, int((counts - plain).abs().max()))
+        check(torch.equal(counts, plain),
+              f"{what} family {k} ({msa.num_seqs} x {l}): identity_counts != plain")
+        w = family._weights_of(codes, 0.8, q)
+        got = ck.weighted_gram(codes, w, q)
+        want = ck.weighted_gram_reference(codes, w, q)
+        check(torch.equal(got == 0, want == 0),
+              f"{what} family {k} ({msa.num_seqs} x {l}): weighted_gram zero pattern differs")
+        meff = w.sum()
+        err = (got.div_(meff) - want.div_(meff)).abs_()
+        bad = int((err > atol + rtol * want.abs()).sum())
+        gram_err = max(gram_err, float(err.max()))
+        check(bad == 0, f"{what} family {k} ({msa.num_seqs} x {l}): weighted_gram differs "
+              f"from plain on {bad} elements")
+    return ident_err, gram_err
+
+
 def phase_families(tmp, dev):
     """``compute_fn_batch --apc`` through both CLIs: the JAX package's RNA
     sweep on the card and on the CPU, then planted protein families."""
     files = write_sweep(tmp, "rna_sweep", rna_family_sweep(), alphabets.RNA)
     nf = len(files)
+    batch = family.FamilyBatch([plm.read_msa(f, "rna") for f in files])
+    errs = [family_kernel_checks(batch.msas, dev, "RNA sweep")]
     runs = {}
     for device in ("cuda", "cpu"):
         runs[device] = {cli: run_batch(tmp, cli, "rna", files, device, flags)
@@ -887,7 +921,6 @@ def phase_families(tmp, dev):
           f"RNA plm batch launches {plm_gpu[2]}, expected identity_counts {nf}")
     check(mf_gpu[2] == {"identity_counts": nf, "weighted_gram": nf},
           f"RNA mean-field batch launches {mf_gpu[2]}, expected {nf} of each")
-    batch = family.FamilyBatch([plm.read_msa(f, "rna") for f in files])
     check(torch.equal(family.family_sequence_weights(batch, device=dev).cpu(),
                       family.family_sequence_weights(batch, device="cpu")),
           "RNA sweep: family weights differ between the card and the CPU")
@@ -900,7 +933,9 @@ def phase_families(tmp, dev):
               f"RNA {cli} batch cpu vs cuda: worst family spearman {worst[cli][0]:.4f}, "
               f"top-20 overlap {worst[cli][1]:.2f}")
     busy = family_busy(batch.msas, dev)
-    print(f"phase 14 (a) RNA sweep, {nf} families q 5: weights equal on the card and the CPU; "
+    print(f"phase 14 (a) RNA sweep, {nf} families q 5: on every family identity_counts equal "
+          f"to plain, weighted_gram within (rtol, atol) {GRAM_TOL[torch.float32]} of plain "
+          f"(max abs err {errs[0][1]:.3e}); weights equal on the card and the CPU; "
           f"plm cuda: {fits_text(plm_gpu[0], plm_gpu[1])}, peak {plm_gpu[3]:.2f} GiB; plm cpu: "
           f"{fits_text(runs['cpu']['plmdca'][0], runs['cpu']['plmdca'][1])}; worst family cpu vs "
           f"cuda plm spearman {worst['plmdca'][0]:.4f} top-20 {worst['plmdca'][1]:.2f}, mean-field "
@@ -911,6 +946,9 @@ def phase_families(tmp, dev):
     sweep = protein_family_sweep()
     files = write_sweep(tmp, "protein_sweep", [c for c, _ in sweep], alphabets.PROTEIN)
     nf = len(files)
+    errs.append(family_kernel_checks([plm.read_msa(f, "protein") for f in files], dev,
+                                     "protein sweep"))
+    torch.cuda.empty_cache()
     plm_run = run_batch(tmp, "plmdca", "protein", files, "cuda", [])
     mf_run = run_batch(tmp, "mfdca", "protein", files, "cuda", [])
     check(plm_run[2] == {"identity_counts": nf, "weighted_gram": 0},
@@ -924,14 +962,15 @@ def phase_families(tmp, dev):
     shapes = [c.shape for c, _ in sweep]
     print(f"phase 14 (b) protein sweep, {nf} planted families q 21, N {min(n for n, _ in shapes)}-"
           f"{max(n for n, _ in shapes)}, L {min(l for _, l in shapes)}-{max(l for _, l in shapes)}: "
-          f"planted recovery min plm {min(shares['plm']):.2f} mean-field "
+          f"on every family identity_counts equal to plain, weighted_gram within GRAM_TOL "
+          f"(max abs err {errs[1][1]:.3e}); planted recovery min plm {min(shares['plm']):.2f} mean-field "
           f"{min(shares['mean-field']):.2f} (top {PLANTED_TOP}); plm: "
           f"{fits_text(plm_run[0], plm_run[1])}, peak {plm_run[3]:.2f} GiB; mean-field CLI wall "
           f"{mf_run[1]:.3f} s, peak {mf_run[3]:.2f} GiB; kernel launches plm {plm_run[2]}, "
           f"mean-field {mf_run[2]}", flush=True)
     ident = sum(r[2]["identity_counts"] for r in (plm_gpu, mf_gpu, plm_run, mf_run))
     gram = sum(r[2]["weighted_gram"] for r in (mf_gpu, mf_run))
-    return ident, gram
+    return ident, gram, max(e[0] for e in errs), max(e[1] for e in errs)
 
 
 def read_scores(path):
@@ -1060,13 +1099,14 @@ def main() -> int:
         # ---- phases 13-14: checkpoints, family batches
         ckpt_launches = phase_checkpoint(tmp, dev, inst_main, stream_inst)
         del stream_inst
-        fam_ident, fam_gram = phase_families(tmp, dev)
+        fam_ident, fam_gram, fam_ident_err, fam_gram_err = phase_families(tmp, dev)
 
     records = []
     for name, (ms, plain_ms, lib_ms, bound), n_launch, err in (
         ("identity_counts", timing["pf02826_deep"], launches + ckpt_launches + fam_ident,
-         max_err),
-        ("weighted_gram", gram_timing["protein"], mf_launches + fam_gram, gram_err),
+         max(max_err, fam_ident_err)),
+        ("weighted_gram", gram_timing["protein"], mf_launches + fam_gram,
+         max(gram_err, fam_gram_err)),
     ):
         records.append({
             "name": name, "route": "cuda", "source": f"pydca_tpu_torch/csrc/{name}.cu",

@@ -24,14 +24,7 @@ import os
 import torch
 
 from ..config_log import configure_logging
-from ..family import (
-    BatchRun,
-    FamilyBatch,
-    FamilyFit,
-    family_plm_fit,
-    family_plm_fit_bucketed,
-    family_plm_scores,
-)
+from ..family import BatchRun, FamilyFit, family_plm_fit_bucketed
 from ..io import output as dca_utilities
 from ..io.fasta import read_msa
 from ..plm import PlmDCA
@@ -121,8 +114,8 @@ def build_parser() -> argparse.ArgumentParser:
     sb.add_argument("--apc", action="store_true")
     sb.add_argument(
         "--no_bucket", action="store_true",
-        help="one padded block instead of (N, L) buckets (the layout of the "
-        "padded parameters; each family is fitted at its own size either way)",
+        help="accepted for the JAX CLI's flags; changes nothing, since every "
+        "family is fitted at its own size",
     )
     sb.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
@@ -277,10 +270,12 @@ def execute_batch(
     device="cuda",
 ):
     """N families -> per-family fits -> per-family ranked score files
-    (``pydca_tpu/cli/plmdca_main.py:268-344``).  By default the families
-    are taken bucket by bucket (``family_plm_fit_bucketed``); ``bucket=False``
-    pads them to one block.  Each family is fitted at its own size either
-    way.  Returns a :class:`~pydca_tpu_torch.family.BatchRun`."""
+    (``pydca_tpu/cli/plmdca_main.py:268-344``) through
+    ``family_plm_fit_bucketed``: each family is fitted at its own size and
+    scored as soon as its fit ends.  ``bucket=False`` (``--no_bucket``)
+    changes nothing, since the port never pads; it is accepted for the JAX
+    CLI's flags and logged.  Returns a
+    :class:`~pydca_tpu_torch.family.BatchRun`."""
     if verbose:
         configure_logging()
     timers = StageTimers()
@@ -295,26 +290,19 @@ def execute_batch(
         logger.info("family %d (N=%d, L=%d): %d iterations, %d evaluations, %.3f s",
                     f, msas[f].num_seqs, msas[f].seqs_len, st.k, st.n_evals, seconds)
 
+    if not bucket:
+        logger.info("--no_bucket changes nothing here: every family is fitted unpadded")
     with timers.stage("compute"):
-        if bucket:
-            scores_per_family, stats_d = family_plm_fit_bucketed(
-                msas, seqid=seqid_v, max_iterations=iters, apc=apc, device=device,
-                progress_fn=record,
-            )
-        else:
-            batch = FamilyBatch(msas)
-            thetas, _ = family_plm_fit(batch, seqid=seqid_v, max_iterations=iters,
-                                       device=device, progress_fn=record)
-            scores_per_family = family_plm_scores(batch, thetas, apc=apc)
-            stats_d = None
-    # the port fits each family unpadded: the padded-FLOP figures describe
-    # the JAX package's vmap, not this run
-    buckets = "" if stats_d is None else (
-        " in {num_buckets} buckets (a padded vmap would do {bucketed_waste:.2f}x the "
-        "useful FLOPs; single block {single_block_waste:.2f}x)".format(**stats_d))
-    logger.info("family batch: %d families%s, each fitted at its own size (%d iterations, "
-                "%.3f s of fits)", len(msas), buckets, sum(f.num_iters for f in fits),
-                sum(f.seconds for f in fits))
+        scores_per_family, stats_d = family_plm_fit_bucketed(
+            msas, seqid=seqid_v, max_iterations=iters, apc=apc, device=device,
+            progress_fn=record,
+        )
+    # the padded-FLOP figures describe the JAX package's vmap, not this run
+    logger.info("family batch: %d families, each fitted at its own size (%d iterations, "
+                "%.3f s of fits); a padded vmap would do %.2fx the useful FLOPs in %d "
+                "buckets, %.2fx in one block", len(msas), sum(f.num_iters for f in fits),
+                sum(f.seconds for f in fits), stats_d["bucketed_waste"],
+                stats_d["num_buckets"], stats_d["single_block_waste"])
     if not output_dir:
         output_dir = "PLMDCA_batch_output"
     dca_utilities.create_directories(output_dir)

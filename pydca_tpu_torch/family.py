@@ -18,8 +18,11 @@ token ``q`` never reaches a kernel):
   rows have weight 0 and pad sites are masked, so they add nothing to the
   loss or the gradient; pad fields start at ``log(0 * Meff + 1) = 0`` and
   the L2 term keeps a zero at zero, so every dot product of the loop is the
-  same.  The parameters come back padded into the reference layout at
-  ``Lmax`` with every pad entry exactly 0;
+  same.  :func:`family_plm_fit` returns the parameters padded into the
+  reference layout at ``Lmax`` on the host, every pad entry exactly 0, for
+  the API and the tests; the batch CLI's :func:`family_plm_fit_bucketed`
+  scores each family from its own parameters as soon as its fit ends and
+  drops them, so the device holds one family at a time;
 - mean-field: the weighted Gram (the CUDA ``weighted_gram`` kernel), ``C``
   and its SPD inverse per family: JAX's identity rows on pad sites make its
   inverse block-diagonal, and its real block is this inverse.  float32
@@ -31,6 +34,7 @@ would need a batched line search; it is not written.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import time
 from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
@@ -134,8 +138,11 @@ def _family_codes(batch: FamilyBatch, f: int, device) -> torch.Tensor:
     """Family ``f``'s own (N_f, L_f) int8 codes on ``device``: the padded
     block sliced first, so the pad token never reaches a kernel."""
     n, l = int(batch.nseqs[f]), int(batch.lengths[f])
-    codes = np.ascontiguousarray(batch.data[f, :n, :l], dtype=np.int8)
-    return torch.from_numpy(codes).to(device)
+    return _msa_codes(batch.data[f, :n, :l], device)
+
+
+def _msa_codes(data: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(data, dtype=np.int8)).to(device)
 
 
 def _weights_of(codes: torch.Tensor, seqid: float, q: int) -> torch.Tensor:
@@ -190,14 +197,14 @@ def family_plm_fit(
     m: int = 5,
     weights: Optional[torch.Tensor] = None,
     device,
-    progress_fn: Optional[ProgressFn] = None,
 ):
     """Fit every family; returns ``(thetas (F, D_max), states)``.
 
-    ``thetas`` holds each family's parameters in the reference layout at
-    ``Lmax`` (fields site-major, couplings in the Lmax pair order), every
-    pad entry exactly 0; ``states`` are the per-family generic states.
-    Regularization defaults to ``0.2 (L_f - 1)`` per family.
+    ``thetas`` is a host tensor with each family's parameters in the
+    reference layout at ``Lmax`` (fields site-major, couplings in the Lmax
+    pair order), every pad entry exactly 0; ``states`` are the per-family
+    generic states, moved to the host, so the device holds one family's fit
+    at a time.  Regularization defaults to ``0.2 (L_f - 1)`` per family.
     """
     dev = resolve_device(device)
     set_precision()
@@ -206,19 +213,16 @@ def family_plm_fit(
     lam_h, lam_j = _lambdas(batch, lambda_h), _lambdas(batch, lambda_j)
     lmax, q = batch.lmax, batch.q
     thetas = torch.zeros((batch.num_families, lmax * q + lmax * (lmax - 1) // 2 * q * q),
-                         dtype=torch.float32, device=dev)
+                         dtype=torch.float32)
     states = []
     for f in range(batch.num_families):
         codes = _family_codes(batch, f, dev)
         n, l = codes.shape
-        t0 = time.perf_counter()
         st = _fit_one(codes, weights[f, :n].to(dev), lam_h[f], lam_j[f], l, q,
                       max_iterations=max_iterations, m=m)
-        sync(dev)
-        if progress_fn is not None:
-            progress_fn(f, st, time.perf_counter() - t0)
+        st = dataclasses.replace(st, x=st.x.cpu(), g=st.g.cpu(), z=st.z.cpu())
         thetas[f, : l * q] = st.x[: l * q]
-        sel = torch.from_numpy(_family_pair_select(l, lmax)).to(dev)
+        sel = torch.from_numpy(_family_pair_select(l, lmax))
         thetas[f, lmax * q :].view(-1, q * q)[sel] = st.x[l * q :].view(-1, q * q)
         states.append(st)
     return thetas, states
@@ -229,6 +233,11 @@ def _sorted_fn(blocks: torch.Tensor, l: int, apc: bool):
     if apc:
         fn = score_mod.apc(fn, l)
     return score_mod.sorted_scores(fn, l)
+
+
+def _own_scores(x: torch.Tensor, l: int, q: int, apc: bool):
+    """Sorted FN(-APC) of one family's own (unpadded) parameters."""
+    return _sorted_fn(x[l * q :].view(-1, q, q)[:, : q - 1, : q - 1], l, apc)
 
 
 def family_plm_scores(batch: FamilyBatch, thetas: torch.Tensor, *, apc: bool = True):
@@ -286,8 +295,8 @@ def _pow2_at_least(x: int, floor: int) -> int:
 def bucket_families(msas: Sequence[MSA], *, min_n: int = 64, min_l: int = 16):
     """Group family indices into (N, L) power-of-two buckets:
     ``{(n_bound, l_bound): [original indices]}`` (``pydca_tpu/family.py:328-350``).
-    The port fits every family at its own shape, so a bucket only orders
-    the fits and sets the padded layout of its ``thetas``."""
+    The port fits every family at its own shape: the buckets only feed
+    :func:`padded_flop_stats`."""
     groups = {}
     for idx, m in enumerate(msas):
         key = (_pow2_at_least(m.num_seqs, min_n), _pow2_at_least(m.seqs_len, min_l))
@@ -333,22 +342,29 @@ def family_plm_fit_bucketed(
     device,
     progress_fn: Optional[ProgressFn] = None,
 ):
-    """Fit many heterogeneous families bucket by bucket; returns
+    """Fit and score many heterogeneous families; returns
     ``(scores_per_family, stats)`` with the scores in input order (FN-APC
-    by default) and :func:`padded_flop_stats` plus ``num_buckets``.
-    ``progress_fn`` gets each family's index in ``msas``."""
+    by default) and :func:`padded_flop_stats` of the (N, L) buckets plus
+    ``num_buckets``.  The port never pads, so the buckets only feed the
+    stats: each family is fitted at its own shape, in input order, and
+    scored from its own parameters as soon as its fit ends, after which its
+    state is dropped.  ``progress_fn`` gets each family's index in ``msas``."""
     groups = bucket_families(msas, min_n=min_n, min_l=min_l)
-    scores: List = [None] * len(msas)
-    for key in sorted(groups):
-        idxs = groups[key]
-        batch = FamilyBatch([msas[i] for i in idxs], pad_to=key)
-        report = None
+    dev = resolve_device(device)
+    set_precision()
+    scores = []
+    for f, msa in enumerate(msas):
+        codes = _msa_codes(msa.data, dev)
+        l, q = msa.seqs_len, msa.q
+        lam = np.float32(0.2 * (l - 1))
+        weights = _weights_of(codes, seqid, q)
+        t0 = time.perf_counter()
+        st = _fit_one(codes, weights, lam, lam, l, q, max_iterations=max_iterations)
+        sync(dev)
         if progress_fn is not None:
-            report = lambda f, st, s, idxs=idxs: progress_fn(idxs[f], st, s)
-        thetas, _ = family_plm_fit(batch, seqid=seqid, max_iterations=max_iterations,
-                                   device=device, progress_fn=report)
-        for i, sc in zip(idxs, family_plm_scores(batch, thetas, apc=apc)):
-            scores[i] = sc
+            progress_fn(f, st, time.perf_counter() - t0)
+        scores.append(_own_scores(st.x, l, q, apc))
+        del st, codes, weights
     stats_d = padded_flop_stats(msas, groups)
     stats_d["num_buckets"] = len(groups)
     return scores, stats_d

@@ -230,6 +230,19 @@ def test_padding_does_not_change_the_port_fit():
         assert a == b
 
 
+@pytest.mark.parametrize("name", ["toy", "mixed"])
+def test_bucketed_scores_equal_the_padded_fit(name):
+    """The batch route scores each family from its own parameters; the
+    padded parameters of ``family_plm_fit`` give the same scores, bit for
+    bit, and stay on the host."""
+    codes = BATCHES[name]
+    tb = tfam.FamilyBatch([TMSA(data=c, alphabet=talph.RNA) for c in codes])
+    tt, states = tfam.family_plm_fit(tb, max_iterations=6, device="cpu")
+    assert tt.device.type == "cpu" and all(st.x.device.type == "cpu" for st in states)
+    direct, _ = tfam.family_plm_fit_bucketed(tb.msas, max_iterations=6, device="cpu")
+    assert direct == tfam.family_plm_scores(tb, tt)
+
+
 def write_batch(tmp_path, codes_list):
     files = []
     for k, c in enumerate(codes_list):
@@ -388,6 +401,21 @@ def test_plm_batch_cli_fits_match_jax(tmp_path):
                                    rtol=2e-2, atol=2e-3)
         assert spearman(st, sj, l) >= 0.98
         assert top_k_overlap(st, sj, min(20, l * (l - 1) // 2)) >= 0.9
+
+
+def test_plm_batch_cli_no_bucket_changes_nothing(tmp_path, caplog):
+    """``--no_bucket`` writes the same bytes (the port never pads) and
+    says so in the log."""
+    files = write_batch(tmp_path, BATCHES["mixed"])
+    outs = []
+    for flags in ([], ["--no_bucket"]):
+        outs.append(str(tmp_path / f"out{len(outs)}"))
+        with caplog.at_level("INFO", logger="pydca_tpu_torch.cli.plmdca_main"):
+            tplm.run_plm_dca(["compute_fn_batch", "rna"] + files + [
+                "--apc", "--max_iterations", "4", "--device", "cpu", "--output_dir", outs[-1]]
+                + flags)
+    assert read_bytes(outs[0]) == read_bytes(outs[1])
+    assert "--no_bucket changes nothing" in caplog.text
 
 
 @pytest.mark.parametrize("cli,folder", [("plmdca", "PLMDCA_batch_output"),

@@ -33,7 +33,15 @@ Builds the port's CUDA kernels from ``pydca_tpu_torch/csrc`` with nvcc
   compute_fn_batch --apc`` on the JAX package's 32-family RNA sweep, on the
   card and on the CPU, and on 12 planted protein families at Pfam widths
   on the card, each family launching the kernels once, after both kernels
-  are held against their plain versions on every family's codes (phase 14).
+  are held against their plain versions on every family's codes (phase 14);
+- reference sequences: ``plmdca compute_fn --apc --refseq_file`` at phase
+  3's shape with the card's mapping held to a CPU backmapper's (a),
+  ``mfdca compute_fn --apc --refseq_file`` at phase 7's on the card and the
+  CPU (b), the batched template search alone on phase 12's codes with 64
+  sampled scores held to ``local_align`` (c), ``pydca trim_by_refseq`` and
+  ``trim_by_gap_size`` with the search on the card and the CPU (d), and the
+  contact evaluator on a synthetic 1000-residue chain holding (a)'s
+  planted contacts (e) (phase 15).
 
 One line per phase; the next-to-last line is the kernel record (JSON), the
 last line the device record (JSON).  Exits non-zero, with no result, when
@@ -54,19 +62,26 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from pydca_tpu_torch import align
 from pydca_tpu_torch import alphabets
+from pydca_tpu_torch import backmap
 from pydca_tpu_torch import family
+from pydca_tpu_torch import matrices
 from pydca_tpu_torch import plm
 from pydca_tpu_torch import score
 from pydca_tpu_torch import stats
+from pydca_tpu_torch.cli import main as pydca_main
 from pydca_tpu_torch.cli import mfdca_main, plmdca_main
 from pydca_tpu_torch.device import set_precision
-from pydca_tpu_torch.io.fasta import MSA
+from pydca_tpu_torch.eval.pdb import RES_THREE_CHAR_TO_ONE
+from pydca_tpu_torch.eval.visualizer import DCAVisualizer
+from pydca_tpu_torch.io import output
+from pydca_tpu_torch.io.fasta import MSA, write_fasta
 from pydca_tpu_torch.ops import _build
 from pydca_tpu_torch.ops import cuda_kernels as ck
 from pydca_tpu_torch.synthetic import (
     PLANTED_MIN_SHARE, PLANTED_TOP, planted_family, planted_recovery,
-    protein_family_sweep, rna_family_sweep, spearman, top_k_overlap,
+    protein_family_sweep, reference_from_row, rna_family_sweep, spearman, top_k_overlap,
     write_family_fasta,
 )
 
@@ -640,7 +655,8 @@ def streamed_eval_profile(inst, msa, l, q):
 
 def phase_stream_deep(dev):
     """``PlmDCA`` at N = 10^5, L = 1000, q = 21 through the engine, two
-    iterations: the streamed route with 8 blocks of 12782 sequences."""
+    iterations: the streamed route with 8 blocks of 12782 sequences.
+    Returns the codes (phase 15 searches them)."""
     n, l, q = DEEP_SHAPE
     t0 = time.perf_counter()
     codes, _ = planted_family(n, l, q, seed=12, n_pairs=20)
@@ -680,6 +696,7 @@ def phase_stream_deep(dev):
           f"the fit's s/eval); peak memory {peak:.2f} GiB (state x, g and 10 history rows "
           f"{state_gib:.2f} GiB); engine wall {wall:.3f} s; kernel launches "
           f"{{'identity_counts': {launches}}}", flush=True)
+    return codes
 
 
 class IoClock:
@@ -973,6 +990,294 @@ def phase_families(tmp, dev):
     return ident, gram, max(e[0] for e in errs), max(e[1] for e in errs)
 
 
+def search_bound(n, w, l_ref):
+    """The least time of the template search on an H100 (700 W): 11 float32
+    operations a DP cell (Ix: two adds and a max; the diagonal: two maxes;
+    H: an add and a max with 0; the row maximum; Iy: a subtract, the prefix
+    maximum and an add), none of them an FMA, so at 67e12 / 2 operations/s,
+    against reading the N*W template codes (bytes) once."""
+    return bound_of(11 * n * w * l_ref / (PEAK["f32"] / 2), n * w / PEAK["bytes"])
+
+
+def search_profile(ref, temps, dev):
+    """One template search on the card under ``torch.profiler``: its
+    scores, host wall ms (ending in the scores' copy to the host), device
+    ms, CUDA kernels launched and the five longest kernels."""
+    sub = matrices.submatrix_for("protein", alphabets.PROTEIN.letters)
+    go, ge = matrices.gap_penalties_for("protein")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        scores = align.batch_local_align_scores(ref, temps, sub, go, ge,
+                                                alphabets.PROTEIN.gap_state, device=dev)
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = sorted((e for e in prof.key_averages() if e.device_time_total > 0),
+                    key=lambda e: -e.device_time_total)
+    device = sum(e.device_time_total for e in events) / 1e3
+    short = lambda k: k.replace("void ", "").replace("at::native::", "").replace(
+        "(anonymous namespace)::", "")[:72]
+    top = "; ".join(f"{short(e.key)} {e.device_time_total / 1e3:.1f} ms x{e.count}"
+                    for e in events[:5])
+    return scores, wall, device, sum(e.count for e in events), top
+
+
+def stages_text(timers):
+    return ", ".join(f"{s} {timers.elapsed(s):.3f} s"
+                     for s in ("read", "templates", "search", "align", "map"))
+
+
+def phase_refseq_plm(tmp, fa, codes, pairs, smi):
+    """(a) ``plmdca compute_fn --apc --refseq_file`` at PF02826 width, deep,
+    with a reference made from row 137 (substitutions, extended ends); the
+    card's mapping against a CPU backmapper's.  Returns what (d) and (e)
+    use: the reference file, the DCA file, the reference, the planted pairs
+    in reference positions and the identity_counts launches."""
+    ref = reference_from_row(codes, 137, alphabets.PROTEIN, seed=15, n_sub=4, ends=(6, 5))
+    rf = os.path.join(tmp, "ref_protein.fa")
+    write_fasta(rf, ["ref"], [ref])
+    out = os.path.join(tmp, "refseq_plm")
+    reset_launches()
+    t0 = time.perf_counter()
+    inst = plmdca_main.run_plm_dca([
+        "compute_fn", "protein", fa, "--apc", "--max_iterations", "100", "--refseq_file", rf,
+        "--device", "cuda", "--output_dir", out,
+    ])
+    wall = time.perf_counter() - t0
+    launches = ck.identity_counts.launches
+    check(launches > 0, "the refseq plm path never launched the identity_counts kernel")
+    mapping = inst.refseq_mapping
+    rows = list(inst.msa.data)
+    bms = {d: backmap.SequenceBackmapper(alignment_data=rows, refseq_file=rf,
+                                         biomolecule="protein", device=d) for d in ("cuda", "cpu")}
+    maps = {d: bm.map_to_reference_sequence() for d, bm in bms.items()}
+    check(list(maps["cuda"].items()) == list(maps["cpu"].items()) == list(mapping.items()),
+          "refseq plm: the card's mapping differs from the CPU backmapper's")
+    check("search" in bms["cuda"].timers.summary(), "refseq plm: the template search never ran")
+    stem = os.path.splitext(os.path.basename(fa))[0]
+    dca_file = os.path.join(out, f"PLMDCA_apc_fn_scores_{stem}.txt")
+    _, scores = read_scores(dca_file)
+    m = len(mapping)
+    check(len(scores) == m * (m - 1) // 2, f"refseq plm: {len(scores)} pairs, expected {m * (m - 1) // 2}")
+    check(all(0 <= i < j < len(ref) for (i, j), _ in scores), "refseq plm: a pair outside the reference")
+    vals = np.array([s for _, s in scores])
+    check(bool(np.isfinite(vals).all() and (np.diff(vals) <= 0).all()),
+          "refseq plm: scores not finite and descending")
+    mapped = [(mapping[i], mapping[j]) for i, j in pairs if i in mapping and j in mapping]
+    share = planted_recovery(scores, mapped, PLANTED_TOP)
+    check(share >= PLANTED_MIN_SHARE,
+          f"refseq plm: mapped planted pairs in top {PLANTED_TOP}: {share:.2f}")
+    bm = bms["cuda"]
+    temps = backmap.templates_from_codes(torch.from_numpy(inst.msa.data).cuda(),
+                                         alphabets.PROTEIN.gap_state)
+    ref_codes = alphabets.PROTEIN.encode_str(ref)
+    search = lambda: align.batch_local_align_scores(
+        ref_codes, temps, matrices.submatrix_for("protein", alphabets.PROTEIN.letters),
+        *matrices.gap_penalties_for("protein"), alphabets.PROTEIN.gap_state, device="cuda")
+    search_ms = cuda_ms(search, 5)
+    n, w = temps.shape
+    bound = search_bound(n, w, len(ref))
+    print(f"phase 15 (a) [{smi}] plmdca compute_fn --apc --refseq_file N={inst.num_sequences} "
+          f"L={inst.sequences_len} q=21, reference of {len(ref)} residues from row 137: {m} "
+          f"columns mapped, card mapping equal to the CPU backmapper's key for key; {len(scores)} "
+          f"pairs over 1..{len(ref)}, descending; {len(mapped)} of {len(pairs)} planted pairs "
+          f"mapped, recovery {share:.2f} (top {PLANTED_TOP}); CLI wall {wall:.3f} s, engine "
+          f"stage backmap {inst.timers.elapsed('backmap'):.3f} s; card backmapper stages "
+          f"{stages_text(bm.timers)}; CPU backmapper search {bms['cpu'].timers.elapsed('search'):.3f} "
+          f"s; search alone {search_ms:.3f} ms (CUDA events, N={n} W={w} L_ref={len(ref)}), "
+          f"bound {bound[0]:.3f} ms by {bound[1]}; kernel launches "
+          f"{{'identity_counts': {launches}}}", flush=True)
+    return rf, dca_file, ref, [p for p in mapped if p[1] - p[0] > 4], launches
+
+
+def phase_refseq_mf(tmp, fa, runs, smi):
+    """(b) ``mfdca compute_fn --apc --refseq_file`` at PF02826 shape on the
+    card and the CPU: the same mapped pairs, the rank bar, equal weights."""
+    codes = runs["cpu"][0].msa.data
+    ref = reference_from_row(codes, 41, alphabets.PROTEIN, seed=16, n_sub=3, ends=(4, 7))
+    rf = os.path.join(tmp, "ref_pf.fa")
+    write_fasta(rf, ["ref"], [ref])
+    res = {}
+    for device in ("cpu", "cuda"):
+        reset_launches()
+        t0 = time.perf_counter()
+        inst = mfdca_main.run_meanfield_dca([
+            "compute_fn", "protein", fa, "--apc", "--refseq_file", rf, "--device", device,
+            "--output_dir", os.path.join(tmp, f"refseq_mf_{device}"),
+        ])
+        wall = time.perf_counter() - t0
+        stem = os.path.splitext(os.path.basename(fa))[0]
+        path = os.path.join(tmp, f"refseq_mf_{device}", f"MFDCA_apc_fn_scores_{stem}.txt")
+        res[device] = (inst, read_scores(path)[1], wall,
+                       {k: getattr(ck, k).launches for k in KERNELS})
+    launches = res["cuda"][3]
+    for k, v in launches.items():
+        check(v > 0, f"the refseq mean-field path never launched the {k} kernel")
+    check(torch.equal(res["cpu"][0].get_sequences_weight(),
+                      res["cuda"][0].get_sequences_weight().cpu()),
+          "refseq mean-field: CPU and card weights differ")
+    a, b = res["cpu"][1], res["cuda"][1]
+    check({p for p, _ in a} == {p for p, _ in b}, "refseq mean-field: mapped pair sets differ")
+    check(res["cpu"][0].refseq_mapping == res["cuda"][0].refseq_mapping,
+          "refseq mean-field: mappings differ")
+    rho, top = spearman(a, b, len(ref)), top_k_overlap(a, b, 20)
+    check(rho >= 0.98 and top >= 0.9,
+          f"refseq mean-field CPU vs card: spearman {rho:.4f}, top-20 overlap {top:.2f}")
+    m = len(res["cuda"][0].refseq_mapping)
+    print(f"phase 15 (b) [{smi}] mfdca compute_fn --apc --refseq_file N="
+          f"{res['cuda'][0].num_sequences} L={res['cuda'][0].sequences_len} q=21, reference of "
+          f"{len(ref)} residues from row 41: {m} columns mapped, {len(b)} pairs, the same pair "
+          f"set and mapping on both devices, weights equal; spearman {rho:.4f} top-20 overlap "
+          f"{top:.2f}; wall cpu {res['cpu'][2]:.3f} s cuda {res['cuda'][2]:.3f} s (backmap "
+          f"stage {res['cuda'][0].timers.elapsed('backmap'):.3f} s); kernel launches {launches}",
+          flush=True)
+    return launches
+
+
+def phase_search_deep(codes, smi, dev):
+    """(c) The template search at depth: the codes of phase 12 (10^5 x 1000,
+    q 21) and a 1000-residue reference made from row 4242, through a card
+    backmapper (every host stage timed), then one more search under
+    torch.profiler; 64 sampled templates' scores against ``local_align``."""
+    alph = alphabets.PROTEIN
+    row_len = int((codes[4242] != alph.gap_state).sum())
+    head = (1000 - row_len) // 2
+    ref = reference_from_row(codes, 4242, alph, seed=17, n_sub=3,
+                             ends=(head, 1000 - row_len - head))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bm = backmap.SequenceBackmapper(alignment_data=list(codes), ref_seq=ref,
+                                    biomolecule="protein", device=dev)
+    mapping = bm.map_to_reference_sequence()
+    wall = time.perf_counter() - t0
+    check(len(mapping) >= 0.9 * row_len, f"deep search: {len(mapping)} of {row_len} residues mapped")
+    t0 = time.perf_counter()
+    strings = alph.decode_many(codes)
+    string_bm = backmap.SequenceBackmapper(alignment_data=strings, ref_seq=ref,
+                                           biomolecule="protein", device=dev)
+    string_temps, _ = string_bm._templates()
+    string_s = time.perf_counter() - t0
+    del strings, string_bm, string_temps
+    temps = backmap.templates_from_codes(torch.from_numpy(codes).to(dev), alph.gap_state)
+    n, w = temps.shape
+    ref_codes = alph.encode_str(ref)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    scores, wall_ms, dev_ms, kernels, top = search_profile(ref_codes, temps, dev)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    rng = np.random.default_rng(15)
+    sample = np.concatenate([[int(np.argmax(scores))], rng.choice(n, size=63, replace=False)])
+    sub = matrices.submatrix_for("protein", alph.letters)
+    go, ge = matrices.gap_penalties_for("protein")
+    temps_host = temps.cpu().numpy()
+    for k in sample:
+        t = temps_host[k][temps_host[k] != alph.gap_state]
+        want = align.local_align(ref_codes, t, sub, go, ge)[0]
+        check(scores[k] == want, f"deep search: template {k} scores {scores[k]}, local_align {want}")
+    bound = search_bound(n, w, len(ref))
+    print(f"phase 15 (c) [{smi}] template search N={n} W={w} L_ref={len(ref)} q=21 (phase 12's "
+          f"codes, no cut): 64 sampled scores equal local_align's; backmapper wall {wall:.3f} s "
+          f"(stages {stages_text(bm.timers)}; {len(mapping)} of {row_len} row residues mapped); "
+          f"the string route's template build (the JAX package's) {string_s:.3f} s; one search "
+          f"under torch.profiler: wall {wall_ms:.1f} ms, device {dev_ms:.1f} ms (busy "
+          f"{100 * dev_ms / wall_ms:.1f}%), {kernels} kernels ({kernels / len(ref):.1f} a "
+          f"reference state; longest: {top}), peak {peak:.2f} GiB beyond the templates; bound "
+          f"{bound[0]:.3f} ms by {bound[1]} ({100 * bound[0] / dev_ms:.2f}% of the device time)",
+          flush=True)
+
+
+def phase_trim(tmp, fa, rf, smi):
+    """(d) ``pydca trim_by_refseq`` (with and without --remove_all_gaps)
+    with the search on the card and on the CPU, byte for byte; and
+    ``trim_by_gap_size``."""
+    stem = os.path.splitext(os.path.basename(fa))[0]
+    parts = []
+    for flags in ([], ["--remove_all_gaps"]):
+        files, walls = {}, {}
+        for device in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"trim_{device}_{len(flags)}")
+            t0 = time.perf_counter()
+            pydca_main.run_pydca(["trim_by_refseq", "protein", fa, rf, "--device", device,
+                                  "--output_dir", out] + flags)
+            walls[device] = time.perf_counter() - t0
+            with open(os.path.join(out, f"Trimmed_{stem}.fa"), "rb") as fh:
+                files[device] = fh.read()
+        check(files["cuda"] == files["cpu"], f"trim_by_refseq {flags}: card and CPU files differ")
+        width = len(files["cuda"].split(b"\n")[1])
+        parts.append(f"trim_by_refseq{' --remove_all_gaps' if flags else ''}: files equal, "
+                     f"{width} columns kept, wall cuda {walls['cuda']:.3f} s cpu {walls['cpu']:.3f} s")
+    out = os.path.join(tmp, "trim_gap")
+    pydca_main.run_pydca(["trim_by_gap_size", fa, "--output_dir", out])
+    with open(os.path.join(out, f"Trimmed_{stem}.fa")) as fh:
+        lines = fh.read().split()
+    seqs = lines[1::2]
+    gaps = np.mean([[c == "-" for c in s] for s in seqs], axis=0)
+    with open(fa) as fh:
+        records = sum(line.startswith(">") for line in fh)
+    check(len(seqs) == records and bool((gaps <= 0.5).all()),
+          "trim_by_gap_size: a record lost or a column above 0.5 gaps kept")
+    parts.append(f"trim_by_gap_size: {len(seqs[0])} columns kept")
+    print(f"phase 15 (d) [{smi}] " + "; ".join(parts), flush=True)
+
+
+def write_chain(path, seq, contacts):
+    """A protein chain in PDB format: residue k's N, CA, C, O on a 10 A
+    grid (no two residues within 8 A), and for each planted pair (a, b) a
+    CB on residue a 2 A from residue b's CA."""
+    three = {v: k for k, v in RES_THREE_CHAR_TO_ONE.items()}
+    partner = dict(contacts)
+    lines, serial = [], 1
+    for k, letter in enumerate(seq):
+        c = 10.0 * np.array([k % 10, (k // 10) % 10, k // 100])
+        atoms = [("N", c + [0.4, 0, 0]), ("CA", c), ("C", c + [0, 0.4, 0]), ("O", c + [0, 0, 0.4])]
+        if k in partner:
+            b = partner[k]
+            atoms.append(("CB", 10.0 * np.array([b % 10, (b // 10) % 10, b // 100]) + [1.2, 1.2, 1.0]))
+        for name, xyz in atoms:
+            lines.append(f"ATOM  {serial:5d} {name:<4s} {three[letter]:>3s} A{k + 1:4d}    "
+                         f"{xyz[0]:8.3f}{xyz[1]:8.3f}{xyz[2]:8.3f}{1.0:6.2f}{0.0:6.2f}"
+                         f"          {name[0]:>2s}\n")
+            serial += 1
+    with open(path, "w") as fh:
+        fh.write("".join(lines) + "END\n")
+
+
+def phase_eval(tmp, rf, dca_file, ref, planted, smi):
+    """(e) The evaluator on a synthetic 1000-residue chain holding (a)'s
+    reference, with (a)'s planted pairs as its only non-local contacts,
+    scored with (a)'s DCA file; both files written with the port's writers."""
+    rng = np.random.default_rng(18)
+    letters = alphabets.PROTEIN.letters
+    head = 1000 - len(ref) - 300
+    seq = ("".join(rng.choice(list(letters), size=head)) + ref
+           + "".join(rng.choice(list(letters), size=300)))
+    pdb = os.path.join(tmp, "chain1000.pdb")
+    write_chain(pdb, seq, [(head + i, head + j) for i, j in planted])
+    t0 = time.perf_counter()
+    viz = DCAVisualizer("protein", "A", pdb, refseq_file=rf, dca_file=dca_file)
+    cats = viz.contact_categories()
+    rates = viz.compute_true_positive_rates()
+    out = os.path.join(tmp, "eval")
+    os.makedirs(out)
+    meta = pydca_main.get_dcavisualizer_metadata(viz)
+    output.write_contact_map(os.path.join(out, "contact_map.txt"), cats, metadata=meta)
+    output.write_tp_rate(os.path.join(out, "TPR.txt"), true_positive_rates_dict=rates,
+                         metadata=meta[:6])
+    host_s = time.perf_counter() - t0
+    top = set(viz.dca_ranked_pairs_filtered_by_linear_dist())
+    ranked = [p for p in planted if p in top]
+    check(len(ranked) >= PLANTED_MIN_SHARE * len(planted) and all(p in cats["tp"] for p in ranked),
+          f"evaluator: {sum(p in cats['tp'] for p in ranked)} of {len(ranked)} ranked planted "
+          f"pairs are true positives ({len(planted)} planted)")
+    check(set(cats["pdb"]) == set(planted), "evaluator: PDB contacts other than the planted pairs")
+    print(f"phase 15 (e) [{smi}] evaluator on a {len(seq)}-residue chain ({len(ref)} residues "
+          f"from (a)'s reference): {len(ranked)} of {len(planted)} planted pairs ranked in the "
+          f"top {len(top)}, all true positives; tp {len(cats['tp'])} fp {len(cats['fp'])} "
+          f"missing {len(cats['missing'])} pdb {len(cats['pdb'])}; TPR at rank "
+          f"{len(planted)} {rates['dca'][len(planted) - 1]:.3f}; categories, TP rates and both "
+          f"files {host_s:.3f} s on the host", flush=True)
+
+
 def read_scores(path):
     header, scores = [], []
     with open(path) as fh:
@@ -1029,6 +1334,7 @@ def main() -> int:
         codes, pairs = planted_family(n, l, q, seed=0, n_pairs=20)
         fa = os.path.join(tmp, "planted_protein.fa")
         write_family_fasta(fa, codes, alphabets.PROTEIN)
+        main_fa, main_codes, main_pairs = fa, codes, pairs
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         inst, (header, scores) = run_cli("protein", fa, os.path.join(tmp, "main"), "cuda")
@@ -1094,18 +1400,28 @@ def main() -> int:
 
         # ---- phases 11-12: streaming of deep alignments
         stream_inst = phase_stream_cli(tmp, dev)
-        phase_stream_deep(dev)
+        deep_codes = phase_stream_deep(dev)
 
         # ---- phases 13-14: checkpoints, family batches
         ckpt_launches = phase_checkpoint(tmp, dev, inst_main, stream_inst)
         del stream_inst
         fam_ident, fam_gram, fam_ident_err, fam_gram_err = phase_families(tmp, dev)
 
+        # ---- phase 15: reference sequences (backmapping, search, trimming, evaluator)
+        rf, dca_file, ref, planted, ref_ident = phase_refseq_plm(
+            tmp, main_fa, main_codes, main_pairs, smi)
+        ref_mf = phase_refseq_mf(tmp, mf_fa, mf_runs, smi)
+        phase_search_deep(deep_codes, smi, dev)
+        del deep_codes
+        phase_trim(tmp, main_fa, rf, smi)
+        phase_eval(tmp, rf, dca_file, ref, planted, smi)
+
     records = []
     for name, (ms, plain_ms, lib_ms, bound), n_launch, err in (
-        ("identity_counts", timing["pf02826_deep"], launches + ckpt_launches + fam_ident,
+        ("identity_counts", timing["pf02826_deep"],
+         launches + ckpt_launches + fam_ident + ref_ident + ref_mf["identity_counts"],
          max(max_err, fam_ident_err)),
-        ("weighted_gram", gram_timing["protein"], mf_launches + fam_gram,
+        ("weighted_gram", gram_timing["protein"], mf_launches + fam_gram + ref_mf["weighted_gram"],
          max(gram_err, fam_gram_err)),
     ):
         records.append({

@@ -6,11 +6,12 @@ same path.  The package imports ``torch`` and numpy only; hand-written CUDA
 kernels live under ``csrc/`` and are compiled with ``nvcc`` at first use
 (see :mod:`pydca_tpu_torch.ops._build`).
 
-Ported so far, on one device: the ``plmdca compute_fn [--apc]`` main path
-(FASTA decode, sequence weights, the fused full-batch L-BFGS fit, FN/APC
-scoring, the ranked output file) and the mean-field ``mfdca compute_fn
-[--apc]`` path (weights, weighted Gram, correlation matrix, Cholesky
-inverse, FN/APC).
+Ported so far, on one device: the ``plmdca`` and ``mfdca`` subcommands
+(FN, DI, parameters and frequencies, streamed deep fits, checkpoints and
+family batches), ``--refseq_file`` backmapping with the template search on
+the engine's device (:mod:`~pydca_tpu_torch.backmap`), and the ``pydca``
+CLI's trimming and contact evaluation (:mod:`~pydca_tpu_torch.trim`,
+:mod:`~pydca_tpu_torch.eval`).
 """
 
 __version__ = "0.1.0"

@@ -5,10 +5,11 @@ Port of ``pydca_tpu/cli/mfdca_main.py`` (which mirrors the reference CLI,
 ``--device {cuda,cpu}``.  Ported: ``compute_fn``, ``compute_di`` (each
 with and without ``--apc``), ``compute_fields``, ``compute_params``,
 ``compute_fi``, ``compute_fij`` and ``compute_weights`` on one device, and
-``compute_fn_batch`` over many families (:mod:`pydca_tpu_torch.family`).
-``warmup``, ``--refseq_file`` and a mesh over more than one card are
-accepted by the parser and rejected with ``NotImplementedError`` naming
-their ROADMAP item.
+``compute_fn_batch`` over many families (:mod:`pydca_tpu_torch.family`),
+with ``--refseq_file`` (scores and parameters mapped onto a reference
+sequence, its template search on the same device).  ``warmup`` and a mesh
+over more than one card are accepted by the parser and rejected with
+``NotImplementedError`` naming their ROADMAP item.
 
 Run as ``python -m pydca_tpu_torch.cli.mfdca_main compute_di protein
 <msa> --apc --device cuda``.
@@ -22,6 +23,7 @@ import os
 
 import torch
 
+from ..backmap import SequenceBackmapper
 from ..config_log import configure_logging
 from ..family import BatchRun, FamilyBatch, family_meanfield_scores
 from ..io import output as dca_utilities
@@ -57,7 +59,7 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("msa_file")
         sp.add_argument("--seqid", type=float, help="sequence identity threshold")
         sp.add_argument("--pseudocount", type=float, help="relative pseudocount")
-        sp.add_argument("--refseq_file", help="not ported (backmapping)")
+        sp.add_argument("--refseq_file", help="FASTA file with reference sequence")
         sp.add_argument("--output_dir", help="output directory")
         sp.add_argument("--verbose", action="store_true")
         sp.add_argument("--apc", action="store_true", help="average product correction")
@@ -109,14 +111,10 @@ def _reject_command(the_command) -> None:
         )
 
 
-def _reject_unported(the_command, refseq_file, mesh, device) -> None:
+def _reject_unported(the_command, mesh, device) -> None:
     """Raise ``NotImplementedError`` for every request the port cannot
     honour yet; nothing is silently ignored."""
     _reject_command(the_command)
-    if refseq_file:
-        raise NotImplementedError(
-            "--refseq_file is not ported yet (ROADMAP Queue 1 #12, backmapping)"
-        )
     if (
         mesh == "auto"
         and torch.device(device).type == "cuda"
@@ -145,7 +143,7 @@ def execute_from_command_line(
     device="cuda",
 ):
     """Run one subcommand; returns the engine (its timers and caches)."""
-    _reject_unported(the_command, refseq_file, mesh, device)
+    _reject_unported(the_command, mesh, device)
     if verbose:
         configure_logging()
     kwargs = {}
@@ -154,6 +152,14 @@ def execute_from_command_line(
     if seqid is not None:
         kwargs["seqid"] = seqid
     inst = MeanFieldDCA(msa_file, biomolecule, device=device, **kwargs)
+    seqbackmapper = None
+    if refseq_file:
+        seqbackmapper = SequenceBackmapper(
+            alignment_data=list(inst.msa.data),
+            refseq_file=refseq_file,
+            biomolecule=inst.biomolecule,
+            device=inst.device,
+        )
 
     if not output_dir:
         base, _ = os.path.splitext(os.path.basename(msa_file))
@@ -161,13 +167,14 @@ def execute_from_command_line(
     dca_utilities.create_directories(output_dir)
     write_outputs(inst, the_command, msa_file, output_dir, apc=apc,
                   ranked_by=ranked_by, linear_dist=linear_dist,
-                  num_site_pairs=num_site_pairs)
+                  num_site_pairs=num_site_pairs, seqbackmapper=seqbackmapper)
     logger.info("mfDCA stage timings:\n%s", inst.timers.summary())
     return inst
 
 
 def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
-                  ranked_by=None, linear_dist=None, num_site_pairs=None):
+                  ranked_by=None, linear_dist=None, num_site_pairs=None,
+                  seqbackmapper=None):
     """Compute what ``the_command`` asks of the engine ``inst`` and write its
     files into ``output_dir`` (``pydca_tpu/cli/mfdca_main.py:154-277``).
     Each header is built after the compute: it holds Meff, the weights'
@@ -182,11 +189,11 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
 
     if the_command == "compute_di":
         if apc:
-            sorted_di = inst.compute_sorted_DI_APC()
+            sorted_di = inst.compute_sorted_DI_APC(seqbackmapper=seqbackmapper)
             score_type = " MF DI average product corrected (APC)"
             path = path_of("MFDCA_apc_di_scores_")
         else:
-            sorted_di = inst.compute_sorted_DI()
+            sorted_di = inst.compute_sorted_DI(seqbackmapper=seqbackmapper)
             score_type = "raw DI"
             path = path_of("MFDCA_raw_di_scores_")
         dca_utilities.write_sorted_dca_scores(
@@ -196,11 +203,11 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
     if the_command == "compute_fn":
         if apc:
             score_type = "MFDCA Frobenius norm, average product corrected (APC)"
-            sorted_fn = inst.compute_sorted_FN_APC()
+            sorted_fn = inst.compute_sorted_FN_APC(seqbackmapper=seqbackmapper)
             path = path_of("MFDCA_apc_fn_scores_")
         else:
             score_type = "MFDCA raw Frobenius norm"
-            sorted_fn = inst.compute_sorted_FN()
+            sorted_fn = inst.compute_sorted_FN(seqbackmapper=seqbackmapper)
             path = path_of("MFDCA_raw_fn_scores_")
         dca_utilities.write_sorted_dca_scores(
             path, sorted_fn, metadata=param_metadata(), score_type=score_type
@@ -217,6 +224,7 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
 
     if the_command == "compute_params":
         fields, couplings = inst.compute_params(
+            seqbackmapper=seqbackmapper,
             ranked_by=ranked_by,
             linear_dist=linear_dist,
             num_site_pairs=num_site_pairs,

@@ -4,8 +4,10 @@ Port of ``pydca_tpu/cli/plmdca_main.py`` (which mirrors the reference CLI,
 ``pydca/plmdca_main.py``): same subcommands, flags and output files, plus
 ``--device {cuda,cpu}``.  Ported: ``compute_fn`` and ``compute_di`` (each
 with and without ``--apc``) and ``compute_params`` on one device, with
-``--seq_block`` (the streamed loss; past 1 GiB of logits the engine
-streams by itself) and ``--checkpoint`` (resume and bounded retry), and
+``--refseq_file`` (scores and parameters mapped onto a reference sequence,
+its template search on the same device), ``--seq_block`` (the streamed
+loss; past 1 GiB of logits the engine streams by itself) and
+``--checkpoint`` (resume and bounded retry), and
 ``compute_fn_batch`` over many families (:mod:`pydca_tpu_torch.family`).
 ``warmup`` and the flag values the port cannot honour yet are accepted by
 the parser and rejected with ``NotImplementedError`` naming their ROADMAP
@@ -23,6 +25,7 @@ import os
 
 import torch
 
+from ..backmap import SequenceBackmapper
 from ..config_log import configure_logging
 from ..family import BatchRun, FamilyFit, family_plm_fit_bucketed
 from ..io import output as dca_utilities
@@ -86,7 +89,7 @@ def build_parser() -> argparse.ArgumentParser:
             "--mesh", choices=["auto", "single"], default="auto",
             help="auto (default) / single; more than one device is not ported",
         )
-        sp.add_argument("--refseq_file", help="not ported (backmapping)")
+        sp.add_argument("--refseq_file", help="FASTA file with reference sequence")
         sp.add_argument("--output_dir")
         sp.add_argument("--verbose", action="store_true")
         sp.add_argument("--apc", action="store_true")
@@ -131,15 +134,10 @@ def _reject_command(the_command) -> None:
         )
 
 
-def _reject_unported(the_command, refseq_file, precision, param_space, mesh,
-                     device) -> None:
+def _reject_unported(the_command, precision, param_space, mesh, device) -> None:
     """Raise ``NotImplementedError`` for every request the port cannot
     honour yet; nothing is silently ignored."""
     _reject_command(the_command)
-    if refseq_file:
-        raise NotImplementedError(
-            "--refseq_file is not ported yet (ROADMAP Queue 1 #12, backmapping)"
-        )
     if precision in ("bfloat16", "bf16"):
         raise NotImplementedError(
             "--precision bfloat16 is not ported yet (ROADMAP Queue 1 #6)"
@@ -183,7 +181,7 @@ def execute_from_command_line(
     device="cuda",
 ):
     """Run one subcommand; returns the engine (its timers and fit result)."""
-    _reject_unported(the_command, refseq_file, precision, param_space, mesh, device)
+    _reject_unported(the_command, precision, param_space, mesh, device)
     if verbose:
         configure_logging()
     inst = PlmDCA(
@@ -199,18 +197,27 @@ def execute_from_command_line(
         seq_block=seq_block,
         checkpoint_path=checkpoint,
     )
+    seqbackmapper = None
+    if refseq_file:
+        seqbackmapper = SequenceBackmapper(
+            alignment_data=list(inst.msa.data),
+            refseq_file=refseq_file,
+            biomolecule=inst.biomolecule,
+            device=inst.device,
+        )
     if not output_dir:
         base, _ = os.path.splitext(os.path.basename(msa_file))
         output_dir = "PLMDCA_output_" + base
     dca_utilities.create_directories(output_dir)
     write_outputs(inst, the_command, msa_file, output_dir, apc=apc,
                   ranked_by=ranked_by, linear_dist=linear_dist,
-                  num_site_pairs=num_site_pairs)
+                  num_site_pairs=num_site_pairs, seqbackmapper=seqbackmapper)
     return inst
 
 
 def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
-                  ranked_by=None, linear_dist=None, num_site_pairs=None):
+                  ranked_by=None, linear_dist=None, num_site_pairs=None,
+                  seqbackmapper=None):
     """Compute what ``the_command`` asks of the engine ``inst`` and write its
     files into ``output_dir`` (``pydca_tpu/cli/plmdca_main.py:199-265``)."""
     param_metadata = dca_utilities.plmdca_param_metadata(inst)
@@ -223,11 +230,11 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
     if the_command == "compute_fn":
         if apc:
             score_type = "PLMDCA Frobenius norm, average product corrected (APC)"
-            scores = inst.compute_sorted_FN_APC()
+            scores = inst.compute_sorted_FN_APC(seqbackmapper=seqbackmapper)
             path = path_of("PLMDCA_apc_fn_scores_")
         else:
             score_type = "PLMDCA Frobenius norm, non-APC (not average product corrected)"
-            scores = inst.compute_sorted_FN()
+            scores = inst.compute_sorted_FN(seqbackmapper=seqbackmapper)
             path = path_of("PLMDCA_raw_fn_scores_")
         dca_utilities.write_sorted_dca_scores(
             path, scores, metadata=param_metadata, score_type=score_type
@@ -236,11 +243,11 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
     if the_command == "compute_di":
         if apc:
             score_type = "PLMDCA  DI scores, average product corrected (APC)"
-            scores = inst.compute_sorted_DI_APC()
+            scores = inst.compute_sorted_DI_APC(seqbackmapper=seqbackmapper)
             path = path_of("PLMDCA_apc_di_scores_")
         else:
             score_type = "PLMDCA DI scores, non-APC (not average product corrected)"
-            scores = inst.compute_sorted_DI()
+            scores = inst.compute_sorted_DI(seqbackmapper=seqbackmapper)
             path = path_of("PLMDCA_raw_di_scores_")
         dca_utilities.write_sorted_dca_scores(
             path, scores, metadata=param_metadata, score_type=score_type
@@ -248,6 +255,7 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
 
     if the_command == "compute_params":
         fields, couplings = inst.compute_params(
+            seqbackmapper=seqbackmapper,
             ranked_by=ranked_by,
             linear_dist=linear_dist,
             num_site_pairs=num_site_pairs,

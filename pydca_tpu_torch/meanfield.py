@@ -10,11 +10,11 @@ them as a plain sequence of eager steps on one device, each timed as its
 own stage (``weights``, ``gram``, ``corr``, ``inverse``, ``score``), and
 reads the SPD flag and the FN vectors back to the host in one fetch.  DI
 adds the stages ``blocks``, ``two_site`` (the fixed point), ``di`` and
-``sort``.
+``sort``, and a reference sequence the stage ``backmap``.
 
 The counting layer runs the two hand-written CUDA kernels on a card
 (``csrc/identity_counts.cu`` for the weights, ``csrc/weighted_gram.cu``
-for the Gram).  Backmapping and a mesh are not ported yet.
+for the Gram).  A mesh is not ported yet.
 """
 
 from __future__ import annotations
@@ -137,6 +137,8 @@ class MeanFieldDCA:
         self.lu_fallback = False  # set when the pipeline took the LU inverse
         # the last DI run's fixed-point statistics (score.TwoSiteStats)
         self.two_site_stats: Optional[score_mod.TwoSiteStats] = None
+        # the last backmapped ranking's {MSA column -> refseq position}
+        self.refseq_mapping: Optional[Dict[int, int]] = None
         self.timers = StageTimers()
 
     # ------------------------------------------------------------- properties
@@ -411,33 +413,38 @@ class MeanFieldDCA:
         return di
 
     def compute_sorted_FN(self, seqbackmapper=None):
-        score_mod.reject_seqbackmapper(seqbackmapper)
         self.compute_couplings()  # the pipeline times its own stages
         with self.timers.stage("score"):
-            return score_mod.sorted_scores(self._fn_scores(), self.msa.seqs_len)
+            res = score_mod.sorted_scores(self._fn_scores(), self.msa.seqs_len)
+        return score_mod.backmapped(self, res, seqbackmapper)
 
     def compute_sorted_FN_APC(self, seqbackmapper=None):
-        score_mod.reject_seqbackmapper(seqbackmapper)
         self.compute_couplings()
         with self.timers.stage("score"):
             if self.__fn_apc is not None:
                 apc = self.__fn_apc
             else:
                 apc = score_mod.apc(self._fn_scores(), self.msa.seqs_len)
-            return score_mod.sorted_scores(apc, self.msa.seqs_len)
+            res = score_mod.sorted_scores(apc, self.msa.seqs_len)
+        return score_mod.backmapped(self, res, seqbackmapper)
 
     def compute_sorted_DI(self, seqbackmapper=None):
-        score_mod.reject_seqbackmapper(seqbackmapper)
         di = self._di_scores()
         with self.timers.stage("sort"):
-            return score_mod.sorted_scores(di, self.msa.seqs_len)
+            res = score_mod.sorted_scores(di, self.msa.seqs_len)
+        return score_mod.backmapped(self, res, seqbackmapper)
 
     def compute_sorted_DI_APC(self, seqbackmapper=None):
-        score_mod.reject_seqbackmapper(seqbackmapper)
         di = self._di_scores()
         with self.timers.stage("sort"):
             l = self.msa.seqs_len
-            return score_mod.sorted_scores(score_mod.apc(di, l), l)
+            res = score_mod.sorted_scores(score_mod.apc(di, l), l)
+        return score_mod.backmapped(self, res, seqbackmapper)
+
+    def get_mapped_site_pairs_dca_scores(self, sorted_dca_scores, seqbackmapper):
+        """Sorted scores mapped onto the reference sequence
+        (reference ``meanfield_dca.py:755-790``)."""
+        return score_mod.backmapped(self, sorted_dca_scores, seqbackmapper)
 
     # ------------------------------------------------------------ parameters
     def compute_params(
@@ -451,26 +458,28 @@ class MeanFieldDCA:
 
         Mirrors ``pydca_tpu/meanfield.py:527-587`` (reference
         ``meanfield_dca.py:661-752``): couplings of the top
-        ``num_site_pairs`` (default L) pairs with ``|i - j| > linear_dist``
-        (default 4) ranked by ``ranked_by`` (default FN_APC), each block
-        gauge-shifted.  The blocks are gathered on the device, not copied
-        to the host with the whole coupling matrix.
+        ``num_site_pairs`` pairs with ``|i - j| > linear_dist`` (default 4)
+        ranked by ``ranked_by`` (default FN_APC), each block gauge-shifted.
+        With a backmapper, sites are reference positions and
+        ``num_site_pairs`` defaults to the reference's length; else to L.
+        The blocks are gathered on the device, not copied to the host with
+        the whole coupling matrix.
         """
-        score_mod.reject_seqbackmapper(seqbackmapper)
         rank = score_mod.ranking_method(self, ranked_by, MeanFieldDCAException)
-        dca_scores = rank()
+        dca_scores = rank(seqbackmapper=seqbackmapper)
         l, qm1 = self.msa.seqs_len, self.msa.q - 1
         couplings = self.compute_couplings()
         fields = self.compute_fields(couplings=couplings)
+        sites, n_pairs = score_mod.params_sites(self, seqbackmapper, num_site_pairs)
         pairs = score_mod.ranked_pairs(
-            dca_scores, 4 if linear_dist is None else linear_dist,
-            l if num_site_pairs is None else num_site_pairs,
+            dca_scores, 4 if linear_dist is None else linear_dist, n_pairs
         )
-        sites = torch.tensor(pairs, dtype=torch.int64, device=self.device).reshape(-1, 2)
+        cols = torch.tensor([(sites[i], sites[j]) for i, j in pairs], dtype=torch.int64,
+                            device=self.device).reshape(-1, 2)
         j4 = couplings.reshape(l, qm1, l, qm1).permute(0, 2, 1, 3)
-        shifted = score_mod.gauge_shift(j4[sites[:, 0], sites[:, 1]])
+        shifted = score_mod.gauge_shift(j4[cols[:, 0], cols[:, 1]])
         shifted = shifted.reshape(len(pairs), qm1 * qm1).cpu().numpy()
-        return tuple((i, fields[i]) for i in range(l)), tuple(zip(pairs, shifted))
+        return tuple((i, fields[c]) for i, c in sites.items()), tuple(zip(pairs, shifted))
 
 
 def _gram_fi(gram: torch.Tensor, l: int, q: int) -> torch.Tensor:

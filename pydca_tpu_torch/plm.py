@@ -43,7 +43,7 @@ import functools
 import logging
 import os
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -944,6 +944,8 @@ class PlmDCA:
         self.__fit_result: Optional[LBFGSResult] = None
         # the last DI run's fixed-point statistics (score.TwoSiteStats)
         self.two_site_stats: Optional[score_mod.TwoSiteStats] = None
+        # the last backmapped ranking's {MSA column -> refseq position}
+        self.refseq_mapping: Optional[Dict[int, int]] = None
         self.timers = StageTimers()
 
     # ------------------------------------------------------------- properties
@@ -1150,30 +1152,33 @@ class PlmDCA:
         return res
 
     def compute_sorted_FN(self, seqbackmapper=None):
-        score_mod.reject_seqbackmapper(seqbackmapper)
         self._theta()  # the fit is timed as its own stage, not as scoring
         with self.timers.stage("score"):
-            return self._sorted(self._fn_scores())
+            res = self._sorted(self._fn_scores())
+        return score_mod.backmapped(self, res, seqbackmapper)
 
     def compute_sorted_FN_APC(self, seqbackmapper=None):
-        score_mod.reject_seqbackmapper(seqbackmapper)
         self._theta()
         with self.timers.stage("score"):
-            return self._sorted(
-                score_mod.apc(self._fn_scores(), self.msa.seqs_len)
-            )
+            res = self._sorted(score_mod.apc(self._fn_scores(), self.msa.seqs_len))
+        return score_mod.backmapped(self, res, seqbackmapper)
 
     def compute_sorted_DI(self, seqbackmapper=None):
-        score_mod.reject_seqbackmapper(seqbackmapper)
         di = self._di_scores()
         with self.timers.stage("sort"):
-            return self._sorted(di)
+            res = self._sorted(di)
+        return score_mod.backmapped(self, res, seqbackmapper)
 
     def compute_sorted_DI_APC(self, seqbackmapper=None):
-        score_mod.reject_seqbackmapper(seqbackmapper)
         di = self._di_scores()
         with self.timers.stage("sort"):
-            return self._sorted(score_mod.apc(di, self.msa.seqs_len))
+            res = self._sorted(score_mod.apc(di, self.msa.seqs_len))
+        return score_mod.backmapped(self, res, seqbackmapper)
+
+    def get_mapped_site_pairs_dca_scores(self, sorted_dca_scores, seqbackmapper):
+        """Sorted scores mapped onto the reference sequence
+        (reference ``plmdca.py:527-560``)."""
+        return score_mod.backmapped(self, sorted_dca_scores, seqbackmapper)
 
     # ------------------------------------------------------------ parameters
     def compute_params(
@@ -1185,20 +1190,21 @@ class PlmDCA:
     ):
         """Fields plus top-ranked gauge-shifted couplings
         (``pydca_tpu/plm.py:1877-1933``, reference ``plmdca.py:345-434``):
-        the couplings of the top ``num_site_pairs`` (default L) pairs with
+        the couplings of the top ``num_site_pairs`` pairs with
         ``|i - j| > linear_dist`` (default 4) ranked by ``ranked_by``
-        (default FN_APC), each block gauge-shifted."""
-        score_mod.reject_seqbackmapper(seqbackmapper)
+        (default FN_APC), each block gauge-shifted.  With a backmapper,
+        sites are reference positions and ``num_site_pairs`` defaults to
+        the reference's length; else to L."""
         rank = score_mod.ranking_method(self, ranked_by, PlmDCAException)
-        dca_scores = rank()
+        dca_scores = rank(seqbackmapper=seqbackmapper)
         l, qm1 = self.msa.seqs_len, self.msa.q - 1
         fields, couplings = self.get_fields_and_couplings_no_gap_state()
+        sites, n_pairs = score_mod.params_sites(self, seqbackmapper, num_site_pairs)
         pairs = score_mod.ranked_pairs(
-            dca_scores, 4 if linear_dist is None else linear_dist,
-            l if num_site_pairs is None else num_site_pairs,
+            dca_scores, 4 if linear_dist is None else linear_dist, n_pairs
         )
-        ks = [int(stats.pair_index(i, j, l)) for i, j in pairs]
+        ks = [int(stats.pair_index(sites[i], sites[j], l)) for i, j in pairs]
         blocks = torch.from_numpy(couplings.reshape(-1, qm1, qm1)[ks])
         shifted = score_mod.gauge_shift(blocks).reshape(len(pairs), qm1 * qm1).numpy()
-        fields_by_site = tuple((i, fields[qm1 * i : qm1 * (i + 1)]) for i in range(l))
+        fields_by_site = tuple((i, fields[qm1 * c : qm1 * (c + 1)]) for i, c in sites.items())
         return fields_by_site, tuple(zip(pairs, shifted))

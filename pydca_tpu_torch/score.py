@@ -31,7 +31,8 @@ __all__ = [
     "di_from_fields",
     "direct_information",
     "engine_di",
-    "reject_seqbackmapper",
+    "backmapped",
+    "params_sites",
     "ranking_method",
     "ranked_pairs",
     "sorted_scores",
@@ -284,12 +285,36 @@ def engine_di(engine) -> Tuple[torch.Tensor, TwoSiteStats]:
     return di, stats
 
 
-def reject_seqbackmapper(seqbackmapper) -> None:
-    """The engines' ``seqbackmapper`` keyword: only ``None`` is ported."""
-    if seqbackmapper is not None:
-        raise NotImplementedError(
-            "seqbackmapper is not ported yet (ROADMAP Queue 1 #12, backmapping)"
-        )
+def backmapped(engine, sorted_dca_scores, seqbackmapper):
+    """An engine's sorted scores mapped through ``seqbackmapper`` (none: as
+    they are): the pairs whose two MSA columns both map onto the
+    reference, renamed by the mapping ({MSA column -> refseq position}), in
+    descending score order (``meanfield_dca.py:755-790``,
+    ``plmdca.py:527-560``), timed as the stage ``backmap``.  The mapping is
+    kept in ``engine.refseq_mapping`` for ``compute_params``."""
+    if seqbackmapper is None:
+        return sorted_dca_scores
+    with engine.timers.stage("backmap"):
+        mapping = engine.refseq_mapping = seqbackmapper.map_to_reference_sequence()
+        mapped = [((mapping[i], mapping[j]), sc) for (i, j), sc in sorted_dca_scores
+                  if i in mapping and j in mapping]
+        mapped.sort(key=lambda k: k[1], reverse=True)
+        return mapped
+
+
+def params_sites(engine, seqbackmapper, num_site_pairs: Optional[int]):
+    """``compute_params``' sites: ({site -> MSA column}, number of pairs).
+    With a backmapper the sites are the reference positions of the mapping
+    its ranking just built, and the pairs default to the reference's length;
+    else every MSA column and L (``meanfield_dca.py:661-752``,
+    ``plmdca.py:345-434``)."""
+    l = engine.msa.seqs_len
+    if seqbackmapper is None:
+        sites, default = {i: i for i in range(l)}, l
+    else:
+        sites = {v: k for k, v in engine.refseq_mapping.items()}
+        default = len(seqbackmapper.ref_sequence)
+    return sites, default if num_site_pairs is None else num_site_pairs
 
 
 def ranking_method(engine, ranked_by: Optional[str], exc_type):

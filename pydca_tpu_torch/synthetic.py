@@ -29,6 +29,7 @@ __all__ = [
     "planted_family",
     "planted_recovery",
     "protein_family_sweep",
+    "reference_from_row",
     "rna_family_sweep",
     "spearman",
     "top_k_overlap",
@@ -134,6 +135,20 @@ def protein_family_sweep(families: int = 12, seed: int = 3):
     return out
 
 
+def reference_from_row(codes: np.ndarray, k: int, alphabet: Alphabet, *, seed: int = 0,
+                       n_sub: int = 3, ends: Tuple[int, int] = (4, 4)) -> str:
+    """A reference sequence made from row ``k`` of ``codes``: its residues
+    with the gaps dropped, ``n_sub`` of them substituted, and ``ends``
+    random residues added before and after it."""
+    rng = np.random.default_rng(seed)
+    r = alphabet.q - 1  # residue states
+    res = codes[k][codes[k] != alphabet.gap_state].astype(np.int64)
+    at = rng.choice(len(res), size=n_sub, replace=False)
+    res[at] = (res[at] + rng.integers(1, r, size=n_sub)) % r
+    head, tail = (rng.integers(0, r, size=e) for e in ends)
+    return alphabet.decode(np.concatenate([head, res, tail]))
+
+
 def write_family_fasta(path: str, codes: np.ndarray, alphabet: Alphabet) -> None:
     """Write ``codes`` as a FASTA alignment (ids ``seq0``, ``seq1``, ...)."""
     seqs = alphabet.decode_many(codes)
@@ -157,8 +172,12 @@ def _dense(sorted_scores, l: int) -> np.ndarray:
 
 
 def spearman(a_sorted, b_sorted, l: int) -> float:
-    """Spearman rank correlation of two sorted score lists over all pairs."""
+    """Spearman rank correlation of two sorted score lists over the pairs
+    both hold (all pairs of L sites, or the sites mapped onto a reference
+    sequence of length L)."""
     a, b = _dense(a_sorted, l), _dense(b_sorted, l)
+    both = ~(np.isnan(a) | np.isnan(b))
+    a, b = a[both], b[both]
     ra = np.argsort(np.argsort(a)).astype(float)
     rb = np.argsort(np.argsort(b)).astype(float)
     ra -= ra.mean()

@@ -85,7 +85,6 @@ def test_planted_pairs_recovered(tmp_path):
     "extra,match",
     [
         (["warmup"], "Queue 1 #14"),
-        (["compute_fn", "--refseq_file", "ref.fa"], "Queue 1 #12"),
     ],
 )
 def test_unported_options_raise(tmp_path, extra, match):

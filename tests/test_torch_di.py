@@ -18,15 +18,19 @@ import jax.numpy as jnp
 
 from pydca_tpu import score as jscore
 from pydca_tpu.alphabets import PROTEIN as JPROTEIN, RNA as JRNA
+from pydca_tpu.backmap import SequenceBackmapper as JSequenceBackmapper
 from pydca_tpu.io.fasta import MSA as JMSA
 from pydca_tpu.plm import PlmDCA as JPlmDCA
 from pydca_tpu_torch import score as tscore
 from pydca_tpu_torch import stats as tstats
 from pydca_tpu_torch.alphabets import PROTEIN, RNA
+from pydca_tpu_torch.backmap import SequenceBackmapper
 from pydca_tpu_torch.io.fasta import MSA
 from pydca_tpu_torch.plm import PlmDCA, PlmDCAException
 from pydca_tpu_torch.meanfield import MeanFieldDCAException
-from pydca_tpu_torch.synthetic import planted_family, spearman, top_k_overlap
+from pydca_tpu_torch.synthetic import (
+    planted_family, reference_from_row, spearman, top_k_overlap,
+)
 from test_torch_meanfield import dense, engines
 
 GOLDENS = os.path.join(os.path.dirname(__file__), "goldens")
@@ -416,7 +420,28 @@ def test_plm_wrong_param_count_raises():
 @pytest.mark.parametrize(
     "method", ["compute_sorted_FN", "compute_sorted_DI_APC", "compute_params"]
 )
-def test_seqbackmapper_raises(engine, method):
-    t = plm_engines("rna")[-1] if engine == "plm" else engines("small_msa", torch.float32)[2]
-    with pytest.raises(NotImplementedError, match="Queue 1 #12"):
-        getattr(t, method)(seqbackmapper=object())
+def test_seqbackmapper_matches_jax(engine, method):
+    """Each engine method with a real backmapper (a reference made from row
+    7 of the alignment, so the template search runs) against the JAX
+    engine's: the same mapped pairs and sites of the reference, values at
+    the bar of the unmapped comparisons above (plm float32, mean-field
+    float64)."""
+    if engine == "plm":
+        l, q, _, j, t = plm_engines("rna")
+        rtol, atol = (1e-4, 1e-6) if "DI" in method else (1e-5, 1e-6)
+    else:
+        _, j, t = engines("small_msa", torch.float64)
+        rtol, atol = 1e-8, 1e-10
+    data = t.msa.data
+    ref = reference_from_row(data, 7, t.msa.alphabet, seed=1, ends=(2, 3))
+    kw = dict(alignment_data=list(data), ref_seq=ref, biomolecule=t.biomolecule)
+    got = getattr(t, method)(seqbackmapper=SequenceBackmapper(device="cpu", **kw))
+    want = getattr(j, method)(seqbackmapper=JSequenceBackmapper(**kw))
+    assert t.refseq_mapping == JSequenceBackmapper(**kw).map_to_reference_sequence()
+    if method == "compute_params":
+        assert_params_equal(got, want, rtol=rtol, atol=atol)
+        assert [i for i, _ in got[0]] == sorted(t.refseq_mapping.values())
+        return
+    assert len(got) == len(want) == len(t.refseq_mapping) * (len(t.refseq_mapping) - 1) // 2
+    assert [p for p, _ in got] == [p for p, _ in want]
+    np.testing.assert_allclose([s for _, s in got], [s for _, s in want], rtol=rtol, atol=atol)

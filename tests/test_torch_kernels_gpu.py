@@ -290,3 +290,29 @@ def test_checkpoint_resume_on_card_is_bitwise(cuda, tmp_path, seq_block):
     resumed = fit(20, ckpt)
     assert resumed.num_iters == full.num_iters
     assert torch.equal(resumed.x, full.x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bio", ["rna", "protein"])
+def test_template_search_and_mapping_on_card_equal_cpu(cuda, bio):
+    """The template search on the card gives the CPU's scores bit for bit
+    (integer scores in float32), and a card backmapper the CPU's mapping."""
+    from pydca_tpu_torch import align, matrices
+    from pydca_tpu_torch.alphabets import get_alphabet
+    from pydca_tpu_torch.backmap import SequenceBackmapper, templates_from_codes
+    from pydca_tpu_torch.synthetic import reference_from_row
+
+    alph = get_alphabet(bio)
+    codes = planted_family(3000, 150, alph.q, seed=4, n_pairs=0)[0]
+    ref = reference_from_row(codes, 1234, alph, seed=5, ends=(7, 9))
+    sub = matrices.submatrix_for(bio, alph.letters)
+    go, ge = matrices.gap_penalties_for(bio)
+    temps = templates_from_codes(torch.from_numpy(codes), alph.gap_state)
+    assert torch.equal(templates_from_codes(torch.from_numpy(codes).to(cuda), alph.gap_state).cpu(),
+                       temps)
+    args = (alph.encode_str(ref), temps, sub, go, ge, alph.gap_state)
+    on_card = align.batch_local_align_scores(*args, device="cuda")
+    np.testing.assert_array_equal(on_card, align.batch_local_align_scores(*args, device="cpu"))
+    kw = dict(alignment_data=list(codes), ref_seq=ref, biomolecule=bio)
+    got = SequenceBackmapper(device="cuda", **kw).map_to_reference_sequence()
+    assert list(got.items()) == list(SequenceBackmapper(device="cpu", **kw).map_to_reference_sequence().items())

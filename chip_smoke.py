@@ -1119,10 +1119,15 @@ def phase_refseq_mf(tmp, fa, runs, smi):
     check({p for p, _ in a} == {p for p, _ in b}, "refseq mean-field: mapped pair sets differ")
     check(res["cpu"][0].refseq_mapping == res["cuda"][0].refseq_mapping,
           "refseq mean-field: mappings differ")
-    rho, top = spearman(a, b, len(ref)), top_k_overlap(a, b, 20)
+    m = len(res["cuda"][0].refseq_mapping)
+    check(len(a) == m * (m - 1) // 2, f"refseq mean-field: {len(a)} pairs over {m} sites")
+    # Rank over the mapped sites, numbered 0..m-1, so every pair is scored
+    # and a NaN on either side still lowers rho.
+    rank = {s: r for r, s in enumerate(sorted(res["cuda"][0].refseq_mapping.values()))}
+    a_m, b_m = ([((rank[i], rank[j]), s) for (i, j), s in x] for x in (a, b))
+    rho, top = spearman(a_m, b_m, m), top_k_overlap(a, b, 20)
     check(rho >= 0.98 and top >= 0.9,
           f"refseq mean-field CPU vs card: spearman {rho:.4f}, top-20 overlap {top:.2f}")
-    m = len(res["cuda"][0].refseq_mapping)
     print(f"phase 15 (b) [{smi}] mfdca compute_fn --apc --refseq_file N="
           f"{res['cuda'][0].num_sequences} L={res['cuda'][0].sequences_len} q=21, reference of "
           f"{len(ref)} residues from row 41: {m} columns mapped, {len(b)} pairs, the same pair "

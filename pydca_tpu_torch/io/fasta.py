@@ -132,8 +132,7 @@ def _dedup_encoded(
     """
     # np.unique sorts; recover first-seen order via the index of the first
     # occurrence of each unique row.  Each row is viewed as one opaque byte
-    # string: the same rows as np.unique(axis=0) finds, about ten times
-    # faster at 10^5 x 1000.
+    # string, which finds the same rows as np.unique(axis=0).
     rows = np.ascontiguousarray(data).view(np.dtype((np.void, data.shape[1] * data.itemsize)))
     _, first_idx = np.unique(rows.ravel(), return_index=True)
     keep = np.sort(first_idx)

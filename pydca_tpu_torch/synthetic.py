@@ -172,12 +172,8 @@ def _dense(sorted_scores, l: int) -> np.ndarray:
 
 
 def spearman(a_sorted, b_sorted, l: int) -> float:
-    """Spearman rank correlation of two sorted score lists over the pairs
-    both hold (all pairs of L sites, or the sites mapped onto a reference
-    sequence of length L)."""
+    """Spearman rank correlation of two sorted score lists over all pairs."""
     a, b = _dense(a_sorted, l), _dense(b_sorted, l)
-    both = ~(np.isnan(a) | np.isnan(b))
-    a, b = a[both], b[both]
     ra = np.argsort(np.argsort(a)).astype(float)
     rb = np.argsort(np.argsort(b)).astype(float)
     ra -= ra.mean()

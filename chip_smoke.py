@@ -41,7 +41,19 @@ Builds the port's CUDA kernels from ``pydca_tpu_torch/csrc`` with nvcc
   sampled scores held to ``local_align`` (c), ``pydca trim_by_refseq`` and
   ``trim_by_gap_size`` with the search on the card and the CPU (d), and the
   contact evaluator on a synthetic 1000-residue chain holding (a)'s
-  planted contacts (e) (phase 15).
+  planted contacts (e) (phase 15);
+- data parallelism (``torch.distributed``): phase 2 also holds the
+  identity-count kernel's tile ranges, split as the ranks split them,
+  against the plain partial counts; ``PlmDCA`` and ``MeanFieldDCA`` over a
+  one-rank NCCL group on phase 3's and phase 6's codes, bitwise against
+  those phases (a); two ranks on the one card (gloo, CUDA tensors staged
+  through the host: NCCL refuses two ranks on a card) through both CLIs,
+  ``--mesh auto --device cuda:0`` on phase 3's and phase 6's files (b), and
+  the deep streamed fit of phase 12 over the same two ranks (c); on a
+  machine with two cards or more, (b) under NCCL on two cards (d)
+  (phase 16).  The ranks are worker processes of this script
+  (``chip_smoke.py --phase16-worker <spec> <rank>``) that meet at a
+  ``FileStore`` in the temporary directory.
 
 One line per phase; the next-to-last line is the kernel record (JSON), the
 last line the device record (JSON).  Exits non-zero, with no result, when
@@ -50,6 +62,7 @@ there is no card or any phase fails.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import logging
 import os
@@ -58,9 +71,11 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from datetime import timedelta
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pydca_tpu_torch import align
 from pydca_tpu_torch import alphabets
@@ -77,8 +92,10 @@ from pydca_tpu_torch.eval.pdb import RES_THREE_CHAR_TO_ONE
 from pydca_tpu_torch.eval.visualizer import DCAVisualizer
 from pydca_tpu_torch.io import output
 from pydca_tpu_torch.io.fasta import MSA, write_fasta
+from pydca_tpu_torch.meanfield import MeanFieldDCA
 from pydca_tpu_torch.ops import _build
 from pydca_tpu_torch.ops import cuda_kernels as ck
+from pydca_tpu_torch.parallel import init_distributed, make_mesh
 from pydca_tpu_torch.synthetic import (
     PLANTED_MIN_SHARE, PLANTED_TOP, planted_family, planted_recovery,
     protein_family_sweep, reference_from_row, rna_family_sweep, spearman, top_k_overlap,
@@ -191,12 +208,41 @@ def phase_kernel(dev):
             torch.cuda.empty_cache()
             extra = f", library {lib_ms:.4f} ms"
         timing[name] = (ms, plain_ms, lib_ms, bound)
+        if name in ("pf02826_deep", "rna_deep"):
+            extra += tile_range_check(codes, thr, q, want, kernel if name == "pf02826_deep"
+                                      else None)
         print(f"phase 2 kernel {name} N={n} L={l} q={q} valid={valid is not None}: "
               f"equal, kernel {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms"
               f"{extra}, bound {bound[0]:.4f} ms by {bound[1]} "
               f"({100 * bound[0] / ms:.1f}% of it), 2:4-sparse formulation {sparse:.4f} ms "
               f"({100 * sparse / ms:.1f}% of it)", flush=True)
     return max_err, timing
+
+
+def tile_range_check(codes, thr, q, full, kernel) -> str:
+    """The kernel over the tile ranges that 2 and 3 ranks take
+    (``identity_tile_share``): each range's counts equal the plain partial
+    counts of its tiles, and the ranges sum to the full count.  With
+    ``kernel`` (the full launch), times one half range beside it."""
+    n = codes.shape[0]
+    parts = []
+    for world in (2, 3):
+        total = torch.zeros_like(full)
+        for r in range(world):
+            tiles = ck.identity_tile_share(n, r, world)
+            got = ck.identity_counts(codes, thr, q, tiles=tiles)
+            want = ck.identity_counts_reference(codes, thr, q, tiles=tiles)
+            torch.cuda.synchronize()
+            check(torch.equal(got, want), f"tile range {tiles} of {world}: kernel != plain")
+            total += got
+        check(torch.equal(total, full), f"the {world} tile ranges do not sum to the full count")
+        parts.append(f"{world} ranges {[ck.identity_tile_share(n, r, world) for r in range(world)]}")
+    text = f"; tile ranges exact and summing to the full count ({', '.join(parts)})"
+    if kernel is not None:
+        half = ck.identity_tile_share(n, 0, 2)
+        half_ms = cuda_ms(lambda: ck.identity_counts(codes, thr, q, tiles=half), 5)
+        text += f", half range {half} {half_ms:.4f} ms against the full {cuda_ms(kernel, 5):.4f} ms"
+    return text
 
 
 def identity_bound(n, l, q):
@@ -381,7 +427,10 @@ def phase_meanfield(tmp):
           f"planted recovery {share:.2f} (top {PLANTED_TOP}); {stages}; CLI wall {wall:.3f} s; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"LU fallback {inst.lu_fallback}; kernel launches {launches}", flush=True)
-    return launches["weighted_gram"]
+    # what phase 16 holds its mesh runs to
+    ref = dict(fa=fa, weights=inst.get_sequences_weight().cpu(), file_scores=scores,
+               scores=inst.compute_sorted_FN_APC(), couplings=digest(inst.compute_couplings()))
+    return launches["weighted_gram"], ref
 
 
 def phase_meanfield_cpu_vs_cuda(tmp):
@@ -653,10 +702,11 @@ def streamed_eval_profile(inst, msa, l, q):
     return wall, device, products, top
 
 
-def phase_stream_deep(dev):
+def phase_stream_deep(dev, tmp):
     """``PlmDCA`` at N = 10^5, L = 1000, q = 21 through the engine, two
     iterations: the streamed route with 8 blocks of 12782 sequences.
-    Returns the codes (phase 15 searches them)."""
+    Returns the codes (phase 15 searches them); saves them, the weights and
+    theta in ``tmp`` (``deep_*.npy``) for phase 16."""
     n, l, q = DEEP_SHAPE
     t0 = time.perf_counter()
     codes, _ = planted_family(n, l, q, seed=12, n_pairs=20)
@@ -696,6 +746,9 @@ def phase_stream_deep(dev):
           f"the fit's s/eval); peak memory {peak:.2f} GiB (state x, g and 10 history rows "
           f"{state_gib:.2f} GiB); engine wall {wall:.3f} s; kernel launches "
           f"{{'identity_counts': {launches}}}", flush=True)
+    for name, a in (("codes", codes), ("weights", inst.compute_seqs_weight().cpu().numpy()),
+                    ("theta", res.x.cpu().numpy())):
+        np.save(os.path.join(tmp, f"deep_{name}.npy"), a)
     return codes
 
 
@@ -1283,6 +1336,281 @@ def phase_eval(tmp, rf, dca_file, ref, planted, smi):
           f"files {host_s:.3f} s on the host", flush=True)
 
 
+# ------------------------------------------------------------- phase 16
+WORKER_TIMEOUT_S = 300  # each rank process of phase 16 (b)-(d)
+GROUP_TIMEOUT = timedelta(seconds=120)  # a collective that waits longer fails the run
+DEEP_THETA_TOL = (2e-3, 2e-3)  # (rtol, atol): two float32 sums over the blocks in other orders
+
+
+def digest(t: torch.Tensor) -> str:
+    """blake2b of a tensor's bytes: equal digests are equal bits."""
+    a = np.ascontiguousarray(t.detach().cpu().numpy())
+    return hashlib.blake2b(a.view(np.uint8), digest_size=16).hexdigest()
+
+
+def collective_text(collectives, per: int, what: str) -> str:
+    """Each collective's count and milliseconds (timed by the mesh) per
+    ``what``, with its size, and the seconds of all of them."""
+    each = ", ".join(f"{name} {c / per:.2f}x {1e3 * t / per:.2f} ms ({numel / max(c, 1):.3g} "
+                     f"elements)" for name, (c, numel, t) in sorted(collectives.items()))
+    total = sum(t for _, _, t in collectives.values())
+    return f"{each} per {what} (collectives {total:.3f} s in all)"
+
+
+def phase_mesh_one_rank(dev, tmp, main_fa, inst_main, mf_ref):
+    """(a) ``PlmDCA`` and ``MeanFieldDCA`` over a one-rank NCCL group on
+    phase 3's and phase 6's files: a one-rank all-reduce changes no value
+    and the rank's tile share is the whole list, so the weights, theta and
+    FN-APC must equal those phases' bit for bit.  Returns the launches."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    init_distributed("nccl", store=dist.FileStore(os.path.join(tmp, "nccl_store"), 1), rank=0,
+                     world_size=1, timeout=GROUP_TIMEOUT, device_id=torch.device("cuda", index))
+    try:
+        mesh = make_mesh(device=dev)
+        mesh.timed = True
+        torch.cuda.empty_cache()
+        reset_launches()
+        inst = plm.PlmDCA(main_fa, "protein", max_iterations=100, device=dev, mesh=mesh)
+        scores = inst.compute_sorted_FN_APC()
+        res = inst.fit_result
+        w_equal = torch.equal(inst.compute_seqs_weight(), inst_main.compute_seqs_weight())
+        theta, theta_main = inst.fit_result.x, inst_main.fit_result.x
+        diff = float((theta - theta_main).abs().max())
+        main_scores = inst_main.compute_sorted_FN_APC()
+        s_diff = max(abs(a - b) for a, b in zip(dict(scores).values(),
+                                                (dict(main_scores)[k] for k in dict(scores))))
+        check(w_equal and diff == 0 and scores == main_scores,
+              f"one-rank plm mesh against phase 3: weights equal {w_equal}, theta max |diff| "
+              f"{diff:.3e}, FN-APC max |diff| {s_diff:.3e} (the one-rank sums must change "
+              "nothing)")
+        plm_text = (f"plm {res.num_iters} iterations, {res.n_evals} evaluations, fit "
+                    f"{inst.timers.elapsed('fit'):.3f} s; "
+                    + collective_text(mesh.collectives, max(res.num_iters, 1), "iteration"))
+        plm_launches = dict(ident=ck.identity_counts.launches, gram=ck.weighted_gram.launches)
+        mesh.collectives.clear()
+        reset_launches()
+        mf = MeanFieldDCA(mf_ref["fa"], "protein", device=dev, mesh=mesh)
+        mf_scores = mf.compute_sorted_FN_APC()
+        w_equal = torch.equal(mf.get_sequences_weight().cpu(), mf_ref["weights"])
+        c_equal = digest(mf.compute_couplings()) == mf_ref["couplings"]
+        s_equal = mf_scores == mf_ref["scores"]
+        check(w_equal and c_equal and s_equal,
+              f"one-rank mean-field mesh against phase 6: weights equal {w_equal}, couplings "
+              f"equal {c_equal}, FN-APC equal {s_equal}")
+        mf_text = (f"mean-field gram {mf.timers.elapsed('gram'):.3f} s, "
+                   + collective_text(mesh.collectives, 1, "run"))
+        del mf
+    finally:
+        dist.destroy_process_group()
+    launches = dict(ident=plm_launches["ident"] + ck.identity_counts.launches,
+                    gram=plm_launches["gram"] + ck.weighted_gram.launches)
+    print(f"phase 16 (a) one-rank NCCL group: weights, theta and FN-APC equal to phase 3's "
+          f"bit for bit, weights, couplings and FN-APC equal to phase 6's; {plm_text}; "
+          f"{mf_text}; kernel launches {launches}", flush=True)
+    return launches
+
+
+def phase16_worker(spec_path: str, rank: int) -> int:
+    """One rank of phase 16 (b)-(d): both CLIs with ``--mesh auto`` on the
+    spec's files, then (on one card) the deep streamed fit; prints one
+    ``PHASE16 {json}`` line."""
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    set_precision()
+    dev = torch.device("cuda", spec["cards"][rank])
+    torch.cuda.set_device(dev)
+    backend = spec["backend"]
+    init_distributed(backend, store=dist.FileStore(spec["store"], 2), rank=rank, world_size=2,
+                     timeout=GROUP_TIMEOUT,
+                     **({"device_id": dev} if backend == "nccl" else {}))
+    meshes = []
+
+    def timed_launch(mesh, device, _real=plmdca_main.launch_mesh):
+        m, d = _real(mesh, device)
+        m.timed = True  # the collectives' own seconds, the device synchronised around each
+        meshes.append(m)
+        return m, d
+
+    plmdca_main.launch_mesh = mfdca_main.launch_mesh = timed_launch
+    report = {"rank": rank}
+    for name, cli, fa in (("plm", plmdca_main.run_plm_dca, spec["plm_fa"]),
+                          ("mf", mfdca_main.run_meanfield_dca, spec["mf_fa"])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        argv = ["compute_fn", "protein", fa, "--apc", "--mesh", "auto", "--device", str(dev),
+                "--output_dir", spec[f"{name}_out"]]
+        t0 = time.perf_counter()
+        inst = cli(argv + (["--max_iterations", "100"] if name == "plm" else []))
+        wall = time.perf_counter() - t0
+        mesh = meshes[-1]
+        rec = dict(wall=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                   collectives=mesh.collectives, timers={k: inst.timers.elapsed(k) for k in (
+                       ("weights", "fit", "score") if name == "plm" else
+                       ("weights", "gram", "corr", "inverse", "score"))},
+                   ident=ck.identity_counts.launches, gram=ck.weighted_gram.launches)
+        if name == "plm":
+            res = inst.fit_result
+            rec.update(iters=res.num_iters, n_evals=res.n_evals, host_syncs=res.host_syncs,
+                       theta=digest(res.x), weights=inst.compute_seqs_weight().cpu().tolist())
+        else:
+            rec.update(theta=digest(inst.compute_couplings()),
+                       weights=inst.get_sequences_weight().cpu().tolist())
+        report[name] = rec
+        del inst
+    if spec.get("deep_codes"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        mesh = make_mesh(device=dev)
+        mesh.timed = True
+        codes = np.load(spec["deep_codes"])
+        t0 = time.perf_counter()
+        inst = plm.PlmDCA(MSA(data=codes, alphabet=alphabets.PROTEIN), "protein",
+                          max_iterations=2, device=dev, mesh=mesh, seq_block=spec["seq_block"])
+        inst._theta()  # the fit, without a host copy of theta
+        res = inst.fit_result
+        wall = time.perf_counter() - t0
+        ref = torch.from_numpy(np.load(spec["deep_theta"])).to(dev)
+        diff = (res.x - ref).abs_()
+        rtol, atol = DEEP_THETA_TOL
+        w_ref = torch.from_numpy(np.load(spec["deep_weights"]))
+        report["deep"] = dict(
+            wall=wall, iters=res.num_iters, n_evals=res.n_evals, host_syncs=res.host_syncs,
+            timers={k: inst.timers.elapsed(k) for k in ("weights", "fit")},
+            collectives=mesh.collectives, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+            theta=digest(res.x), max_abs=float(diff.max()),
+            within=bool((diff <= atol + rtol * ref.abs()).all()),
+            weights_equal=torch.equal(inst.compute_seqs_weight().cpu(), w_ref),
+            ident=ck.identity_counts.launches)
+    print("PHASE16 " + json.dumps(report), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(spec: dict, tmp: str, tag: str):
+    """Run the two rank processes of one phase 16 case; their reports."""
+    spec_path = os.path.join(tmp, f"phase16_{tag}.json")
+    with open(spec_path, "w") as fh:
+        json.dump(spec, fh)
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase16-worker",
+                               spec_path, str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=WORKER_TIMEOUT_S)[0])
+    finally:
+        for p in procs:  # a rank that outlived its limit is stopped, not left running
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    reports = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("PHASE16 ")]
+        check(p.returncode == 0 and len(lines) == 1,
+              f"phase 16 ({tag}) rank {r} failed (exit {p.returncode}):\n{out[-4000:]}")
+        reports.append(json.loads(lines[0][len("PHASE16 "):]))
+    return reports
+
+
+def check_cli_ranks(reps, name, out_dir, ref_weights, ref_scores, l):
+    """Both ranks' weights and theta, rank 0's one file against the
+    one-process run's scores; returns the line's text."""
+    r0, r1 = reps[0][name], reps[1][name]
+    check(r0["theta"] == r1["theta"], f"{name}: the two ranks' parameters differ")
+    w = torch.tensor(r0["weights"], dtype=torch.float32)
+    check(torch.equal(w, ref_weights) and r0["weights"] == r1["weights"],
+          f"{name}: the ranks' weights differ from the one-process run's")
+    files = os.listdir(out_dir)
+    check(len(files) == 1, f"{name}: {len(files)} output files, expected one (rank 0's)")
+    _, scores = read_scores(os.path.join(out_dir, files[0]))
+    rho, top = spearman(scores, ref_scores, l), top_k_overlap(scores, ref_scores, 20)
+    check(rho >= 0.98 and top >= 0.9,
+          f"{name}: two ranks against one process: spearman {rho:.4f}, top-20 {top:.2f}")
+    parts = [f"{name}: weights equal, theta equal on both ranks, one file; spearman {rho:.4f} "
+             f"top-20 {top:.2f} against one process"]
+    for rep in reps:
+        rec = rep[name]
+        coll_s = sum(t for _, _, t in rec["collectives"].values())
+        if name == "plm":
+            it = max(rec["iters"], 1)
+            fit = rec["timers"]["fit"]
+            parts.append(
+                f"rank {rep['rank']}: {rec['iters']} iterations, {1e3 * fit / it:.2f} ms/iteration, "
+                f"host syncs/iteration {rec['host_syncs'] / it:.2f}, "
+                + collective_text(rec["collectives"], it, "iteration")
+                + f", collectives {100 * coll_s / max(fit + rec['timers']['weights'], 1e-9):.1f}% "
+                f"of weights + fit, peak {rec['peak_gib']:.2f} GiB, wall {rec['wall']:.2f} s")
+        else:
+            t = rec["timers"]
+            parts.append(
+                f"rank {rep['rank']}: " + " ".join(f"{k} {v:.3f} s" for k, v in t.items())
+                + "; " + collective_text(rec["collectives"], 1, "run")
+                + f", collectives {100 * coll_s / max(sum(t.values()), 1e-9):.1f}% of the "
+                f"stages, peak {rec['peak_gib']:.2f} GiB, wall {rec['wall']:.2f} s")
+    return "; ".join(parts)
+
+
+def phase_mesh_two_ranks(tmp, smi, main_fa, main_scores, inst_main, mf_ref, deep_block):
+    """(b) two ranks on card 0 under gloo through both CLIs, (c) the deep
+    streamed fit on the same ranks, (d) on two cards under NCCL when the
+    machine has them.  Returns the launches of (b)-(d)."""
+    cards = torch.cuda.device_count()
+    main_w = inst_main.compute_seqs_weight().cpu()
+    plm_l = inst_main.sequences_len
+    mf_l = MF_SHAPE[1]
+    cases = [("b", "gloo", [0, 0])] + ([("d", "nccl", [0, 1])] if cards >= 2 else [])
+    launches = dict(ident=0, gram=0)
+    for tag, backend, card_list in cases:
+        spec = dict(store=os.path.join(tmp, f"store_{tag}"), backend=backend, cards=card_list,
+                    plm_fa=main_fa, mf_fa=mf_ref["fa"],
+                    plm_out=os.path.join(tmp, f"p16{tag}_plm"),
+                    mf_out=os.path.join(tmp, f"p16{tag}_mf"))
+        if tag == "b":  # (c) rides on (b)'s ranks
+            spec.update(deep_codes=os.path.join(tmp, "deep_codes.npy"),
+                        deep_theta=os.path.join(tmp, "deep_theta.npy"),
+                        deep_weights=os.path.join(tmp, "deep_weights.npy"),
+                        seq_block=deep_block)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        reps = spawn_ranks(spec, tmp, tag)
+        wall = time.perf_counter() - t0
+        texts = [check_cli_ranks(reps, "plm", spec["plm_out"], main_w, main_scores, plm_l),
+                 check_cli_ranks(reps, "mf", spec["mf_out"], mf_ref["weights"],
+                                 mf_ref["file_scores"], mf_l)]
+        for rep in reps:
+            launches["ident"] += rep["plm"]["ident"] + rep["mf"]["ident"] + \
+                rep.get("deep", {}).get("ident", 0)
+            launches["gram"] += rep["plm"]["gram"] + rep["mf"]["gram"]
+        where = "two ranks on card 0, gloo" if tag == "b" else "two cards, NCCL"
+        print(f"phase 16 ({tag}) [{smi}] {where}: " + " | ".join(texts)
+              + f"; both CLIs' ranks in {wall:.2f} s", flush=True)
+        if tag == "b":
+            d0, d1 = reps[0]["deep"], reps[1]["deep"]
+            check(d0["theta"] == d1["theta"], "deep: the two ranks' theta differ")
+            check(d0["weights_equal"] and d1["weights_equal"], "deep: weights differ from phase 12's")
+            check(d0["within"] and d1["within"],
+                  f"deep: theta after {d0['iters']} iterations off phase 12's: max |diff| "
+                  f"{d0['max_abs']:.3e} (rtol, atol {DEEP_THETA_TOL})")
+            per = max(d0["n_evals"], 1)
+            rank_parts = [
+                f"rank {rep['rank']}: weights {rep['deep']['timers']['weights']:.3f} s, fit "
+                f"{rep['deep']['timers']['fit']:.3f} s, {rep['deep']['timers']['fit'] / per:.3f} "
+                f"s/evaluation, " + collective_text(rep["deep"]["collectives"], per, "evaluation")
+                + f", peak {rep['deep']['peak_gib']:.2f} GiB" for rep in reps]
+            print(f"phase 16 (c) [{smi}] deep streamed fit N={DEEP_SHAPE[0]} L={DEEP_SHAPE[1]} "
+                  f"q={DEEP_SHAPE[2]} over two gloo ranks on card 0, seq_block {deep_block}: "
+                  f"{d0['iters']} iterations, {d0['n_evals']} evaluations; theta equal on both "
+                  f"ranks, within (rtol, atol) {DEEP_THETA_TOL} of phase 12's (max |diff| "
+                  f"{d0['max_abs']:.3e}); weights equal to phase 12's; " + "; ".join(rank_parts),
+                  flush=True)
+    if cards < 2:
+        print(f"phase 16 (d) did not run: this machine has {cards} card(s); two ranks on two "
+              "cards under NCCL need two", flush=True)
+    return launches
+
+
 def read_scores(path):
     header, scores = [], []
     with open(path) as fh:
@@ -1306,10 +1634,13 @@ def run_cli(biomolecule, fa, out_dir, device):
 
 
 def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--phase16-worker":
+        return phase16_worker(sys.argv[2], int(sys.argv[3]))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; no card, no result",
               file=sys.stderr)
         return 1
+    script_t0 = time.perf_counter()
 
     dev = torch.device("cuda")
     set_precision()
@@ -1347,6 +1678,7 @@ def main() -> int:
         launches = ck.identity_counts.launches
         check(launches > 0, "main path never launched the identity_counts kernel")
         res, timers = inst.fit_result, inst.timers
+        scores_main = scores
         check(len(header) > 0, "output has no # header")
         check(len(scores) == l * (l - 1) // 2,
               f"{len(scores)} score lines, expected {l * (l - 1) // 2}")
@@ -1395,7 +1727,7 @@ def main() -> int:
 
         # ---- phases 5-7: the mean-field path
         gram_err, gram_timing = phase_gram(dev)
-        mf_launches = phase_meanfield(tmp)
+        mf_launches, mf_ref = phase_meanfield(tmp)
         mf_fa, mf_runs = phase_meanfield_cpu_vs_cuda(tmp)
 
         # ---- phases 8-10: DI on both paths, compute_params
@@ -1405,7 +1737,7 @@ def main() -> int:
 
         # ---- phases 11-12: streaming of deep alignments
         stream_inst = phase_stream_cli(tmp, dev)
-        deep_codes = phase_stream_deep(dev)
+        deep_codes = phase_stream_deep(dev, tmp)
 
         # ---- phases 13-14: checkpoints, family batches
         ckpt_launches = phase_checkpoint(tmp, dev, inst_main, stream_inst)
@@ -1421,12 +1753,22 @@ def main() -> int:
         phase_trim(tmp, main_fa, rf, smi)
         phase_eval(tmp, rf, dca_file, ref, planted, smi)
 
+        # ---- phase 16: data parallelism over the sequences (torch.distributed)
+        t16 = time.perf_counter()
+        mesh_a = phase_mesh_one_rank(dev, tmp, main_fa, inst_main, mf_ref)
+        mesh_bd = phase_mesh_two_ranks(tmp, smi, main_fa, scores_main, inst_main, mf_ref,
+                                       plm.streaming_block(*DEEP_SHAPE))
+        print(f"phase 16 took {time.perf_counter() - t16:.1f} s; the script so far "
+              f"{time.perf_counter() - script_t0:.1f} s", flush=True)
+
     records = []
     for name, (ms, plain_ms, lib_ms, bound), n_launch, err in (
         ("identity_counts", timing["pf02826_deep"],
-         launches + ckpt_launches + fam_ident + ref_ident + ref_mf["identity_counts"],
+         launches + ckpt_launches + fam_ident + ref_ident + ref_mf["identity_counts"]
+         + mesh_a["ident"] + mesh_bd["ident"],
          max(max_err, fam_ident_err)),
-        ("weighted_gram", gram_timing["protein"], mf_launches + fam_gram + ref_mf["weighted_gram"],
+        ("weighted_gram", gram_timing["protein"],
+         mf_launches + fam_gram + ref_mf["weighted_gram"] + mesh_a["gram"] + mesh_bd["gram"],
          max(gram_err, fam_gram_err)),
     ):
         records.append({

@@ -2,17 +2,22 @@
 
 Port of ``pydca_tpu/cli/mfdca_main.py`` (which mirrors the reference CLI,
 ``pydca/mfdca_main.py``): same subcommands, flags and output files, plus
-``--device {cuda,cpu}``.  Ported: ``compute_fn``, ``compute_di`` (each
-with and without ``--apc``), ``compute_fields``, ``compute_params``,
-``compute_fi``, ``compute_fij`` and ``compute_weights`` on one device, and
-``compute_fn_batch`` over many families (:mod:`pydca_tpu_torch.family`),
-with ``--refseq_file`` (scores and parameters mapped onto a reference
-sequence, its template search on the same device).  ``warmup`` and a mesh
-over more than one card are accepted by the parser and rejected with
-``NotImplementedError`` naming their ROADMAP item.
+``--device`` (``cuda``, ``cuda:K`` or ``cpu``).  Ported: ``compute_fn``,
+``compute_di`` (each with and without ``--apc``), ``compute_fields``,
+``compute_params``, ``compute_fi``, ``compute_fij`` and
+``compute_weights``, on one device or, under ``torchrun`` with ``--mesh
+auto`` (the default), over one rank per card with the sequences sharded
+(:mod:`pydca_tpu_torch.parallel`; rank 0 writes the files), and
+``compute_fn_batch`` over many families on one device
+(:mod:`pydca_tpu_torch.family`), with ``--refseq_file`` (scores and
+parameters mapped onto a reference sequence, its template search on the
+same device).  ``warmup``, and one process over several cards, are
+rejected with ``NotImplementedError`` naming their ROADMAP item.
 
 Run as ``python -m pydca_tpu_torch.cli.mfdca_main compute_di protein
-<msa> --apc --device cuda``.
+<msa> --apc --device cuda``, or over K cards as ``torchrun
+--nproc_per_node=K -m pydca_tpu_torch.cli.mfdca_main compute_fn protein
+<msa> --apc``.
 """
 
 from __future__ import annotations
@@ -21,14 +26,13 @@ import argparse
 import logging
 import os
 
-import torch
-
 from ..backmap import SequenceBackmapper
 from ..config_log import configure_logging
 from ..family import BatchRun, FamilyBatch, family_meanfield_scores
 from ..io import output as dca_utilities
 from ..io.fasta import read_msa
 from ..meanfield import MeanFieldDCA
+from ..parallel.fit import launch_mesh
 from ..profiling import StageTimers
 
 logger = logging.getLogger(__name__)
@@ -65,11 +69,14 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--apc", action="store_true", help="average product correction")
         sp.add_argument(
             "--mesh", choices=["auto", "single"], default="auto",
-            help="auto (default) / single; more than one device is not ported",
+            help="auto (default): shard the sequences over the ranks when run "
+            "under torchrun --nproc_per_node=K (one process per card); single: "
+            "one device",
         )
         sp.add_argument(
-            "--device", choices=["cuda", "cpu"], default="cuda",
-            help="device to run on (default cuda; no fallback to cpu)",
+            "--device", default="cuda",
+            help="cuda (under torchrun: cuda:LOCAL_RANK), cuda:K or cpu "
+            "(default cuda; no fallback to cpu)",
         )
         if name == "compute_params":
             sp.add_argument(
@@ -104,25 +111,18 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _writer(write: bool):
+    """``emit(fn, *args, **kw)``: calls the writer ``fn`` when ``write``."""
+    def emit(fn, *args, **kw):
+        if write:
+            fn(*args, **kw)
+    return emit
+
+
 def _reject_command(the_command) -> None:
     if the_command in _UNPORTED_COMMANDS:
         raise NotImplementedError(
             f"{the_command} is not ported yet (ROADMAP {_UNPORTED_COMMANDS[the_command]})"
-        )
-
-
-def _reject_unported(the_command, mesh, device) -> None:
-    """Raise ``NotImplementedError`` for every request the port cannot
-    honour yet; nothing is silently ignored."""
-    _reject_command(the_command)
-    if (
-        mesh == "auto"
-        and torch.device(device).type == "cuda"
-        and torch.cuda.device_count() > 1
-    ):
-        raise NotImplementedError(
-            "--mesh over more than one device is not ported yet "
-            "(ROADMAP Queue 1 #13); pass --mesh single"
         )
 
 
@@ -143,15 +143,16 @@ def execute_from_command_line(
     device="cuda",
 ):
     """Run one subcommand; returns the engine (its timers and caches)."""
-    _reject_unported(the_command, mesh, device)
+    _reject_command(the_command)
     if verbose:
         configure_logging()
+    mesh, device = launch_mesh(mesh, device)
     kwargs = {}
     if pseudocount is not None:
         kwargs["pseudocount"] = pseudocount
     if seqid is not None:
         kwargs["seqid"] = seqid
-    inst = MeanFieldDCA(msa_file, biomolecule, device=device, **kwargs)
+    inst = MeanFieldDCA(msa_file, biomolecule, device=device, mesh=mesh, **kwargs)
     seqbackmapper = None
     if refseq_file:
         seqbackmapper = SequenceBackmapper(
@@ -164,21 +165,27 @@ def execute_from_command_line(
     if not output_dir:
         base, _ = os.path.splitext(os.path.basename(msa_file))
         output_dir = "MFDCA_output_" + base
-    dca_utilities.create_directories(output_dir)
+    writer = mesh is None or mesh.rank == 0  # under a mesh, rank 0 writes
+    if writer:
+        dca_utilities.create_directories(output_dir)
     write_outputs(inst, the_command, msa_file, output_dir, apc=apc,
                   ranked_by=ranked_by, linear_dist=linear_dist,
-                  num_site_pairs=num_site_pairs, seqbackmapper=seqbackmapper)
+                  num_site_pairs=num_site_pairs, seqbackmapper=seqbackmapper,
+                  write=writer)
     logger.info("mfDCA stage timings:\n%s", inst.timers.summary())
     return inst
 
 
 def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
                   ranked_by=None, linear_dist=None, num_site_pairs=None,
-                  seqbackmapper=None):
+                  seqbackmapper=None, write=True):
     """Compute what ``the_command`` asks of the engine ``inst`` and write its
     files into ``output_dir`` (``pydca_tpu/cli/mfdca_main.py:154-277``).
     Each header is built after the compute: it holds Meff, the weights'
-    sum, which the compute has made by then."""
+    sum, which the compute has made by then.  ``write=False`` computes the
+    same and writes nothing (a rank other than 0 of a mesh)."""
+    emit = _writer(write)
+
     def param_metadata():
         return dca_utilities.mfdca_param_metadata(inst)
 
@@ -196,7 +203,7 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
             sorted_di = inst.compute_sorted_DI(seqbackmapper=seqbackmapper)
             score_type = "raw DI"
             path = path_of("MFDCA_raw_di_scores_")
-        dca_utilities.write_sorted_dca_scores(
+        emit(dca_utilities.write_sorted_dca_scores,
             path, sorted_di, metadata=param_metadata(), score_type=score_type
         )
 
@@ -209,7 +216,7 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
             score_type = "MFDCA raw Frobenius norm"
             sorted_fn = inst.compute_sorted_FN(seqbackmapper=seqbackmapper)
             path = path_of("MFDCA_raw_fn_scores_")
-        dca_utilities.write_sorted_dca_scores(
+        emit(dca_utilities.write_sorted_dca_scores,
             path, sorted_fn, metadata=param_metadata(), score_type=score_type
         )
 
@@ -218,7 +225,7 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
         metadata = param_metadata() + dca_utilities.residue_repr_metadata(
             inst.biomolecule
         )
-        dca_utilities.write_fields_csv(
+        emit(dca_utilities.write_fields_csv,
             path_of("fields_"), sorted(fields.items()), metadata=metadata
         )
 
@@ -229,14 +236,14 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
             linear_dist=linear_dist,
             num_site_pairs=num_site_pairs,
         )
-        dca_utilities.write_params(
+        emit(dca_utilities.write_params,
             path_of("fields_"), path_of("couplings_"), fields, couplings,
             param_metadata(), ranked_by=ranked_by, linear_dist=linear_dist,
         )
 
     if the_command == "compute_weights":
         weights = inst.get_sequences_weight().cpu().numpy()
-        dca_utilities.write_sequence_weights(
+        emit(dca_utilities.write_sequence_weights,
             path_of("weights_"), weights, ids=inst.msa.ids, metadata=param_metadata()
         )
 
@@ -245,7 +252,7 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
         metadata = param_metadata() + dca_utilities.residue_repr_metadata(
             inst.biomolecule
         )
-        dca_utilities.write_single_site_freqs(
+        emit(dca_utilities.write_single_site_freqs,
             path_of("fi_"),
             fi,
             seqs_len=inst.sequences_len,
@@ -258,7 +265,7 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
         metadata = param_metadata() + dca_utilities.residue_repr_metadata(
             inst.biomolecule
         )
-        dca_utilities.write_pair_site_freqs(
+        emit(dca_utilities.write_pair_site_freqs,
             path_of("fij_"),
             fij,
             seqs_len=inst.sequences_len,

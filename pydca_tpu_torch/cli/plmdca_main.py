@@ -2,19 +2,23 @@
 
 Port of ``pydca_tpu/cli/plmdca_main.py`` (which mirrors the reference CLI,
 ``pydca/plmdca_main.py``): same subcommands, flags and output files, plus
-``--device {cuda,cpu}``.  Ported: ``compute_fn`` and ``compute_di`` (each
-with and without ``--apc``) and ``compute_params`` on one device, with
+``--device`` (``cuda``, ``cuda:K`` or ``cpu``).  Ported: ``compute_fn``
+and ``compute_di`` (each with and without ``--apc``) and
+``compute_params``, on one device or, under ``torchrun`` with ``--mesh
+auto`` (the default), over one rank per card with the sequences sharded
+(:mod:`pydca_tpu_torch.parallel`; rank 0 writes the files), with
 ``--refseq_file`` (scores and parameters mapped onto a reference sequence,
 its template search on the same device), ``--seq_block`` (the streamed
 loss; past 1 GiB of logits the engine streams by itself) and
-``--checkpoint`` (resume and bounded retry), and
-``compute_fn_batch`` over many families (:mod:`pydca_tpu_torch.family`).
-``warmup`` and the flag values the port cannot honour yet are accepted by
-the parser and rejected with ``NotImplementedError`` naming their ROADMAP
-item.
+``--checkpoint`` (resume and bounded retry), and ``compute_fn_batch`` over
+many families on one device (:mod:`pydca_tpu_torch.family`).  ``warmup``
+and the flag values the port cannot honour yet are accepted by the parser
+and rejected with ``NotImplementedError`` naming their ROADMAP item.
 
 Run as ``python -m pydca_tpu_torch.cli.plmdca_main compute_di protein
-<msa> --apc --device cuda``.
+<msa> --apc --device cuda``, or over K cards as ``torchrun
+--nproc_per_node=K -m pydca_tpu_torch.cli.plmdca_main compute_fn protein
+<msa> --apc``.
 """
 
 from __future__ import annotations
@@ -23,13 +27,12 @@ import argparse
 import logging
 import os
 
-import torch
-
 from ..backmap import SequenceBackmapper
 from ..config_log import configure_logging
 from ..family import BatchRun, FamilyFit, family_plm_fit_bucketed
 from ..io import output as dca_utilities
 from ..io.fasta import read_msa
+from ..parallel.fit import launch_mesh
 from ..plm import PlmDCA
 from ..profiling import StageTimers
 
@@ -64,8 +67,9 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--max_iterations", type=int)
         sp.add_argument("--num_threads", type=int, help="ignored")
         sp.add_argument(
-            "--device", choices=["cuda", "cpu"], default="cuda",
-            help="device to run on (default cuda; no fallback to cpu)",
+            "--device", default="cuda",
+            help="cuda (under torchrun: cuda:LOCAL_RANK), cuda:K or cpu "
+            "(default cuda; no fallback to cpu)",
         )
         sp.add_argument(
             "--seq_block", type=int,
@@ -87,7 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
         )
         sp.add_argument(
             "--mesh", choices=["auto", "single"], default="auto",
-            help="auto (default) / single; more than one device is not ported",
+            help="auto (default): shard the sequences over the ranks when run "
+            "under torchrun --nproc_per_node=K (one process per card); single: "
+            "one device",
         )
         sp.add_argument("--refseq_file", help="FASTA file with reference sequence")
         sp.add_argument("--output_dir")
@@ -127,6 +133,14 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
+def _writer(write: bool):
+    """``emit(fn, *args, **kw)``: calls the writer ``fn`` when ``write``."""
+    def emit(fn, *args, **kw):
+        if write:
+            fn(*args, **kw)
+    return emit
+
+
 def _reject_command(the_command) -> None:
     if the_command in _UNPORTED_COMMANDS:
         raise NotImplementedError(
@@ -134,7 +148,7 @@ def _reject_command(the_command) -> None:
         )
 
 
-def _reject_unported(the_command, precision, param_space, mesh, device) -> None:
+def _reject_unported(the_command, precision, param_space) -> None:
     """Raise ``NotImplementedError`` for every request the port cannot
     honour yet; nothing is silently ignored."""
     _reject_command(the_command)
@@ -145,15 +159,6 @@ def _reject_unported(the_command, precision, param_space, mesh, device) -> None:
     if param_space == "w2":
         raise NotImplementedError(
             "--param_space w2 is not ported yet (ROADMAP Queue 1 #10)"
-        )
-    if (
-        mesh == "auto"
-        and torch.device(device).type == "cuda"
-        and torch.cuda.device_count() > 1
-    ):
-        raise NotImplementedError(
-            "--mesh over more than one device is not ported yet "
-            "(ROADMAP Queue 1 #13); pass --mesh single"
         )
 
 
@@ -181,9 +186,10 @@ def execute_from_command_line(
     device="cuda",
 ):
     """Run one subcommand; returns the engine (its timers and fit result)."""
-    _reject_unported(the_command, precision, param_space, mesh, device)
+    _reject_unported(the_command, precision, param_space)
     if verbose:
         configure_logging()
+    mesh, device = launch_mesh(mesh, device)
     inst = PlmDCA(
         msa_file,
         biomolecule,
@@ -196,6 +202,7 @@ def execute_from_command_line(
         device=device,
         seq_block=seq_block,
         checkpoint_path=checkpoint,
+        mesh=mesh,
     )
     seqbackmapper = None
     if refseq_file:
@@ -208,19 +215,25 @@ def execute_from_command_line(
     if not output_dir:
         base, _ = os.path.splitext(os.path.basename(msa_file))
         output_dir = "PLMDCA_output_" + base
-    dca_utilities.create_directories(output_dir)
+    writer = mesh is None or mesh.rank == 0  # under a mesh, rank 0 writes
+    if writer:
+        dca_utilities.create_directories(output_dir)
     write_outputs(inst, the_command, msa_file, output_dir, apc=apc,
                   ranked_by=ranked_by, linear_dist=linear_dist,
-                  num_site_pairs=num_site_pairs, seqbackmapper=seqbackmapper)
+                  num_site_pairs=num_site_pairs, seqbackmapper=seqbackmapper,
+                  write=writer)
     return inst
 
 
 def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
                   ranked_by=None, linear_dist=None, num_site_pairs=None,
-                  seqbackmapper=None):
+                  seqbackmapper=None, write=True):
     """Compute what ``the_command`` asks of the engine ``inst`` and write its
-    files into ``output_dir`` (``pydca_tpu/cli/plmdca_main.py:199-265``)."""
+    files into ``output_dir`` (``pydca_tpu/cli/plmdca_main.py:199-265``).
+    ``write=False`` computes the same and writes nothing (a rank other than
+    0 of a mesh)."""
     param_metadata = dca_utilities.plmdca_param_metadata(inst)
+    emit = _writer(write)
 
     def path_of(prefix):
         return dca_utilities.get_dca_output_file_path(
@@ -236,7 +249,7 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
             score_type = "PLMDCA Frobenius norm, non-APC (not average product corrected)"
             scores = inst.compute_sorted_FN(seqbackmapper=seqbackmapper)
             path = path_of("PLMDCA_raw_fn_scores_")
-        dca_utilities.write_sorted_dca_scores(
+        emit(dca_utilities.write_sorted_dca_scores,
             path, scores, metadata=param_metadata, score_type=score_type
         )
 
@@ -249,7 +262,7 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
             score_type = "PLMDCA DI scores, non-APC (not average product corrected)"
             scores = inst.compute_sorted_DI(seqbackmapper=seqbackmapper)
             path = path_of("PLMDCA_raw_di_scores_")
-        dca_utilities.write_sorted_dca_scores(
+        emit(dca_utilities.write_sorted_dca_scores,
             path, scores, metadata=param_metadata, score_type=score_type
         )
 
@@ -260,7 +273,7 @@ def write_outputs(inst, the_command, msa_file, output_dir, *, apc=False,
             linear_dist=linear_dist,
             num_site_pairs=num_site_pairs,
         )
-        dca_utilities.write_params(
+        emit(dca_utilities.write_params,
             path_of("fields_"), path_of("couplings_"), fields, couplings,
             param_metadata, ranked_by=ranked_by, linear_dist=linear_dist,
         )

@@ -21,8 +21,10 @@
 //
 // Design (identity_tc_kernel):
 //   1. Upper-triangle tiles.  A 1-D grid over the T(T+1)/2 tiles (I, J),
-//      J >= I, of 128 x 128 rows (T = ceil(N / 128); block t is tile
-//      J*(J+1)/2 + I, ops/cuda_kernels.py::_identity_tile_of is its twin).
+//      J >= I, of 128 x 128 rows (T = ceil(N / 128); tile J*(J+1)/2 + I,
+//      ops/cuda_kernels.py::_identity_tile_of is its twin), or over a range
+//      [t0, t1) of them: block b takes tile t0 + b, so ranks of a
+//      data-parallel run split the list and sum their partial counts.
 //      One block of two warpgroups owns a tile; each warpgroup issues
 //      wgmma m64n128k32 u8 x u8 -> s32 on its 64 rows.  Integer sums are
 //      exact and order-free: the same counts in every run.
@@ -64,10 +66,10 @@
 // epilogue (they weigh most at q = 5, five stages a tile); the A operand
 // from registers, to cut the shared-memory traffic of the build.
 
-#include <atomic>
-#include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -81,44 +83,6 @@ constexpr uint8_t PAD = 0x7F;             // the code of padding: no state
 constexpr int SHIFT = 14;                 // a match adds 0x80 * 0x80 = 1 << 14
 constexpr int MAX_LEN = (1 << 17) - 1;    // acc = matches << 14 fits in s32
 constexpr int MAX_TILES_SIDE = 65535;     // T(T+1)/2 < 2^31 blocks
-
-// upper-triangle tile (ti <= tj) of linear block t = tj*(tj+1)/2 + ti
-__device__ __forceinline__ void tile_of(long long t, int& ti, int& tj) {
-  long long j = static_cast<long long>((sqrt(8.0 * t + 1.0) - 1.0) / 2.0);
-  while (j * (j + 1) / 2 > t) --j;
-  while ((j + 1) * (j + 2) / 2 <= t) ++j;
-  tj = static_cast<int>(j);
-  ti = static_cast<int>(t - j * (j + 1) / 2);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t a, uint32_t b,
-                                             uint32_t c, uint32_t d) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
-               :: "r"(addr), "r"(a), "r"(b), "r"(c), "r"(d) : "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// wgmma descriptor of a K-major operand in the 128-byte swizzle: rows of
-// 128 bytes, 8-row atoms of 1024 bytes (SBO), atoms 1024-aligned.
-__device__ __forceinline__ uint64_t make_desc(uint32_t saddr) {
-  uint64_t d = static_cast<uint64_t>((saddr & 0x3FFFF) >> 4);
-  d |= static_cast<uint64_t>(1) << 16;            // LBO: unused for swizzled K-major
-  d |= static_cast<uint64_t>(1024 >> 4) << 32;    // SBO
-  d |= static_cast<uint64_t>(1) << 62;            // 128-byte swizzle
-  return d;
-}
-
-__device__ __forceinline__ void fence_acc(uint32_t (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
 
 // D (64 x 128, s32) += A (64 x 32, u8) * B (32 x 128, u8)
 __device__ __forceinline__ void wgmma_128(uint32_t (&d)[64], uint64_t da, uint64_t db) {
@@ -172,7 +136,7 @@ __device__ __forceinline__ void store_plane(uint32_t dst, const uint4 (&c)[4], u
 
 __global__ void __launch_bounds__(THREADS, 2) identity_tc_kernel(
     const uint8_t* __restrict__ cp, const uint8_t* __restrict__ valid,
-    int32_t* __restrict__ out, int n, int lpad, int q, uint32_t min_acc) {
+    int32_t* __restrict__ out, int n, int lpad, int q, uint32_t min_acc, long long tile0) {
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint32_t vbits[2][TILE / 32];  // valid and < n: tile rows (0), columns (1)
   __shared__ uint32_t part[8 * 4 * 8];       // column sums: [warp][lane % 4][word]
@@ -180,7 +144,7 @@ __global__ void __launch_bounds__(THREADS, 2) identity_tc_kernel(
   const uint32_t sbase = (sraw + 1023u) & ~1023u;  // swizzle atoms are 1024-aligned
 
   int ti, tj;
-  tile_of(blockIdx.x, ti, tj);
+  tile_of(tile0 + blockIdx.x, ti, tj);
   const bool diag = ti == tj;
   const int i0 = ti * TILE, j0 = tj * TILE;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -326,18 +290,6 @@ __global__ void __launch_bounds__(THREADS) identity_pad_kernel(
   }
 }
 
-// identity_tc_kernel's shared memory above 48 KB, allowed once per device
-cudaError_t allow_tc_smem() {
-  static std::atomic<bool> done[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < 64 && done[dev].load())) return err;
-  err = cudaFuncSetAttribute(identity_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM);
-  if (err == cudaSuccess && dev < 64) done[dev].store(true);
-  return err;
-}
-
 int padded_len(int l) { return (l + KB - 1) / KB * KB; }
 
 }  // namespace
@@ -349,8 +301,12 @@ extern "C" long long identity_counts_scratch_bytes(int n, int l) {
   return (static_cast<long long>(n) + TILE - 1) / TILE * TILE * padded_len(l);
 }
 
-// Plain C launcher (bound with ctypes).  `codes`: int8 (n, l), row-major,
-// every code in [0, q) (the wrapper checks); `valid`: n bytes or null;
+// Plain C launcher (bound with ctypes).  Runs the tiles [t0, t1) of the
+// T(T+1)/2 in block order (all of them: t0 = 0, t1 = T(T+1)/2), so `out`
+// receives exactly what those tiles add: ranks that split the tile list
+// over the same codes sum their `out` vectors to the full counts.  `codes`:
+// int8 (n, l), row-major, every code in [0, q) (the wrapper checks); `valid`:
+// n bytes or null;
 // `out`: n int32 zeros; `padded`: 16-byte-aligned scratch of
 // identity_counts_scratch_bytes(n, l) bytes, the (npad, lpad) codes.  The
 // float32 threshold comes as `min_acc`: a count m <= l < 2^17 is exact in
@@ -361,10 +317,11 @@ extern "C" long long identity_counts_scratch_bytes(int n, int l) {
 // on success), or cudaErrorInvalidValue for sizes out of range.
 extern "C" int identity_counts_launch(const void* codes, const void* valid, void* out,
                                       void* padded, int n, int l, int q, unsigned min_acc,
-                                      void* stream) {
+                                      long long t0, long long t1, void* stream) {
   if (n <= 0) return 0;
   const long long side = (n + TILE - 1) / TILE;
-  if (l < 0 || l > MAX_LEN || q < 1 || q > 127 || side > MAX_TILES_SIDE)
+  if (l < 0 || l > MAX_LEN || q < 1 || q > 127 || side > MAX_TILES_SIDE || t0 < 0 ||
+      t1 < t0 || t1 > side * (side + 1) / 2)
     return static_cast<int>(cudaErrorInvalidValue);
   const int lpad = padded_len(l);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -374,11 +331,12 @@ extern "C" int identity_counts_launch(const void* codes, const void* valid, void
     identity_pad_kernel<<<static_cast<unsigned>(want < 65536 ? want : 65536), THREADS, 0, st>>>(
         static_cast<const uint8_t*>(codes), static_cast<uint8_t*>(padded), n, l, lpad, chunks);
   }
-  cudaError_t err = allow_tc_smem();
+  cudaError_t err = allow_dynamic_smem<identity_tc_kernel, SMEM>();
   if (err != cudaSuccess) return static_cast<int>(err);
-  identity_tc_kernel<<<static_cast<unsigned>(side * (side + 1) / 2), THREADS, SMEM, st>>>(
-      static_cast<const uint8_t*>(padded), static_cast<const uint8_t*>(valid),
-      static_cast<int32_t*>(out), n, lpad, q, min_acc);
+  if (t1 > t0)
+    identity_tc_kernel<<<static_cast<unsigned>(t1 - t0), THREADS, SMEM, st>>>(
+        static_cast<const uint8_t*>(padded), static_cast<const uint8_t*>(valid),
+        static_cast<int32_t*>(out), n, lpad, q, min_acc, t0);
   return static_cast<int>(cudaGetLastError());
 }
 

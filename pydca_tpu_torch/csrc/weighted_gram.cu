@@ -72,11 +72,11 @@
 // cores (one 8 x 8 register sub-tile a thread, 16 sequences a stage), with
 // the same tiles, split-N, reduction pass and symmetric stores.
 
-#include <atomic>
-#include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "sm90_common.cuh"
 
 namespace {
 
@@ -91,15 +91,6 @@ constexpr int LDT = TILE + 1;                  // row stride of a staged tile (e
 constexpr int RROWS = 8;                       // tile rows per reduction block
 constexpr int RPER = RROWS * TILE / THREADS;   // elements per reduction thread
 constexpr unsigned NO_STATE = 0xFEu;           // state of rows past K
-
-// upper-triangle tile (ti <= tj) of linear block t = tj*(tj+1)/2 + ti
-__device__ __forceinline__ void tile_of(long long t, int& ti, int& tj) {
-  long long j = static_cast<long long>((sqrt(8.0 * t + 1.0) - 1.0) / 2.0);
-  while (j * (j + 1) / 2 > t) --j;
-  while ((j + 1) * (j + 2) / 2 <= t) ++j;
-  tj = static_cast<int>(j);
-  ti = static_cast<int>(t - j * (j + 1) / 2);
-}
 
 // Writes rows [i0, i0 + rows) of a finished tile (staged at `tile`, row
 // stride LDT, row i0 first) to G at (r0, c0) and its mirror at (c0, r0).
@@ -124,35 +115,6 @@ __device__ __forceinline__ void store_symmetric(T* __restrict__ out, const T* ti
 }
 
 // ------------------------------------------------------------ fp32 path
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint32_t a, uint32_t b,
-                                             uint32_t c, uint32_t d) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
-               :: "r"(addr), "r"(a), "r"(b), "r"(c), "r"(d) : "memory");
-}
-
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// wgmma descriptor of a K-major bf16 operand in the 128-byte swizzle:
-// rows of 128 bytes, 8-row atoms of 1024 bytes (SBO), atoms 1024-aligned.
-__device__ __forceinline__ uint64_t make_desc(uint32_t saddr) {
-  uint64_t d = static_cast<uint64_t>((saddr & 0x3FFFF) >> 4);
-  d |= static_cast<uint64_t>(1) << 16;            // LBO: unused for swizzled K-major
-  d |= static_cast<uint64_t>(1024 >> 4) << 32;    // SBO
-  d |= static_cast<uint64_t>(1) << 62;            // 128-byte swizzle
-  return d;
-}
-
-__device__ __forceinline__ void fence_acc(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
 
 // D (64 x 128, f32) = [D +] A (64 x 16, bf16) * B (16 x 128, bf16)
 __device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da, uint64_t db,
@@ -546,18 +508,6 @@ int* range_flag() {
   return flag;
 }
 
-// gram_tc_kernel's shared memory above 48 KB, allowed once per device
-cudaError_t allow_tc_smem() {
-  static std::atomic<bool> done[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess || (dev < 64 && done[dev].load())) return err;
-  err = cudaFuncSetAttribute(gram_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_TC);
-  if (err == cudaSuccess && dev < 64) done[dev].store(true);
-  return err;
-}
-
 template <typename T>
 int launch(const void* codes, const void* w, void* out, void* ct, void* wpk, void* ws,
            int n, int npad, int l, int q, int splits, int chunk_len, void* stream) {
@@ -586,7 +536,7 @@ int launch(const void* codes, const void* w, void* out, void* ct, void* wpk, voi
   const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(splits));
   T* ws_t = static_cast<T*>(ws);
   if constexpr (sizeof(T) == 4) {
-    err = allow_tc_smem();
+    err = allow_dynamic_smem<gram_tc_kernel, SMEM_TC>();
     if (err != cudaSuccess) return static_cast<int>(err);
     gram_tc_kernel<<<grid, THREADS, SMEM_TC, st>>>(
         static_cast<const int8_t*>(ct), static_cast<const uint4*>(wpk),

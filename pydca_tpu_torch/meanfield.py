@@ -14,7 +14,10 @@ adds the stages ``blocks``, ``two_site`` (the fixed point), ``di`` and
 
 The counting layer runs the two hand-written CUDA kernels on a card
 (``csrc/identity_counts.cu`` for the weights, ``csrc/weighted_gram.cu``
-for the Gram).  A mesh is not ported yet.
+for the Gram).  With a mesh (``mesh=``, float32 only, as in the JAX
+package) the weights' identity counts are split over the ranks by tiles
+and the Gram by rows (:mod:`pydca_tpu_torch.parallel`); C, the inverse
+and the scores are then computed on every rank.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from .alphabets import get_alphabet
 from .device import resolve_device, set_precision, sync
 from .io.fasta import MSA, _dedup_encoded, read_msa
 from .ops import linalg
+from .parallel.mesh import resolve_mesh, shard_msa
 from .profiling import StageTimers
 
 logger = logging.getLogger(__name__)
@@ -82,7 +86,7 @@ def _as_msa(msa, biomolecule: str) -> MSA:
 
 
 class MeanFieldDCA:
-    """Mean-field Direct Coupling Analysis on one device.
+    """Mean-field Direct Coupling Analysis on one device or over a mesh.
 
     Parameters
     ----------
@@ -101,6 +105,12 @@ class MeanFieldDCA:
         weights, the Gram, ``C`` and the couplings.
     device : str | torch.device
         ``"cuda"`` or ``"cpu"`` (explicit; no fallback).
+    mesh : None | "auto" | "single" | DataMesh
+        Shard the sequences over the ranks of a process group (one process
+        per card; ``"auto"``: the default group when its world size is above
+        1).  The engine's device is then the mesh's.  Taken for float32
+        only, as in the JAX package; every rank holds the whole alignment
+        and gets the same result.
     """
 
     def __init__(
@@ -112,6 +122,7 @@ class MeanFieldDCA:
         *,
         dtype: torch.dtype = torch.float32,
         device,
+        mesh=None,
     ):
         if not 0.0 <= pseudocount < 1.0:
             raise MeanFieldDCAException(
@@ -122,6 +133,9 @@ class MeanFieldDCA:
         if dtype not in (torch.float32, torch.float64):
             raise MeanFieldDCAException(f"dtype must be float32 or float64; got {dtype}")
         self.device = resolve_device(device)
+        self.mesh = resolve_mesh(mesh, self.device)
+        if self.mesh is not None:
+            self.device = self.mesh.device
         set_precision()
         self.msa = _as_msa(msa, biomolecule)
         self.__pseudocount = float(pseudocount)
@@ -196,21 +210,39 @@ class MeanFieldDCA:
         self.__weights = None
         return self.get_sequences_weight()
 
+    def _sharded(self) -> bool:
+        """Whether the counts run over the mesh (float32 only, as in JAX)."""
+        return self.mesh is not None and self.dtype == torch.float32
+
     def get_sequences_weight(self) -> torch.Tensor:
         if self.__weights is None:
             with self.timers.stage("weights"):
-                self.__weights = stats.sequence_weights(
-                    self._msa_tensor(), self.__seqid, self.msa.q, dtype=self.dtype
-                )
+                if self._sharded():
+                    from .parallel.fit import sequence_weights_sharded
+
+                    self.__weights = sequence_weights_sharded(
+                        self.mesh, self.msa.data, self.__seqid, self.msa.q
+                    )
+                else:
+                    self.__weights = stats.sequence_weights(
+                        self._msa_tensor(), self.__seqid, self.msa.q, dtype=self.dtype
+                    )
                 sync(self.device)
             self.timers.add_rate("weights", self.msa.num_seqs, "seqs")
         return self.__weights
 
+    def _weighted_gram(self) -> torch.Tensor:
+        """The normalised Gram; with a mesh, of this rank's stripe of the
+        rows, summed over the ranks."""
+        w = self.get_sequences_weight()
+        if self._sharded():
+            codes, w_s, _ = shard_msa(self.mesh, self.msa.data, w)
+            return stats.weighted_gram(codes, w_s, self.msa.q, mesh=self.mesh)
+        return stats.weighted_gram(self._msa_tensor(), w, self.msa.q)
+
     def _get_gram(self) -> torch.Tensor:
         if self.__gram is None:
-            self.__gram = stats.weighted_gram(
-                self._msa_tensor(), self.get_sequences_weight(), self.msa.q
-            )
+            self.__gram = self._weighted_gram()
         return self.__gram
 
     def get_single_site_freqs(self) -> torch.Tensor:
@@ -292,10 +324,10 @@ class MeanFieldDCA:
         score stages each hold three such matrices at most.
         """
         l, q, pc = self.msa.seqs_len, self.msa.q, self.__pseudocount
-        w = self.get_sequences_weight()
+        self.get_sequences_weight()
         timers = self.timers
         with timers.stage("gram"):
-            gram = stats.weighted_gram(self._msa_tensor(), w, q)
+            gram = self._weighted_gram()
             sync(self.device)
         with timers.stage("corr"):
             self.__fi = _gram_fi(gram, l, q)
@@ -480,6 +512,19 @@ class MeanFieldDCA:
         shifted = score_mod.gauge_shift(j4[cols[:, 0], cols[:, 1]])
         shifted = shifted.reshape(len(pairs), qm1 * qm1).cpu().numpy()
         return tuple((i, fields[c]) for i, c in sites.items()), tuple(zip(pairs, shifted))
+
+
+def _mf_couplings(gram: torch.Tensor, l: int, q: int, pseudocount: float):
+    """``(fi, couplings, fn, fn_apc)`` from a normalised Gram: the steps of
+    :meth:`MeanFieldDCA._run_fused_pipeline` after the Gram, untimed, with
+    the LU fallback (one host read of the SPD flag)."""
+    fi = _gram_fi(gram, l, q)
+    c = stats.corr_mat_from_gram(gram, stats.regularize_fi(fi, q, pseudocount),
+                                 pseudocount, l, q)
+    couplings = MeanFieldDCA._inverse_with_fallback(c)
+    del c
+    fn = score_mod.frobenius_norms_from_matrix(couplings, l, q - 1)
+    return fi, couplings, fn, score_mod.apc(fn, l)
 
 
 def _gram_fi(gram: torch.Tensor, l: int, q: int) -> torch.Tensor:

@@ -7,7 +7,8 @@ plain ``extern "C"`` interface, loaded with :mod:`ctypes`:
          -Xcompiler -fPIC -o _build/lib<name>_<hash>.so csrc/<name>.cu
 
 The library lands in ``pydca_tpu_torch/_build/`` (git-ignored), named by a
-hash of the source and the flags, so a stale library is never loaded.
+hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
+a stale library is never loaded.
 When ``nvcc`` is missing this raises; there is no fallback.
 """
 
@@ -50,9 +51,11 @@ def find_nvcc() -> Optional[str]:
 
 
 def library_path(name: str) -> Path:
-    """Where the library for ``csrc/<name>.cu`` lives for this source + flags."""
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    """Where the library for ``csrc/<name>.cu`` lives for this source, the
+    shared headers ``csrc/*.cuh`` and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 

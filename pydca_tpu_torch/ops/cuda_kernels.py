@@ -21,7 +21,7 @@ import contextlib
 import ctypes
 import functools
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,6 +31,7 @@ from . import _build
 __all__ = [
     "identity_counts",
     "identity_counts_reference",
+    "identity_tile_share",
     "weighted_gram",
     "weighted_gram_reference",
 ]
@@ -54,6 +55,7 @@ def identity_counts_reference(
     q: int,
     valid: Optional[torch.Tensor] = None,
     block: int = 1024,
+    tiles: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Plain blocked version: ``#{j : valid[j], matches(i, j) > thr}``.
 
@@ -61,11 +63,16 @@ def identity_counts_reference(
     multiplies ``(B, Lq) @ (Lq, N)``: products are 0/1 and sums are at
     most L, so the counts are exact for L < 2^24 (even under TF32, whose
     inputs hold 0 and 1 exactly).  Returns (N,) int32 on ``codes.device``.
+
+    ``tiles = (t0, t1)``: only what the kernel's tiles ``[t0, t1)`` add
+    (:func:`_identity_tile_partial`); ``block`` is then unused.
     """
     n, l = codes.shape
     thr32 = _thr_f32(thr)
     x = torch.nn.functional.one_hot(codes.long(), q).to(torch.float32)
     x = x.reshape(n, l * q)
+    if tiles is not None:
+        return _identity_tile_partial(x, thr32, valid, n, tiles)
     vmask = None if valid is None else valid.to(torch.bool)[None, :]
     out = torch.empty(n, dtype=torch.int32, device=codes.device)
     for r0 in range(0, n, block):
@@ -74,6 +81,52 @@ def identity_counts_reference(
             ind &= vmask
         out[r0 : r0 + block] = ind.sum(dim=1, dtype=torch.int32)
     return out
+
+
+def _identity_tile_partial(x, thr32, valid, n: int, tiles) -> torch.Tensor:
+    """The partial counts of the kernel's upper-triangle tiles ``[t0, t1)``
+    (``_identity_tile_of`` order) on the one-hot ``x``.
+
+    A tile (I, J), I < J, adds ``[matches(i, j) > thr] valid[j]`` to each
+    row i of row tile I and, by symmetry, ``[matches(i, j) > thr]
+    valid[i]`` to each row j of row tile J; a diagonal tile (I, I) adds
+    the first term alone, over its ordered pairs.  The tiles of one column
+    J in the range have consecutive I, so each column is one
+    ``(rows of I_a..I_b, Lq) @ (Lq, rows of J)`` product.
+    """
+    t0, t1 = (int(t) for t in tiles)
+    side = -(-n // _IC_TILE)
+    if not 0 <= t0 <= t1 <= side * (side + 1) // 2:
+        raise ValueError(f"tile range [{t0}, {t1}) outside [0, {side * (side + 1) // 2})")
+    vmask = (torch.ones(n, dtype=torch.bool, device=x.device) if valid is None
+             else valid.to(torch.bool))
+    out = torch.zeros(n, dtype=torch.int32, device=x.device)
+    t = t0
+    while t < t1:
+        ia, tj = _identity_tile_of(t)
+        ib = min(tj, ia + (t1 - t) - 1)  # last row tile of this column in range
+        t += ib - ia + 1
+        a0, a1 = ia * _IC_TILE, min((ib + 1) * _IC_TILE, n)
+        b0, b1 = tj * _IC_TILE, min((tj + 1) * _IC_TILE, n)
+        ind = (x[a0:a1] @ x[b0:b1].T) > thr32  # (rows of I_a..I_b, rows of J)
+        out[a0:a1] += (ind & vmask[None, b0:b1]).sum(dim=1, dtype=torch.int32)
+        off = min(a1, b0) - a0  # rows above the diagonal tile
+        if off > 0:
+            out[b0:b1] += (ind[:off] & vmask[a0 : a0 + off, None]).sum(dim=0, dtype=torch.int32)
+    return out
+
+
+def identity_tile_share(n: int, rank: int, world: int) -> Tuple[int, int]:
+    """Rank ``rank``'s share ``(t0, t1)`` of the identity-count kernel's
+    T(T+1)/2 upper-triangle tiles (T = ceil(N / 128)): contiguous ranges of
+    sizes that differ by at most one, in rank order.  Every tile costs the
+    same (a diagonal one skips its column sums), so equal counts balance
+    the ranks."""
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    side = -(-n // _IC_TILE)
+    total = side * (side + 1) // 2
+    return total * rank // world, total * (rank + 1) // world
 
 
 def _check_codes(codes: torch.Tensor, q: int) -> None:
@@ -140,6 +193,7 @@ def identity_counts(
     q: int,
     valid: Optional[torch.Tensor] = None,
     block: int = 1024,
+    tiles: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """#{j : valid[j] and identity(i, j) > thr} for every row i; (N,) int32.
 
@@ -147,6 +201,10 @@ def identity_counts(
     rounded to float32 and compared strictly, in float32, as the TPU
     kernel does (``pallas_kernels.py:129``).  ``valid``: optional (N,)
     bool mask; rows with ``valid = False`` are no one's neighbour.
+    ``tiles = (t0, t1)``: only the partial counts that the kernel's
+    upper-triangle tiles ``[t0, t1)`` add (:func:`identity_tile_share`
+    splits the list over ranks; the partials of a split sum to the full
+    counts exactly).
 
     On a CPU tensor this is :func:`identity_counts_reference` (``block``
     is its row block); on a CUDA tensor it launches
@@ -161,7 +219,7 @@ def identity_counts(
             f"{tuple(valid.shape)} on {valid.device}"
         )
     if codes.device.type == "cpu":
-        return identity_counts_reference(codes, thr, q, valid=valid, block=block)
+        return identity_counts_reference(codes, thr, q, valid=valid, block=block, tiles=tiles)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
 
@@ -172,6 +230,10 @@ def identity_counts(
             f"(N, L) = ({n}, {l}) exceeds the kernel's limits "
             f"N <= {max_n}, L <= {_IC_MAX_LEN}"
         )
+    total = _identity_plan(n, l)[2]
+    t0, t1 = (0, total) if tiles is None else (int(t) for t in tiles)
+    if not 0 <= t0 <= t1 <= total:
+        raise ValueError(f"tile range [{t0}, {t1}) outside [0, {total})")
     # the range check above makes this cast lossless; done once per call
     c8 = codes.to(torch.int8).contiguous()
     v8 = None
@@ -192,6 +254,8 @@ def identity_counts(
             l,
             q,
             _identity_min_acc(thr),
+            t0,
+            t1,
             stream,
         )
     if err != 0:
@@ -209,7 +273,8 @@ def _identity_counts_lib() -> ctypes.CDLL:
     fn = lib.identity_counts_launch
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
     lib.identity_counts_max_rows.argtypes = []

@@ -1,12 +1,13 @@
 """Pseudolikelihood-maximization DCA (plmDCA) in PyTorch.
 
-Port of ``pydca_tpu/plm.py`` on one device: the objective, the fused
-direction-space L-BFGS loop (``_plm_fused_state0`` / ``_plm_fused_steps``)
-for alignments whose logits fit, the streamed objective over sequence
-blocks with the generic L-BFGS loop (``plm_loss_and_grad_chunked`` /
-``_plm_lbfgs_state0`` / ``_plm_lbfgs_steps``) for deep ones, ``fit_plm``
-over both, and the :class:`PlmDCA` engine's FN and DI scoring and
-parameter extraction.  The math is the JAX package's; its TPU compile
+Port of ``pydca_tpu/plm.py``: the objective, the fused direction-space
+L-BFGS loop (``_plm_fused_state0`` / ``_plm_fused_steps``) for alignments
+whose logits fit, the streamed objective over sequence blocks with the
+generic L-BFGS loop (``plm_loss_and_grad_chunked`` / ``_plm_lbfgs_state0``
+/ ``_plm_lbfgs_steps``) for deep ones, ``fit_plm`` over both (on one
+device, or over the ranks of a mesh with the sequences sharded:
+``fit_plm(mesh=...)``), and the :class:`PlmDCA` engine's FN and DI scoring
+and parameter extraction.  The math is the JAX package's; its TPU compile
 workarounds are not ported:
 
 - the parameter vector is one flat float32 tensor of length
@@ -63,6 +64,7 @@ from .ops.lbfgs import (
     result_from_state,
     wolfe_scalar,
 )
+from .parallel.mesh import resolve_mesh, shard_msa
 from .profiling import StageTimers
 
 logger = logging.getLogger(__name__)
@@ -225,13 +227,15 @@ def plm_loss_and_grad(theta, msa, weights, lambda_h, lambda_j, l: int, q: int):
     return loss.detach(), grad
 
 
-def init_params(msa, weights, l: int, q: int, block: Optional[int] = None) -> torch.Tensor:
+def init_params(msa, weights, l: int, q: int, block: Optional[int] = None,
+                mesh=None) -> torch.Tensor:
     """Reference initialization (``plmdca_numerics.cpp:207-249``): flat
     float32 ``theta`` with ``h_ia = log(weighted_count_ia + 1)`` centred per
     site and ``J = 0``.  ``block``: sum ``fi`` over blocks of this many
-    sequences, so that no (N, L*q) one-hot is built."""
-    fi = stats.single_site_freqs(msa, weights, q, block=block)
-    h = torch.log(fi * weights.sum() + 1.0)
+    sequences, so that no (N, L*q) one-hot is built.  ``mesh``: the counts
+    and Meff are summed over the ranks before the log."""
+    counts, meff = stats.weighted_counts(msa, weights, q, block, mesh)
+    h = torch.log(counts / meff * meff + 1.0)  # fi * Meff, rounded as the reference does
     h = h - h.mean(dim=1, keepdim=True)
     theta = torch.zeros(l * q + l * (l - 1) // 2 * q * q, dtype=torch.float32,
                         device=msa.device)
@@ -240,7 +244,7 @@ def init_params(msa, weights, l: int, q: int, block: Optional[int] = None) -> to
 
 
 def plm_loss_and_grad_chunked(theta, msa, weights, lambda_h, lambda_j,
-                              l: int, q: int, block: int):
+                              l: int, q: int, block: int, mesh=None):
     """Streamed ``(loss, grad)`` of :func:`plm_loss` over blocks of
     ``block`` sequences (``pydca_tpu/plm.py:487-539``).
 
@@ -253,7 +257,10 @@ def plm_loss_and_grad_chunked(theta, msa, weights, lambda_h, lambda_j,
     buffer in place, and that buffer is pulled back to the pair layout
     once.  When ``block`` does not divide N, the last block holds the
     N mod block remaining rows (the JAX package pads it with zero-weight
-    rows instead).
+    rows instead).  ``mesh``: ``msa`` and ``weights`` are this rank's
+    stripe; the data term's value and gradient (after the pullback: D
+    floats, half the ``(L*q, q*L)`` buffer) are summed over the ranks in
+    one collective before the regulariser is added.
     """
     lq = l * q
     h = theta[:lq].reshape(l, q)
@@ -273,12 +280,18 @@ def plm_loss_and_grad_chunked(theta, msa, weights, lambda_h, lambda_j,
         _mm_b(x, ct, gw)
         del x, maskq, ct
     del w
-    g = torch.empty_like(theta)
-    g[:lq] = (gh.T + 2.0 * lambda_h * h).reshape(-1)
+    # the data term's gradient and value in one buffer, one collective
+    buf = torch.empty(theta.shape[0] + 1, dtype=theta.dtype, device=theta.device)
+    g = buf[:-1]
+    g[:lq] = gh.T.reshape(-1)
     g[lq:] = _w4_cot_to_compact(gw, l, q)
     del gw
+    buf[-1] = nll
+    if mesh is not None:
+        mesh.sum_(buf, "grad_allreduce")
+    g[:lq] += (2.0 * lambda_h * h).reshape(-1)
     g[lq:].add_(jflat, alpha=2.0 * lambda_j)
-    loss = nll + lambda_h * (h * h).sum() + lambda_j * torch.dot(jflat, jflat)
+    loss = buf[-1] + lambda_h * (h * h).sum() + lambda_j * torch.dot(jflat, jflat)
     return loss, g
 
 
@@ -316,15 +329,30 @@ def _ct_gh(logits, maskq, weights):
 
 
 def _grad_at(logits, x1h, maskq, weights, theta, lambda_h, lambda_j,
-             l: int, q: int) -> torch.Tensor:
-    """Full flat gradient at the carried logits / parameters."""
+             l: int, q: int, mesh=None) -> torch.Tensor:
+    """Full flat gradient at the carried logits / parameters.  ``mesh``:
+    the data gradient (this rank's rows) is summed over the ranks in one
+    flat buffer of D floats before ``2 lambda theta`` is added."""
     lq = l * q
     ct, gh = _ct_gh(logits, maskq, weights)
-    gj = _w4_cot_to_compact(_mm_b(x1h, ct), l, q)
     g = torch.empty_like(theta)
-    g[:lq] = (gh.T + 2.0 * lambda_h * theta[:lq].reshape(l, q)).reshape(-1)
-    g[lq:] = gj + 2.0 * lambda_j * theta[lq:]
+    g[:lq] = gh.T.reshape(-1)
+    g[lq:] = _w4_cot_to_compact(_mm_b(x1h, ct), l, q)
+    del ct
+    if mesh is not None:
+        mesh.sum_(g, "grad_allreduce")
+    g[:lq] += (2.0 * lambda_h * theta[:lq]).reshape(-1)
+    g[lq:] += 2.0 * lambda_j * theta[lq:]
     return g
+
+
+def _data_sum(mesh, *vals: torch.Tensor) -> torch.Tensor:
+    """0-d data terms (sums over this rank's sequences) stacked and summed
+    over the ranks in one collective."""
+    both = torch.stack(vals)
+    if mesh is not None:
+        mesh.sum_(both, "nll_allreduce")
+    return both
 
 
 def _prep_u(x1h, maskq, d, l: int, q: int):
@@ -383,21 +411,23 @@ def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 def _plm_fused_state0(
     msa, weights, lambda_h, lambda_j, l: int, q: int, m: int,
-    epsilon: float = 1e-3,
+    epsilon: float = 1e-3, mesh=None,
 ) -> PlmFusedState:
     """Fresh state at the reference init (``plmdca_numerics.cpp:207-249``):
-    ``h0 = log(fi * Meff + 1)`` centred per site, ``J = 0``."""
+    ``h0 = log(fi * Meff + 1)`` centred per site, ``J = 0``.  ``mesh``:
+    ``msa`` and ``weights`` are this rank's stripe; the carried logits are
+    this rank's rows."""
     lh, lj = _F32(lambda_h), _F32(lambda_j)
     x1h, maskq = _prep_msa(msa, l, q)
     n = msa.shape[0]
     lq = l * q
     dim = lq + l * (l - 1) // 2 * q * q
-    theta = init_params(msa, weights, l, q)
+    theta = init_params(msa, weights, l, q, mesh=mesh)
     h0 = theta[:lq].reshape(l, q)
     # J0 = 0 exactly: the logits are the broadcast fields
     logits = h0.T[None].expand(n, q, l).contiguous()
     picked = _picked(logits, maskq)
-    g = _grad_at(logits, x1h, maskq, weights, theta, float(lh), float(lj), l, q)
+    g = _grad_at(logits, x1h, maskq, weights, theta, float(lh), float(lj), l, q, mesh)
     st = PlmFusedState(
         x=theta, f=_F32(0), g=g,
         z=torch.zeros((2 * m, dim), dtype=torch.float32, device=msa.device),
@@ -407,7 +437,7 @@ def _plm_fused_state0(
         logits=logits, picked=picked,
         k=0, done=False, converged=False, ls_failed=False, n_evals=1,
     )
-    nll, rh, gg = fetch_f32(st, _nll_at(logits, picked, weights),
+    nll, rh, gg = fetch_f32(st, _data_sum(mesh, _nll_at(logits, picked, weights)),
                             torch.dot(theta[:lq], theta[:lq]), torch.dot(g, g))
     st.f = _F32(nll + lh * rh)
     st.rh, st.xx, st.gg = rh, rh, gg
@@ -417,7 +447,7 @@ def _plm_fused_state0(
 
 def _plm_fused_step(
     st: PlmFusedState, x1h, maskq, weights, lh, lj, l: int, q: int,
-    epsilon: float, ftol: float, wolfe: float, max_linesearch: int,
+    epsilon: float, ftol: float, wolfe: float, max_linesearch: int, mesh=None,
 ) -> None:
     """One fused L-BFGS iteration, updating ``st`` in place
     (``pydca_tpu/plm.py:996-1137``)."""
@@ -454,7 +484,8 @@ def _plm_fused_step(
 
     def phi(alpha):
         nll, dnll = fetch_f32(
-            st, *_phi_dphi(st.logits, st.picked, u, upicked, weights, float(alpha))
+            st, _data_sum(mesh, *_phi_dphi(st.logits, st.picked, u, upicked, weights,
+                                           float(alpha)))
         )
         return (
             nll + reg0 + c1 * alpha + c2 * alpha * alpha,
@@ -480,7 +511,7 @@ def _plm_fused_step(
     st.logits.add_(u, alpha=a)
     st.picked.add_(upicked, alpha=a)
     del u, upicked
-    g_new = _grad_at(st.logits, x1h, maskq, weights, st.x, float(lh), float(lj), l, q)
+    g_new = _grad_at(st.logits, x1h, maskq, weights, st.x, float(lh), float(lj), l, q, mesh)
     zg_old_rows = torch.matmul(st.z, g_new)  # Z @ g' with the rows before the write
     vals = fetch_f32(st, zg_old_rows, torch.dot(g_new, g_new),
                      torch.dot(st.g, g_new), torch.dot(d, g_new))
@@ -526,7 +557,7 @@ def _plm_fused_steps(
     st: PlmFusedState, x1h, maskq, weights, lambda_h, lambda_j,
     l: int, q: int, num_steps: int,
     epsilon: float = 1e-3, ftol: float = 1e-4, wolfe: float = 0.9,
-    max_linesearch: int = 10,
+    max_linesearch: int = 10, mesh=None,
 ) -> PlmFusedState:
     """Advance the fused optimizer by up to ``num_steps`` iterations (in
     place; returns ``st``)."""
@@ -534,7 +565,7 @@ def _plm_fused_steps(
     k_end = st.k + num_steps
     while not st.done and st.k < k_end:
         _plm_fused_step(st, x1h, maskq, weights, lh, lj, l, q,
-                        epsilon, ftol, wolfe, max_linesearch)
+                        epsilon, ftol, wolfe, max_linesearch, mesh)
     return st
 
 
@@ -600,28 +631,29 @@ def lbfgs_state_from_numpy(leaves: dict, device) -> LBFGSState:
 
 
 # ------------------------------------------------ streamed generic loop
-def _make_loss_fun(msa, weights, lambda_h, lambda_j, l: int, q: int, block: int):
+def _make_loss_fun(msa, weights, lambda_h, lambda_j, l: int, q: int, block: int,
+                   mesh=None):
     """The streamed objective ``theta -> (loss, grad)`` of one fit."""
     return functools.partial(
         plm_loss_and_grad_chunked, msa=msa, weights=weights,
-        lambda_h=lambda_h, lambda_j=lambda_j, l=l, q=q, block=block,
+        lambda_h=lambda_h, lambda_j=lambda_j, l=l, q=q, block=block, mesh=mesh,
     )
 
 
 def _plm_lbfgs_state0(msa, weights, lambda_h, lambda_j, l: int, q: int,
-                      m: int, block: int) -> LBFGSState:
+                      m: int, block: int, mesh=None) -> LBFGSState:
     """Fresh generic state at the reference init, ``fi`` summed over the
     sequence blocks (``pydca_tpu/plm.py:570-588``)."""
-    theta0 = init_params(msa, weights, l, q, block=block)
-    fun = _make_loss_fun(msa, weights, lambda_h, lambda_j, l, q, block)
+    theta0 = init_params(msa, weights, l, q, block=block, mesh=mesh)
+    fun = _make_loss_fun(msa, weights, lambda_h, lambda_j, l, q, block, mesh)
     return lbfgs_init(fun, theta0, m=m)
 
 
 def _plm_lbfgs_steps(st: LBFGSState, msa, weights, lambda_h, lambda_j,
-                     l: int, q: int, num_steps: int, block: int) -> LBFGSState:
+                     l: int, q: int, num_steps: int, block: int, mesh=None) -> LBFGSState:
     """Advance the streamed fit by up to ``num_steps`` iterations (in place;
     returns ``st``)."""
-    fun = _make_loss_fun(msa, weights, lambda_h, lambda_j, l, q, block)
+    fun = _make_loss_fun(msa, weights, lambda_h, lambda_j, l, q, block, mesh)
     return lbfgs_steps(fun, st, num_steps)
 
 
@@ -642,18 +674,18 @@ def _generic_from_fused(st: PlmFusedState) -> LBFGSState:
 
 
 def _fused_from_generic(gst: LBFGSState, x1h, maskq, weights, lambda_h, lambda_j,
-                        l: int, q: int, epsilon: float = 1e-3) -> PlmFusedState:
+                        l: int, q: int, epsilon: float = 1e-3, mesh=None) -> PlmFusedState:
     """Generic -> fused state at the checkpointed iterate
     (``pydca_tpu/plm.py:864-915, 1400-1416``): one forward for the carried
     logits, one gradient, and the history caches ``zzt = Z Z^T`` and
     ``zg = Z g`` rebuilt, so the resume is exact to float recompute, not
-    bitwise."""
+    bitwise.  ``mesh``: the logits are this rank's rows."""
     lq = l * q
     lh, lj = _F32(lambda_h), _F32(lambda_j)
     x = gst.x
     logits = _logits_mm(x1h, _expand_w4(x[lq:], l, q), q, l).add_(x[:lq].reshape(l, q).T[None])
     picked = _picked(logits, maskq)
-    g = _grad_at(logits, x1h, maskq, weights, x, float(lh), float(lj), l, q)
+    g = _grad_at(logits, x1h, maskq, weights, x, float(lh), float(lj), l, q, mesh)
     m2 = gst.z.shape[0]
     st = PlmFusedState(
         x=x, f=_F32(0), g=g, z=gst.z,
@@ -665,7 +697,7 @@ def _fused_from_generic(gst: LBFGSState, x1h, maskq, weights, lambda_h, lambda_j
         host_syncs=gst.host_syncs,
     )
     vals = fetch_f32(
-        st, _nll_at(logits, picked, weights), torch.dot(x[:lq], x[:lq]),
+        st, _data_sum(mesh, _nll_at(logits, picked, weights)), torch.dot(x[:lq], x[:lq]),
         torch.dot(x[lq:], x[lq:]), torch.dot(g, g), torch.matmul(gst.z, gst.z.T),
         torch.matmul(gst.z, g),
     )
@@ -799,6 +831,7 @@ def fit_plm(
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 50,
     seq_block: Optional[int] = None,
+    mesh=None,
 ) -> LBFGSResult:
     """Run the plmDCA optimization on ``msa.device``.
 
@@ -819,6 +852,15 @@ def fit_plm(
     retried at most twice, each time from the file: a chunk updates the
     state in place, so the state in memory after an error is never
     continued.  Without a checkpoint the error propagates.
+
+    ``mesh`` (:class:`~pydca_tpu_torch.parallel.mesh.DataMesh`): ``msa``
+    and ``weights`` are this rank's stripe of the rows, and every sum over
+    sequences (the counts of the init, the loss, its gradient, each
+    line-search trial) is summed over the ranks; the iterate, the history
+    and every host decision are replicated.  Under a mesh, rank 0 writes
+    the checkpoint in the generic format after the ranks meet at a
+    barrier, and every rank reads it: a resumed fused fit rebuilds its
+    rows' logits (``_fused_from_generic``).
     """
     weights = weights.to(torch.float32)
     step = max_iterations if chunk_size is None else int(chunk_size)
@@ -833,28 +875,43 @@ def fit_plm(
         """The checkpoint's state, in the form of this fit's loop."""
         state = _load_state(checkpoint_path, msa.device)
         _check_space(state, checkpoint_path, l, q)
+        if isinstance(state, PlmFusedState) and (mesh is not None or not use_fused):
+            # a fused file's logits cover every row: a rank rebuilds its own
+            state = _generic_from_fused(state)
         if use_fused and not isinstance(state, PlmFusedState):
-            return _fused_from_generic(state, x1h, maskq, weights, lambda_h, lambda_j, l, q)
-        if not use_fused and isinstance(state, PlmFusedState):
-            return _generic_from_fused(state)
+            return _fused_from_generic(state, x1h, maskq, weights, lambda_h, lambda_j, l, q,
+                                       mesh=mesh)
         return state
+
+    def save(state):
+        if mesh is None:
+            _save_state(checkpoint_path, state)
+            return
+        mesh.barrier()  # every rank has finished the chunk
+        if mesh.rank == 0:
+            gen = _generic_from_fused(state) if isinstance(state, PlmFusedState) else state
+            _save_state(checkpoint_path, gen)
+        mesh.barrier()  # the file is whole before any rank reads it
 
     if checkpoint_path is not None and os.path.exists(checkpoint_path):
         state = restore()
         logger.info("resumed plmDCA optimizer state at iteration %d", state.k)
     elif use_fused:
-        state = _plm_fused_state0(msa, weights, lambda_h, lambda_j, l, q, m)
+        state = _plm_fused_state0(msa, weights, lambda_h, lambda_j, l, q, m, mesh=mesh)
     else:
-        state = _plm_lbfgs_state0(msa, weights, lambda_h, lambda_j, l, q, m, block)
+        state = _plm_lbfgs_state0(msa, weights, lambda_h, lambda_j, l, q, m, block, mesh)
     last_saved = state.k
+    mesh_kw = {} if mesh is None else {"mesh": mesh}  # the one-device call is unchanged
     retries = 2
     while state.k < max_iterations and not state.done:
         todo = min(step, max_iterations - state.k)
         try:
             if use_fused:
-                _plm_fused_steps(state, x1h, maskq, weights, lambda_h, lambda_j, l, q, todo)
+                _plm_fused_steps(state, x1h, maskq, weights, lambda_h, lambda_j, l, q, todo,
+                                 **mesh_kw)
             else:
-                _plm_lbfgs_steps(state, msa, weights, lambda_h, lambda_j, l, q, todo, block)
+                _plm_lbfgs_steps(state, msa, weights, lambda_h, lambda_j, l, q, todo, block,
+                                 **mesh_kw)
         except NotImplementedError:
             raise
         except RuntimeError as exc:
@@ -871,7 +928,7 @@ def fit_plm(
             progress_fn(state)
         ended = state.done or state.k >= max_iterations
         if checkpoint_path is not None and (state.k - last_saved >= checkpoint_every or ended):
-            _save_state(checkpoint_path, state)
+            save(state)
             last_saved = state.k
     if not use_fused:
         return result_from_state(state)
@@ -889,7 +946,7 @@ def fit_plm(
 
 # ----------------------------------------------------------------- engine class
 class PlmDCA:
-    """Pseudolikelihood maximization DCA on one device.
+    """Pseudolikelihood maximization DCA on one device or over a mesh.
 
     Mirrors the reference API (``pydca/plmdca/plmdca.py:47-104``): defaults
     ``seqid=0.8``, ``lambda_h = lambda_J = 0.2*(L-1)``, ``max_iterations=100``.
@@ -900,6 +957,13 @@ class PlmDCA:
     of logits (:func:`streaming_block`), as the JAX engine does.
     ``checkpoint_path``: save the optimizer state there and resume from it
     (:func:`fit_plm`), on either fit route.
+    ``mesh``: ``None``/``"single"`` (one device), ``"auto"`` (the default
+    process group when its world size is above 1) or a
+    :class:`~pydca_tpu_torch.parallel.mesh.DataMesh`: the weights' identity
+    counts are split over the ranks by tiles and the fit by rows
+    (:func:`~pydca_tpu_torch.parallel.fit.fit_plm_sharded`), on the
+    mesh's device.  Every rank holds the whole alignment; the fitted
+    parameters, and all scoring from them, are the same on every rank.
     """
 
     def __init__(
@@ -916,8 +980,12 @@ class PlmDCA:
         device,
         seq_block: Optional[int] = None,
         checkpoint_path: Optional[str] = None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
+        self.mesh = resolve_mesh(mesh, self.device)
+        if self.mesh is not None:
+            self.device = self.mesh.device
         set_precision()
         if isinstance(msa_file, MSA):
             self.msa = msa_file
@@ -999,10 +1067,17 @@ class PlmDCA:
         """(N,) float32 sequence weights on the engine's device."""
         if self.__weights is None:
             with self.timers.stage("weights"):
-                self.__weights = stats.sequence_weights(
-                    self._msa_tensor(), self.__seqid, self.msa.q,
-                    dtype=torch.float32,
-                )
+                if self.mesh is not None:
+                    from .parallel.fit import sequence_weights_sharded
+
+                    self.__weights = sequence_weights_sharded(
+                        self.mesh, self.msa.data, self.__seqid, self.msa.q
+                    )
+                else:
+                    self.__weights = stats.sequence_weights(
+                        self._msa_tensor(), self.__seqid, self.msa.q,
+                        dtype=torch.float32,
+                    )
                 sync(self.device)
             self.timers.add_rate("weights", self.msa.num_seqs, "seqs")
         return self.__weights
@@ -1018,15 +1093,26 @@ class PlmDCA:
                 )
 
             weights = self.compute_seqs_weight()
+            fit_kw = dict(
+                max_iterations=self.__max_iterations,
+                progress_fn=_progress if self.__verbose else None,
+                checkpoint_path=self.__checkpoint_path,
+                seq_block=self.__seq_block,
+            )
             with self.timers.stage("fit"):
-                res = fit_plm(
-                    self._msa_tensor(), weights,
-                    self.__lambda_h, self.__lambda_j, l, q,
-                    max_iterations=self.__max_iterations,
-                    progress_fn=_progress if self.__verbose else None,
-                    checkpoint_path=self.__checkpoint_path,
-                    seq_block=self.__seq_block,
-                )
+                if self.mesh is not None:
+                    from .parallel.fit import fit_plm_sharded
+
+                    codes, w_s, _ = shard_msa(self.mesh, self.msa.data, weights)
+                    res = fit_plm_sharded(
+                        codes, biomolecule_q=q, lambda_h=self.__lambda_h,
+                        lambda_j=self.__lambda_j, mesh=self.mesh, weights=w_s, **fit_kw,
+                    )
+                else:
+                    res = fit_plm(
+                        self._msa_tensor(), weights,
+                        self.__lambda_h, self.__lambda_j, l, q, **fit_kw,
+                    )
                 sync(self.device)
             self.timers.add_rate("fit", res.num_iters, "iters")
             self.__fit_result = res

@@ -116,11 +116,16 @@ def apc(scores: torch.Tensor, l: int) -> torch.Tensor:
     ``APC(i,j) = s(i,j) - av_i * av_j / av_all`` where ``av_i`` is the mean
     score of pairs containing site ``i`` (over L-1 pairs) and ``av_all`` the
     mean of the ``av_i``.  Reference: ``meanfield_dca.py:968-983``.
+
+    The site sums are row sums of the symmetric (L, L) score matrix, each
+    element written once: the same bits in every run on a card, where an
+    ``index_add_`` of floats adds in the order its atomics land.
     """
     iu, ju = pair_sites(l, scores.device)
-    site_sums = torch.zeros(l, dtype=scores.dtype, device=scores.device)
-    site_sums.index_add_(0, iu, scores).index_add_(0, ju, scores)
-    av_sites = site_sums / (l - 1)
+    full = torch.zeros((l, l), dtype=scores.dtype, device=scores.device)
+    full[iu, ju] = scores
+    full[ju, iu] = scores
+    av_sites = full.sum(dim=1) / (l - 1)
     av_all = av_sites.mean()
     return scores - av_sites[iu] * av_sites[ju] / av_all
 

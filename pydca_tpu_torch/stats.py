@@ -19,7 +19,9 @@ from .ops.cuda_kernels import identity_counts
 
 __all__ = [
     "sequence_weights",
+    "sharded_weights_full",
     "single_site_freqs",
+    "weighted_counts",
     "weighted_gram",
     "pair_site_freqs",
     "pair_freqs_from_gram",
@@ -38,6 +40,7 @@ def sequence_weights(
     *,
     dtype: torch.dtype = torch.float32,
     valid: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Per-sequence reweighting factors ``w_i = 1 / m_i``.
 
@@ -52,17 +55,44 @@ def sequence_weights(
     carry over).  ``valid``: optional (N,) bool mask; rows with
     ``valid = False`` are excluded from every neighbour count and their
     own weight is meaningless (the caller masks it).
+
+    ``mesh`` (a :class:`~pydca_tpu_torch.parallel.mesh.DataMesh`): ``msa``
+    and ``valid`` are this rank's stripe.  The stripes are all-gathered,
+    each rank counts its share of the kernel's tiles, the partial counts
+    are summed over the ranks (exactly: integers), and the result is this
+    rank's stripe of weights with 0 on the rows that are not valid
+    (the twin of ``pydca_tpu/parallel/fit.py:83-97``).
     """
     n, l = msa.shape
     thr = float(np.float32(float(seqid) * l))
+    if mesh is not None:
+        if valid is None:
+            valid = torch.ones(n, dtype=torch.bool, device=msa.device)
+        codes = mesh.gather_rows(msa.to(torch.int8), "weights_allgather")
+        vfull = mesh.gather_rows(valid.to(torch.bool), "weights_allgather")
+        w = sharded_weights_full(mesh, codes, vfull, thr, q, dtype)
+        return w[mesh.rank * n : (mesh.rank + 1) * n]
     sims = identity_counts(msa, thr, q, valid=valid)
     if valid is not None:
         sims = torch.clamp_min(sims, 1)  # pad rows: avoid 1/0; caller masks them
     return 1.0 / sims.to(dtype)
 
 
+def sharded_weights_full(mesh, codes, valid, thr: float, q: int, dtype) -> torch.Tensor:
+    """Weights of every row of the whole (padded) alignment ``codes``, held
+    by every rank: this rank's share of the identity-count tiles
+    (``ops.cuda_kernels.identity_tile_share``), the (N,) int32 partial
+    counts summed over the ranks, ``1/m`` with 0 where ``valid`` is False."""
+    tiles = cuda_kernels.identity_tile_share(codes.shape[0], mesh.rank, mesh.world_size)
+    sims = identity_counts(codes, thr, q, valid=valid, tiles=tiles)
+    mesh.sum_(sims, "weights_allreduce")
+    w = 1.0 / torch.clamp_min(sims, 1).to(dtype)
+    return torch.where(valid, w, torch.zeros((), dtype=dtype, device=w.device))
+
+
 def single_site_freqs(
-    msa: torch.Tensor, weights: torch.Tensor, q: int, block: Optional[int] = None
+    msa: torch.Tensor, weights: torch.Tensor, q: int, block: Optional[int] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Weighted single-site frequencies ``fi`` of shape ``(L, q)``.
 
@@ -72,18 +102,32 @@ def single_site_freqs(
     this contraction at ``Precision.HIGHEST``, ``stats.py:209``).
     ``block``: add the sums up over blocks of this many sequences, so that
     at most one block's one-hot is alive (the streamed plm route).
+    ``mesh``: ``msa`` and ``weights`` are this rank's stripe; the counts
+    and Meff are summed over the ranks.
     """
+    counts, meff = weighted_counts(msa, weights, q, block, mesh)
+    return counts / meff
+
+
+def weighted_counts(msa: torch.Tensor, weights: torch.Tensor, q: int,
+                    block: Optional[int] = None, mesh=None):
+    """``(counts, Meff)``: the (L, q) weighted state counts
+    ``sum_n w_n [msa[n, i] == a]`` and the weights' sum, each summed over
+    the mesh's ranks (one collective) when a mesh is given."""
     n, l = msa.shape
     step = max(n, 1) if block is None else int(block)
-    fi = None
+    both = torch.zeros(l * q + 1, dtype=weights.dtype, device=weights.device)
+    counts = both[: l * q]
     for start in range(0, n, step):
         x = torch.nn.functional.one_hot(msa[start : start + step].long(), q).to(weights.dtype)
-        part = weights[start : start + step] @ x.reshape(-1, l * q)
-        fi = part if fi is None else fi.add_(part)
-    return fi.reshape(l, q) / weights.sum()
+        counts.add_(weights[start : start + step] @ x.reshape(-1, l * q))
+    both[-1] = weights.sum()
+    if mesh is not None:
+        mesh.sum_(both, "fi_allreduce")
+    return counts.reshape(l, q), both[-1]
 
 
-def weighted_gram(msa: torch.Tensor, weights: torch.Tensor, q: int) -> torch.Tensor:
+def weighted_gram(msa: torch.Tensor, weights: torch.Tensor, q: int, mesh=None) -> torch.Tensor:
     """Weighted co-occurrence Gram matrix ``F`` of shape ``(L*q, L*q)``.
 
     ``F[(i,a),(j,b)] = sum_n w_n [s_ni == a][s_nj == b] / Meff``.  Its
@@ -91,9 +135,16 @@ def weighted_gram(msa: torch.Tensor, weights: torch.Tensor, q: int) -> torch.Ten
     ``i != j`` block is the pair table ``fij``
     (``pydca_tpu/stats.py:213-235``).  On a CUDA tensor the sums come from
     the CUDA kernel ``csrc/weighted_gram.cu``; the division by Meff is in
-    place.
+    place.  ``mesh``: ``msa`` and ``weights`` are this rank's stripe; the
+    kernel sums the stripe's rows, and the unnormalised Gram and Meff are
+    summed over the ranks before the division.
     """
-    return cuda_kernels.weighted_gram(msa, weights, q).div_(weights.sum())
+    gram = cuda_kernels.weighted_gram(msa, weights, q)
+    meff = weights.sum()
+    if mesh is not None:
+        mesh.sum_(gram, "gram_allreduce")
+        mesh.sum_(meff, "meff_allreduce")
+    return gram.div_(meff)
 
 
 def pair_site_freqs(msa: torch.Tensor, weights: torch.Tensor, q: int) -> torch.Tensor:

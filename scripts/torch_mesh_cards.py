@@ -1,0 +1,171 @@
+"""The port's data parallelism over the sequences on every visible card.
+
+    torchrun --standalone --nproc_per_node=<cards> scripts/torch_mesh_cards.py
+
+(from the repository root, with ``env PYTHONPATH=.`` where the repository is
+not installed).  One rank per card (``cuda:LOCAL_RANK``) in an NCCL group;
+each rank holds a stripe of the rows.  Three cases, at the widths of
+``chip_smoke.py``'s phases 3, 6 and 12 and from the same seeds:
+
+- ``plm``: ``PlmDCA`` at 16384 x 195, q 21, 100 iterations (fused);
+- ``mf``: ``MeanFieldDCA`` at 4096 x 1000, q 21;
+- ``deep``: ``PlmDCA`` at 10^5 x 1000, q 21, 2 iterations, streamed over
+  blocks of 12782 sequences.
+
+Every rank first builds the kernels and runs the small shapes on its own
+card, untimed (a warm-up: the builds, cuBLAS and cuSOLVER handles).  For
+each case every rank draws the family on the host, rank 0 runs the
+one-card engine on its card while the other ranks wait at a barrier, and
+after a second barrier every rank runs the sharded engine.
+Rank 0 prints one line a case: the walls of both, the sharded run's
+collectives (count and seconds, the device synchronised around each),
+peak memory, and the agreement with one card: weights exactly, θ and the
+FN-APC ranking (Spearman, top-20 overlap) at the bars of ``chip_smoke.py``
+phase 16.  ``--device cpu --small`` runs the same on the CPU under gloo at
+small shapes, to rehearse a launch without a card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from datetime import timedelta
+
+import torch
+import torch.distributed as dist
+
+from pydca_tpu_torch import alphabets, score
+from pydca_tpu_torch.device import set_precision
+from pydca_tpu_torch.io.fasta import MSA
+from pydca_tpu_torch.meanfield import MeanFieldDCA
+from pydca_tpu_torch.ops import cuda_kernels as ck
+from pydca_tpu_torch.parallel import init_distributed, make_mesh
+from pydca_tpu_torch.plm import PlmDCA
+from pydca_tpu_torch.synthetic import planted_family, spearman, top_k_overlap
+
+CASES = {  # name: (N, L, q, seed, iterations, seq_block)
+    "plm": (16384, 195, 21, 0, 100, None),
+    "mf": (4096, 1000, 21, 2, None, None),
+    "deep": (100000, 1000, 21, 12, 2, 12782),
+}
+SMALL = {"plm": (1201, 40, 21, 0, 30, None), "mf": (803, 60, 21, 2, None, None),
+         "deep": (2001, 50, 21, 12, 2, 256)}
+THETA_TOL = (2e-3, 2e-3)  # (rtol, atol) of theta against one card: float32 sums in other orders
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def peak_gib(dev) -> float:
+    return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+
+
+def reset(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    ck.identity_counts.launches = ck.weighted_gram.launches = 0
+
+
+def draw(shape):
+    n, l, q, seed, _, _ = shape
+    return MSA(data=planted_family(n, l, q, seed=seed, n_pairs=20)[0],
+               alphabet=alphabets.PROTEIN)
+
+
+def run_case(name, shape, msa, dev, mesh):
+    """The engine of case ``name`` on one device (``mesh=None``) or over
+    the mesh: (wall s, stage timers, weights, theta or couplings, sorted FN-APC)."""
+    n, l, q, seed, iters, block = shape
+    reset(dev)
+    t0 = time.perf_counter()
+    if name == "mf":
+        inst = MeanFieldDCA(msa, "protein", device=dev, mesh=mesh)
+        fn_apc = inst.compute_sorted_FN_APC()
+        params, weights = inst.compute_couplings(), inst.get_sequences_weight()
+        stages = ("weights", "gram", "corr", "inverse", "score")
+    else:
+        inst = PlmDCA(msa, "protein", max_iterations=iters, device=dev, mesh=mesh,
+                      seq_block=block)
+        params, weights = inst._theta(), inst.compute_seqs_weight()
+        p = l * (l - 1) // 2
+        blocks = params[l * q:].reshape(p, q, q)[:, : q - 1, : q - 1]
+        fn_apc = score.sorted_scores(score.apc(score.frobenius_norms(blocks), l), l)
+        stages = ("weights", "fit")
+    sync(dev)
+    wall = time.perf_counter() - t0
+    timers = {s: round(inst.timers.elapsed(s), 4) for s in stages}
+    if name != "mf":
+        res = inst.fit_result
+        timers.update(iterations=res.num_iters, evaluations=res.n_evals)
+    timers.update(peak_gib=round(peak_gib(dev), 3), identity_counts=ck.identity_counts.launches,
+                  weighted_gram=ck.weighted_gram.launches)
+    return wall, timers, weights, params, fn_apc
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--small", action="store_true", help="small shapes (a rehearsal)")
+    args = ap.parse_args()
+    cases = SMALL if args.small else CASES
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    if args.device == "cuda":
+        if not torch.cuda.is_available():
+            print("torch_mesh_cards: no card visible", file=sys.stderr)
+            return 1
+        dev = torch.device("cuda", local)
+        torch.cuda.set_device(dev)
+        init_distributed("nccl", device_id=dev, timeout=timedelta(seconds=900))
+    else:
+        dev = torch.device("cpu")
+        torch.set_num_threads(1)
+        init_distributed("gloo", timeout=timedelta(seconds=900))
+    set_precision()
+    rank, world = dist.get_rank(), dist.get_world_size()
+    where = "CPU (rehearsal)" if dev.type == "cpu" else subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    if rank == 0:
+        print(f"{where}; torch {torch.__version__}; {world} ranks on "
+              f"{torch.cuda.device_count() if dev.type == 'cuda' else 0} visible cards", flush=True)
+    for name, shape in SMALL.items():  # the warm-up, untimed
+        run_case(name, shape, draw(shape), dev, None)
+    for name, shape in cases.items():
+        msa = draw(shape)
+        one = run_case(name, shape, msa, dev, None) if rank == 0 else None
+        dist.barrier()
+        mesh = make_mesh(device=dev)
+        mesh.timed = True
+        many = run_case(name, shape, msa, dev, mesh)
+        dist.barrier()
+        if rank != 0:
+            continue
+        wall1, t1, w1, p1, s1 = one
+        wallk, tk, wk, pk, sk = many
+        n, l = shape[0], shape[1]
+        rec = dict(case=name, shape=shape[:3], ranks=world, one_card_wall=round(wall1, 4),
+                   sharded_wall=round(wallk, 4), one_card=t1, sharded=tk,
+                   collectives={k: [c, e, round(s, 4)] for k, (c, e, s) in mesh.collectives.items()},
+                   weights_equal=bool(torch.equal(w1, wk)),
+                   spearman=round(spearman(s1, sk, l), 6), top20=top_k_overlap(s1, sk, 20))
+        if name == "mf":
+            rec["couplings_max_abs"] = float((p1 - pk).abs().max())
+        else:
+            diff = (p1 - pk).abs()
+            rec["theta_max_abs"] = float(diff.max())
+            rec["theta_within"] = bool((diff <= THETA_TOL[1] + THETA_TOL[0] * p1.abs()).all())
+        print(json.dumps(rec), flush=True)
+        del one, many
+    dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

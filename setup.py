@@ -18,7 +18,7 @@ setup(
         include=["pydca_tpu", "pydca_tpu.*", "pydca_tpu_torch", "pydca_tpu_torch.*"]
     ),
     # the port's CUDA sources compile with nvcc at first use
-    package_data={"pydca_tpu_torch": ["csrc/*.cu"]},
+    package_data={"pydca_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy"],
     entry_points={

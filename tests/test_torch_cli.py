@@ -183,5 +183,6 @@ def test_unported_options_raise(tmp_path, extra, match):
 
 def test_mesh_over_several_cards_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 #13"):
+    with pytest.raises(NotImplementedError, match="Queue 1 #17") as exc:
         tcli.run_plm_dca(["compute_fn", "rna", "x.fa", "--device", "cuda"])
+    assert "torchrun --nproc_per_node" in str(exc.value)

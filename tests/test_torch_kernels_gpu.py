@@ -58,6 +58,61 @@ def test_identity_counts_kernel_equals_plain(cuda, n, l, q):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,l,q", [(257, 1000, 21), (1000, 97, 21), (2704, 102, 5)])
+def test_identity_counts_tile_ranges_equal_plain(cuda, n, l, q):
+    """A launch over a range of the upper-triangle tiles adds exactly the
+    plain partial counts of those tiles; the ranks' shares sum to the full
+    counts."""
+    codes = torch.tensor(planted_family(n, l, q, seed=n, n_pairs=0)[0], device=cuda)
+    valid = torch.tensor(np.random.default_rng(n).random(n) > 0.2, device=cuda)
+    for v in (None, valid):
+        full = ck.identity_counts(codes, 0.8 * l, q, valid=v)
+        for world in (2, 3):
+            total = torch.zeros_like(full)
+            for r in range(world):
+                tiles = ck.identity_tile_share(n, r, world)
+                got = ck.identity_counts(codes, 0.8 * l, q, valid=v, tiles=tiles)
+                want = ck.identity_counts_reference(codes, 0.8 * l, q, valid=v, tiles=tiles)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want)
+                total += got
+            assert torch.equal(total, full)
+
+
+@pytest.mark.gpu
+def test_apc_on_card_is_repeatable(cuda):
+    """APC at L = 1000 gives the same bits in every run on the card (its
+    site sums were an ``index_add_`` of floats, whose atomics add in the
+    order they land) and equals the CPU's to float32 round-off."""
+    from pydca_tpu_torch import score
+
+    l = 1000
+    s = torch.tensor(np.random.default_rng(0).random(l * (l - 1) // 2).astype(np.float32))
+    runs = [score.apc(s.to(cuda), l) for _ in range(5)]
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+    torch.testing.assert_close(runs[0].cpu(), score.apc(s, l), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_one_rank_mesh_on_card_equals_one_device(cuda):
+    """A mesh of one process (no group): the sharded weights, fit and
+    mean-field scores equal the one-device engines' bitwise."""
+    from pydca_tpu_torch import alphabets
+    from pydca_tpu_torch.io.fasta import MSA
+    from pydca_tpu_torch.parallel import make_mesh
+    from pydca_tpu_torch.plm import PlmDCA
+
+    codes = planted_family(1000, 40, 21, seed=3, n_pairs=4)[0]
+    msa = MSA(data=codes, alphabet=alphabets.PROTEIN)
+    mesh = make_mesh(device=cuda)
+    runs = [PlmDCA(msa, "protein", max_iterations=15, device=cuda, mesh=m) for m in (None, mesh)]
+    assert torch.equal(runs[0].compute_seqs_weight(), runs[1].compute_seqs_weight())
+    assert np.array_equal(*(r.get_fields_and_couplings_from_backend() for r in runs))
+    mfs = [MeanFieldDCA(msa, "protein", device=cuda, mesh=m) for m in (None, mesh)]
+    assert mfs[0].compute_sorted_FN_APC() == mfs[1].compute_sorted_FN_APC()
+
+
+@pytest.mark.gpu
 def test_identity_counts_too_long_raises_on_card(cuda):
     # a match adds 2^14 to an s32 accumulator: L < 2^17
     codes = torch.zeros((2, 1 << 17), dtype=torch.int8, device=cuda)

@@ -53,7 +53,18 @@ Builds the port's CUDA kernels from ``pydca_tpu_torch/csrc`` with nvcc
   machine with two cards or more, (b) under NCCL on two cards (d)
   (phase 16).  The ranks are worker processes of this script
   (``chip_smoke.py --phase16-worker <spec> <rank>``) that meet at a
-  ``FileStore`` in the temporary directory.
+  ``FileStore`` in the temporary directory.  Phase 16 (e) runs (b)'s
+  ``plmdca`` argv through ``spawn_cli``, the CLIs' own launch of one rank
+  a card from one process, with two gloo ranks on card 0: the file must
+  equal (b)'s byte for byte, and the wall beside (b)'s is the launch's cost;
+- cold start and ``warmup``: ``plmdca compute_fn --apc`` on phase 3's file
+  and ``mfdca compute_fn --apc`` on phase 6's as CLI processes, three of
+  each (i) cold (``PYDCA_TPU_CACHE_DIR`` an empty directory: nvcc and g++
+  run in the process), (ii) after ``warmup`` into an empty directory, (iii)
+  warm, with the split of each process's wall; every file equal to its
+  phase's byte for byte (phase 17); ``read_msa`` through the native codec
+  against its Python path on phase 3's file and on phase 12's codes as a
+  10^5 x 1000 FASTA, arrays and ids equal (phase 18).
 
 One line per phase; the next-to-last line is the kernel record (JSON), the
 last line the device record (JSON).  Exits non-zero, with no result, when
@@ -90,12 +101,13 @@ from pydca_tpu_torch.cli import mfdca_main, plmdca_main
 from pydca_tpu_torch.device import set_precision
 from pydca_tpu_torch.eval.pdb import RES_THREE_CHAR_TO_ONE
 from pydca_tpu_torch.eval.visualizer import DCAVisualizer
-from pydca_tpu_torch.io import output
+from pydca_tpu_torch.io import fasta, output
 from pydca_tpu_torch.io.fasta import MSA, write_fasta
 from pydca_tpu_torch.meanfield import MeanFieldDCA
+from pydca_tpu_torch.native import fastacodec
 from pydca_tpu_torch.ops import _build
 from pydca_tpu_torch.ops import cuda_kernels as ck
-from pydca_tpu_torch.parallel import init_distributed, make_mesh
+from pydca_tpu_torch.parallel import init_distributed, make_mesh, spawn_cli
 from pydca_tpu_torch.synthetic import (
     PLANTED_MIN_SHARE, PLANTED_TOP, planted_family, planted_recovery,
     protein_family_sweep, reference_from_row, rna_family_sweep, spearman, top_k_overlap,
@@ -1555,13 +1567,15 @@ def check_cli_ranks(reps, name, out_dir, ref_weights, ref_scores, l):
 def phase_mesh_two_ranks(tmp, smi, main_fa, main_scores, inst_main, mf_ref, deep_block):
     """(b) two ranks on card 0 under gloo through both CLIs, (c) the deep
     streamed fit on the same ranks, (d) on two cards under NCCL when the
-    machine has them.  Returns the launches of (b)-(d)."""
+    machine has them.  Returns the launches of (b)-(d) and (b)'s ranks'
+    plm CLI walls."""
     cards = torch.cuda.device_count()
     main_w = inst_main.compute_seqs_weight().cpu()
     plm_l = inst_main.sequences_len
     mf_l = MF_SHAPE[1]
     cases = [("b", "gloo", [0, 0])] + ([("d", "nccl", [0, 1])] if cards >= 2 else [])
     launches = dict(ident=0, gram=0)
+    walls_b = []
     for tag, backend, card_list in cases:
         spec = dict(store=os.path.join(tmp, f"store_{tag}"), backend=backend, cards=card_list,
                     plm_fa=main_fa, mf_fa=mf_ref["fa"],
@@ -1587,6 +1601,7 @@ def phase_mesh_two_ranks(tmp, smi, main_fa, main_scores, inst_main, mf_ref, deep
         print(f"phase 16 ({tag}) [{smi}] {where}: " + " | ".join(texts)
               + f"; both CLIs' ranks in {wall:.2f} s", flush=True)
         if tag == "b":
+            walls_b = [rep["plm"]["wall"] for rep in reps]
             d0, d1 = reps[0]["deep"], reps[1]["deep"]
             check(d0["theta"] == d1["theta"], "deep: the two ranks' theta differ")
             check(d0["weights_equal"] and d1["weights_equal"], "deep: weights differ from phase 12's")
@@ -1608,7 +1623,233 @@ def phase_mesh_two_ranks(tmp, smi, main_fa, main_scores, inst_main, mf_ref, deep
     if cards < 2:
         print(f"phase 16 (d) did not run: this machine has {cards} card(s); two ranks on two "
               "cards under NCCL need two", flush=True)
+    return launches, walls_b
+
+
+def phase_spawned_ranks(tmp, smi, main_fa, wall_b):
+    """(e) ``spawn_cli``, the CLIs' one-process launch over every card,
+    with two gloo ranks on card 0 for ``plmdca compute_fn --apc --mesh
+    auto`` on (b)'s argv: the file must equal (b)'s byte for byte; the
+    wall beside (b)'s ranks' CLI walls is the launch's own cost."""
+    out = os.path.join(tmp, "p16e_plm")
+    argv = ["compute_fn", "protein", main_fa, "--apc", "--mesh", "auto", "--device", "cuda:0",
+            "--output_dir", out, "--max_iterations", "100"]
+    t0 = time.perf_counter()
+    code = spawn_cli("plmdca", argv, 2, "cuda:0")
+    wall = time.perf_counter() - t0
+    check(code == 0, f"phase 16 (e): a spawned rank failed (exit {code})")
+    files = os.listdir(out)
+    check(len(files) == 1, f"phase 16 (e): {len(files)} output files, expected rank 0's one")
+    with open(os.path.join(out, files[0]), "rb") as fe, \
+            open(os.path.join(tmp, "p16b_plm", files[0]), "rb") as fb:
+        same = fe.read() == fb.read()
+    check(same, "phase 16 (e): the spawned ranks' file differs from (b)'s")
+    print(f"phase 16 (e) [{smi}] spawn_cli('plmdca', 2 ranks, 'cuda:0'), gloo on card 0: the "
+          f"file equals (b)'s byte for byte; wall {wall:.2f} s (two processes started, "
+          f"imports, group, CLI) against (b)'s ranks' plm CLI walls "
+          f"{' / '.join(f'{w:.2f}' for w in wall_b)} s: the launch costs "
+          f"{wall - max(wall_b):.2f} s", flush=True)
+
+
+# ------------------------------------------------------------- phases 17-18
+CLI_REPS = 3  # processes a mode and case: min/median/max over them
+CLI_TIMEOUT_S = 300
+# One CLI process of phase 17: it times its own imports, the CUDA context,
+# the first cuBLAS (and, for mean-field, cuSOLVER) call and the FASTA read
+# (the engines' read_msa wrapped in place), then runs the CLI's entry point
+# on argv and prints one PHASE17 line.  The context and the library handles
+# are made first on purpose: the CLI would make them at its first launch.
+CLI_RUN = r"""
+import json, sys, time
+t0 = time.perf_counter()
+spec = json.loads(sys.argv[1])
+import torch
+t1 = time.perf_counter()
+from pydca_tpu_torch import meanfield, plm
+from pydca_tpu_torch.cli import mfdca_main, plmdca_main
+from pydca_tpu_torch.native import fastacodec
+from pydca_tpu_torch.ops import cuda_kernels as ck
+t2 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t3 = time.perf_counter()
+a = torch.ones(64, 64, device="cuda")
+(a @ a).sum().item()
+t4 = time.perf_counter()
+if spec["cli"] == "mfdca":
+    torch.linalg.cholesky_ex(a + 64 * torch.eye(64, device="cuda")).L.sum().item()
+t5 = time.perf_counter()
+reads = []
+def timed(read):
+    def read_msa(*args, **kw):
+        r0 = time.perf_counter()
+        msa = read(*args, **kw)
+        reads.append(time.perf_counter() - r0)
+        return msa
+    return read_msa
+plm.read_msa = timed(plm.read_msa)
+meanfield.read_msa = timed(meanfield.read_msa)
+run = plmdca_main.run_plm_dca if spec["cli"] == "plmdca" else mfdca_main.run_meanfield_dca
+inst = run(spec["argv"])
+torch.cuda.synchronize()
+t6 = time.perf_counter()
+print("PHASE17 " + json.dumps(dict(
+    torch=t1 - t0, port=t2 - t1, context=t3 - t2, cublas=t4 - t3, cusolver=t5 - t4,
+    read=sum(reads), cli=t6 - t5, inside=t6 - t0, codec_reads=fastacodec.read_and_encode.reads,
+    stages={k: inst.timers.elapsed(k) for k in spec["stages"]},
+    ident=ck.identity_counts.launches, gram=ck.weighted_gram.launches)), flush=True)
+"""
+
+
+def cli_env(cache_dir):
+    """This process's environment with the build cache at ``cache_dir`` and
+    the checkout on the path."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p)
+    return dict(os.environ, PYDCA_TPU_CACHE_DIR=cache_dir, PYTHONPATH=path)
+
+
+def run_process(cmd, env, what):
+    """Run ``cmd`` to its end; (wall s, stdout).  A failure fails the phase."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{what} failed (exit {proc.returncode}):\n"
+          f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    return wall, proc.stdout
+
+
+def cli_run(case, cache_dir, out_dir, tag):
+    """One CLI process of ``case`` with its build cache at ``cache_dir``:
+    its wall, its own split, and whether its file equals the reference's."""
+    spec = dict(cli=case["cli"], stages=case["stages"],
+                argv=case["argv"] + ["--output_dir", out_dir])
+    wall, out = run_process([sys.executable, "-c", CLI_RUN, json.dumps(spec)],
+                            cli_env(cache_dir), f"phase 17 {case['name']} {tag}")
+    lines = [ln for ln in out.splitlines() if ln.startswith("PHASE17 ")]
+    check(len(lines) == 1, f"phase 17 {case['name']} {tag}: no PHASE17 line:\n{out[-2000:]}")
+    rec = json.loads(lines[0][len("PHASE17 "):])
+    with open(os.path.join(out_dir, case["file"]), "rb") as fh:
+        rec["same"] = fh.read() == case["bytes"]
+    rec["wall"] = wall
+    return rec
+
+
+def spread(xs) -> str:
+    return "/".join(f"{v:.3f}" for v in (min(xs), float(np.median(xs)), max(xs)))
+
+
+def phase_cold_start(tmp, smi, main_fa, mf_fa):
+    """Phase 17: the CLI process wall of ``plmdca compute_fn --apc`` on
+    phase 3's file and ``mfdca compute_fn --apc`` on phase 6's, as
+    subprocesses, CLI_REPS times each: (i) cold, the build cache
+    (``PYDCA_TPU_CACHE_DIR``) an empty directory, so nvcc and g++ run in
+    the process; (ii) after ``warmup`` into an empty directory (the
+    warmup's own wall, then the run's); (iii) warm, the kernels built,
+    with each process's split.  Every file must equal the phase's bytes.
+    Returns the launches the runs reported."""
+    cases = [
+        dict(name="plm", cli="plmdca", stages=["weights", "fit", "score"], fa=main_fa,
+             kernels=["identity_counts"],
+             argv=["compute_fn", "protein", main_fa, "--apc", "--max_iterations", "100",
+                   "--device", "cuda"],
+             file="PLMDCA_apc_fn_scores_planted_protein.txt", ref=os.path.join(tmp, "main")),
+        dict(name="mf", cli="mfdca", stages=["weights", "gram", "corr", "inverse", "score"],
+             kernels=["identity_counts", "weighted_gram"],
+             fa=mf_fa, argv=["compute_fn", "protein", mf_fa, "--apc", "--device", "cuda"],
+             file="MFDCA_apc_fn_scores_planted_mf.txt", ref=os.path.join(tmp, "mf")),
+    ]
+    launches = dict(ident=0, gram=0)
+    for case in cases:
+        with open(os.path.join(case["ref"], case["file"]), "rb") as fh:
+            case["bytes"] = fh.read()
+        runs = {"cold": [], "after warmup": [], "warm": []}
+        warmups = []
+        warm_dir = None
+        for rep in range(CLI_REPS):
+            cold_dir = os.path.join(tmp, f"p17_{case['name']}_cold{rep}")
+            runs["cold"].append(cli_run(case, cold_dir, os.path.join(cold_dir, "out"), "cold"))
+            built = sorted(os.listdir(os.path.join(cold_dir, "torch_build")))
+            want = sorted([fastacodec.library_path().name] + [
+                _build.library_path(k).name for k in KERNELS if k in case["kernels"]])
+            check(built == want, f"phase 17 {case['name']}: the cold run built {built}, "
+                  f"expected {want} (the codec with g++, the kernels with nvcc)")
+            warm_dir = os.path.join(tmp, f"p17_{case['name']}_warmup{rep}")
+            cmd = [sys.executable, "-m", f"pydca_tpu_torch.cli.{case['cli']}_main", "warmup",
+                   "protein", case["fa"], "--device", "cuda"]
+            wall, out = run_process(cmd, cli_env(warm_dir), f"phase 17 {case['name']} warmup")
+            check(out.startswith(f"warmed {'plmDCA' if case['cli'] == 'plmdca' else 'mfDCA'} "
+                                 "cache for N="), f"phase 17 warmup printed {out!r}")
+            warmups.append(wall)
+            runs["after warmup"].append(
+                cli_run(case, warm_dir, os.path.join(warm_dir, "out"), "after warmup"))
+        for rep in range(CLI_REPS):
+            runs["warm"].append(cli_run(case, warm_dir, os.path.join(tmp, f"p17_{case['name']}"
+                                                                     f"_warm{rep}"), "warm"))
+        every = [r for rs in runs.values() for r in rs]
+        check(all(r["same"] for r in every),
+              f"phase 17 {case['name']}: a run's file differs from its phase's")
+        check(all(r["codec_reads"] == 1 for r in every),
+              f"phase 17 {case['name']}: a run did not read its FASTA through the codec")
+        for r in every:
+            launches["ident"] += r["ident"]
+            launches["gram"] += r["gram"]
+            check(r["ident"] == 1 and r["gram"] == (case["cli"] == "mfdca"),
+                  f"phase 17 {case['name']}: launches {r['ident']}, {r['gram']}")
+        warm = runs["warm"]
+        med = {k: float(np.median([r[k] for r in warm]))
+               for k in ("torch", "port", "context", "cublas", "cusolver", "read", "cli",
+                         "inside", "wall")}
+        stages = {k: float(np.median([r["stages"][k] for r in warm])) for k in case["stages"]}
+        start = med["wall"] - med["inside"]
+        rest = med["cli"] - med["read"] - sum(stages.values())
+        print(f"phase 17 [{smi}] {case['name']} {case['cli']} compute_fn --apc, CLI process wall "
+              f"min/median/max over {CLI_REPS}: cold {spread([r['wall'] for r in runs['cold']])} s "
+              f"(nvcc and g++ in the process); warmup {spread(warmups)} s, then "
+              f"{spread([r['wall'] for r in runs['after warmup']])} s; warm "
+              f"{spread([r['wall'] for r in warm])} s = median python start and exit "
+              f"{start:.3f} + import torch {med['torch']:.3f} + import the port {med['port']:.3f} "
+              f"+ CUDA context {med['context']:.3f} + first cuBLAS call {med['cublas']:.3f}"
+              + (f" + first cuSOLVER call {med['cusolver']:.3f}" if case["cli"] == "mfdca" else "")
+              + f" + codec read {med['read']:.3f} + stages "
+              + " ".join(f"{k} {v:.3f}" for k, v in stages.items())
+              + f" + the rest of the CLI (parse, engine, file) {rest:.3f} s; each cold run built "
+              f"the codec with g++ and {'/'.join(case['kernels'])} with nvcc; cold minus warm "
+              f"(median) {float(np.median([r['wall'] for r in runs['cold']])) - med['wall']:.3f} s; "
+              f"all {len(every)} files equal phase {3 if case['cli'] == 'plmdca' else 6}'s byte "
+              "for byte, each read through the codec", flush=True)
     return launches
+
+
+def phase_fasta_decode(tmp, smi, main_fa, deep_fa):
+    """Phase 18: ``read_msa`` through the native codec against its Python
+    path (``io.fasta._get_native_codec`` patched to ``None``) on phase 3's
+    file and on phase 12's codes as FASTA; arrays and ids must be equal."""
+    parts = []
+    for name, fa in (("phase 3's", main_fa), ("phase 12's", deep_fa)):
+        reads = fastacodec.read_and_encode.reads
+        t0 = time.perf_counter()
+        msa = fasta.read_msa(fa, "protein")
+        codec_s = time.perf_counter() - t0
+        check(fastacodec.read_and_encode.reads == reads + 1,
+              f"phase 18: {name} file was not read through the codec")
+        real = fasta._get_native_codec
+        fasta._get_native_codec = lambda: None
+        try:
+            t0 = time.perf_counter()
+            slow = fasta.read_msa(fa, "protein")
+            python_s = time.perf_counter() - t0
+        finally:
+            fasta._get_native_codec = real
+        check(np.array_equal(msa.data, slow.data) and msa.ids == slow.ids,
+              f"phase 18: the codec and the Python path differ on {name} file")
+        size = os.path.getsize(fa)
+        parts.append(f"{name} file ({size} bytes, {msa.num_seqs} x {msa.seqs_len} after the "
+                     f"dedup): codec {codec_s:.3f} s ({size / codec_s / 1e6:.1f} MB/s), Python "
+                     f"path {python_s:.3f} s ({size / python_s / 1e6:.1f} MB/s), "
+                     f"x{python_s / codec_s:.2f}")
+    print(f"phase 18 [{smi}] read_msa, codec (built with g++ at {fastacodec.library_path()}) "
+          "against the Python path, arrays and ids equal: " + "; ".join(parts), flush=True)
 
 
 def read_scores(path):
@@ -1749,6 +1990,8 @@ def main() -> int:
             tmp, main_fa, main_codes, main_pairs, smi)
         ref_mf = phase_refseq_mf(tmp, mf_fa, mf_runs, smi)
         phase_search_deep(deep_codes, smi, dev)
+        deep_fa = os.path.join(tmp, "deep_protein.fa")  # phase 18 reads it
+        write_family_fasta(deep_fa, deep_codes, alphabets.PROTEIN)
         del deep_codes
         phase_trim(tmp, main_fa, rf, smi)
         phase_eval(tmp, rf, dca_file, ref, planted, smi)
@@ -1756,19 +1999,28 @@ def main() -> int:
         # ---- phase 16: data parallelism over the sequences (torch.distributed)
         t16 = time.perf_counter()
         mesh_a = phase_mesh_one_rank(dev, tmp, main_fa, inst_main, mf_ref)
-        mesh_bd = phase_mesh_two_ranks(tmp, smi, main_fa, scores_main, inst_main, mf_ref,
-                                       plm.streaming_block(*DEEP_SHAPE))
+        mesh_bd, walls_b = phase_mesh_two_ranks(tmp, smi, main_fa, scores_main, inst_main,
+                                                mf_ref, plm.streaming_block(*DEEP_SHAPE))
+        phase_spawned_ranks(tmp, smi, main_fa, walls_b)
         print(f"phase 16 took {time.perf_counter() - t16:.1f} s; the script so far "
+              f"{time.perf_counter() - script_t0:.1f} s", flush=True)
+
+        # ---- phases 17-18: cold start and warmup, the FASTA decode
+        t17 = time.perf_counter()
+        cold = phase_cold_start(tmp, smi, main_fa, mf_ref["fa"])
+        phase_fasta_decode(tmp, smi, main_fa, deep_fa)
+        print(f"phases 17-18 took {time.perf_counter() - t17:.1f} s; the script so far "
               f"{time.perf_counter() - script_t0:.1f} s", flush=True)
 
     records = []
     for name, (ms, plain_ms, lib_ms, bound), n_launch, err in (
         ("identity_counts", timing["pf02826_deep"],
          launches + ckpt_launches + fam_ident + ref_ident + ref_mf["identity_counts"]
-         + mesh_a["ident"] + mesh_bd["ident"],
+         + mesh_a["ident"] + mesh_bd["ident"] + cold["ident"],
          max(max_err, fam_ident_err)),
         ("weighted_gram", gram_timing["protein"],
-         mf_launches + fam_gram + ref_mf["weighted_gram"] + mesh_a["gram"] + mesh_bd["gram"],
+         mf_launches + fam_gram + ref_mf["weighted_gram"] + mesh_a["gram"] + mesh_bd["gram"]
+         + cold["gram"],
          max(gram_err, fam_gram_err)),
     ):
         records.append({

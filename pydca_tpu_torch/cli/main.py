@@ -218,6 +218,9 @@ def execute_from_command_line(
 
 
 def run_pydca(argv=None):
+    from ..runtime import enable_compilation_cache
+
+    enable_compilation_cache()
     args = build_parser().parse_args(argv)
     execute_from_command_line(**vars(args))
 

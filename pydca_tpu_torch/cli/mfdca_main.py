@@ -5,17 +5,22 @@ Port of ``pydca_tpu/cli/mfdca_main.py`` (which mirrors the reference CLI,
 ``--device`` (``cuda``, ``cuda:K`` or ``cpu``).  Ported: ``compute_fn``,
 ``compute_di`` (each with and without ``--apc``), ``compute_fields``,
 ``compute_params``, ``compute_fi``, ``compute_fij`` and
-``compute_weights``, on one device or, under ``torchrun`` with ``--mesh
-auto`` (the default), over one rank per card with the sequences sharded
-(:mod:`pydca_tpu_torch.parallel`; rank 0 writes the files), and
-``compute_fn_batch`` over many families on one device
-(:mod:`pydca_tpu_torch.family`), with ``--refseq_file`` (scores and
-parameters mapped onto a reference sequence, its template search on the
-same device).  ``warmup``, and one process over several cards, are
-rejected with ``NotImplementedError`` naming their ROADMAP item.
+``compute_weights``, on one device or, with ``--mesh auto`` (the
+default), over one rank per card with the sequences sharded
+(:mod:`pydca_tpu_torch.parallel`; rank 0 writes the files): under
+``torchrun``, or from one process that sees several cards and is given
+``--device cuda``, which starts the ranks itself
+(:mod:`pydca_tpu_torch.parallel.spawn`); ``compute_fn_batch`` over many
+families on one device (:mod:`pydca_tpu_torch.family`), with
+``--refseq_file`` (scores and parameters mapped onto a reference
+sequence, its template search on the same device); and ``warmup``, which
+builds the kernels a run at the MSA's shapes loads
+(:mod:`pydca_tpu_torch.warmup`) into the cache of
+:func:`pydca_tpu_torch.runtime.enable_compilation_cache`.
 
 Run as ``python -m pydca_tpu_torch.cli.mfdca_main compute_di protein
-<msa> --apc --device cuda``, or over K cards as ``torchrun
+<msa> --apc --device cuda`` (or the console script ``mfdca-torch``), or
+over K cards as ``torchrun
 --nproc_per_node=K -m pydca_tpu_torch.cli.mfdca_main compute_fn protein
 <msa> --apc``.
 """
@@ -25,6 +30,7 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import sys
 
 from ..backmap import SequenceBackmapper
 from ..config_log import configure_logging
@@ -33,14 +39,11 @@ from ..io import output as dca_utilities
 from ..io.fasta import read_msa
 from ..meanfield import MeanFieldDCA
 from ..parallel.fit import launch_mesh
+from ..parallel.spawn import spawn_cli, spawn_world
 from ..profiling import StageTimers
+from ..runtime import enable_compilation_cache
 
 logger = logging.getLogger(__name__)
-
-# subcommand -> the ROADMAP Queue 1 item that ports it
-_UNPORTED_COMMANDS = {
-    "warmup": "Queue 1 #14 (cold start / warmup)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,9 +72,9 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--apc", action="store_true", help="average product correction")
         sp.add_argument(
             "--mesh", choices=["auto", "single"], default="auto",
-            help="auto (default): shard the sequences over the ranks when run "
-            "under torchrun --nproc_per_node=K (one process per card); single: "
-            "one device",
+            help="auto (default): shard the sequences over the ranks, one process "
+            "per card: under torchrun --nproc_per_node=K, or started here with "
+            "--device cuda when K > 1 cards are visible; single: one device",
         )
         sp.add_argument(
             "--device", default="cuda",
@@ -86,12 +89,18 @@ def build_parser() -> argparse.ArgumentParser:
             sp.add_argument("--linear_dist", type=int)
             sp.add_argument("--num_site_pairs", type=int)
 
-    sw = subparsers.add_parser("warmup", help="not ported")
+    sw = subparsers.add_parser(
+        "warmup",
+        help="build the CUDA kernels an mfdca run at this MSA's shapes loads into "
+        "the build cache (no compute); the next mfdca process starts built",
+    )
     sw.add_argument("biomolecule", choices=["protein", "PROTEIN", "rna", "RNA"])
     sw.add_argument("msa_file")
     sw.add_argument("--seqid", type=float)
     sw.add_argument("--pseudocount", type=float)
     sw.add_argument("--mesh", choices=["auto", "single"], default="auto")
+    sw.add_argument("--device", default="cuda",
+                    help="cuda, cuda:K or cpu (the CPU builds nothing)")
     sw.add_argument("--verbose", action="store_true")
 
     sb = subparsers.add_parser(
@@ -119,13 +128,6 @@ def _writer(write: bool):
     return emit
 
 
-def _reject_command(the_command) -> None:
-    if the_command in _UNPORTED_COMMANDS:
-        raise NotImplementedError(
-            f"{the_command} is not ported yet (ROADMAP {_UNPORTED_COMMANDS[the_command]})"
-        )
-
-
 def execute_from_command_line(
     msa_file=None,
     biomolecule=None,
@@ -143,7 +145,6 @@ def execute_from_command_line(
     device="cuda",
 ):
     """Run one subcommand; returns the engine (its timers and caches)."""
-    _reject_command(the_command)
     if verbose:
         configure_logging()
     mesh, device = launch_mesh(mesh, device)
@@ -317,9 +318,35 @@ def execute_batch(
     return BatchRun(paths, [], timers)
 
 
+def run_warmup(args) -> float:
+    """``mfdca warmup``: read the MSA (its post-dedup N, L, q) and build
+    what a run at those shapes loads; prints the JAX CLI's line."""
+    from ..warmup import warmup_meanfield
+
+    if args.verbose:
+        configure_logging()
+    msa = read_msa(args.msa_file, args.biomolecule)
+    dt = warmup_meanfield(
+        msa.num_seqs, msa.seqs_len, msa.q,
+        seqid=0.8 if args.seqid is None else args.seqid,
+        pseudocount=0.5 if args.pseudocount is None else args.pseudocount,
+        mesh=None if args.mesh == "single" else args.mesh,
+        device=args.device,
+    )
+    print(f"warmed mfDCA cache for N={msa.num_seqs}, L={msa.seqs_len}, "
+          f"q={msa.q} ({dt:.1f} s build)")
+    return dt
+
+
 def run_meanfield_dca(argv=None):
+    """The ``mfdca`` CLI on ``argv`` (default ``sys.argv[1:]``); returns
+    the engine, or ``None`` when it started one rank a card (and raises
+    ``SystemExit`` with a failed rank's exit code)."""
+    enable_compilation_cache()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    _reject_command(args.the_command)
+    if args.the_command == "warmup":
+        return run_warmup(args)
     if args.the_command == "compute_fn_batch":
         return execute_batch(
             msa_files=args.msa_files,
@@ -331,6 +358,12 @@ def run_meanfield_dca(argv=None):
             verbose=args.verbose,
             device=args.device,
         )
+    world = spawn_world(args.mesh, args.device)
+    if world:
+        code = spawn_cli("mfdca", argv, world, args.device)
+        if code:
+            raise SystemExit(code)
+        return None
     return execute_from_command_line(
         msa_file=args.msa_file,
         biomolecule=args.biomolecule,

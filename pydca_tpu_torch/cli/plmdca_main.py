@@ -4,21 +4,27 @@ Port of ``pydca_tpu/cli/plmdca_main.py`` (which mirrors the reference CLI,
 ``pydca/plmdca_main.py``): same subcommands, flags and output files, plus
 ``--device`` (``cuda``, ``cuda:K`` or ``cpu``).  Ported: ``compute_fn``
 and ``compute_di`` (each with and without ``--apc``) and
-``compute_params``, on one device or, under ``torchrun`` with ``--mesh
-auto`` (the default), over one rank per card with the sequences sharded
-(:mod:`pydca_tpu_torch.parallel`; rank 0 writes the files), with
-``--refseq_file`` (scores and parameters mapped onto a reference sequence,
-its template search on the same device), ``--seq_block`` (the streamed
-loss; past 1 GiB of logits the engine streams by itself) and
-``--checkpoint`` (resume and bounded retry), and ``compute_fn_batch`` over
-many families on one device (:mod:`pydca_tpu_torch.family`).  ``warmup``
-and the flag values the port cannot honour yet are accepted by the parser
-and rejected with ``NotImplementedError`` naming their ROADMAP item.
+``compute_params``, on one device or, with ``--mesh auto`` (the default),
+over one rank per card with the sequences sharded
+(:mod:`pydca_tpu_torch.parallel`; rank 0 writes the files): under
+``torchrun``, or from one process that sees several cards and is given
+``--device cuda``, which starts the ranks itself
+(:mod:`pydca_tpu_torch.parallel.spawn`).  With ``--refseq_file`` (scores
+and parameters mapped onto a reference sequence, its template search on
+the same device), ``--seq_block`` (the streamed loss; past 1 GiB of
+logits the engine streams by itself) and ``--checkpoint`` (resume and
+bounded retry); ``compute_fn_batch`` over many families on one device
+(:mod:`pydca_tpu_torch.family`); ``warmup``, which builds the kernels a
+run at the MSA's shapes loads (:mod:`pydca_tpu_torch.warmup`).  The flag
+values the port cannot honour yet are accepted by the parser and rejected
+with ``NotImplementedError`` naming their ROADMAP item.  The kernels are
+cached where :func:`pydca_tpu_torch.runtime.enable_compilation_cache`
+says (``$PYDCA_TPU_CACHE_DIR``).
 
 Run as ``python -m pydca_tpu_torch.cli.plmdca_main compute_di protein
-<msa> --apc --device cuda``, or over K cards as ``torchrun
---nproc_per_node=K -m pydca_tpu_torch.cli.plmdca_main compute_fn protein
-<msa> --apc``.
+<msa> --apc --device cuda`` (or the console script ``plmdca-torch``), or
+over K cards as ``torchrun --nproc_per_node=K -m
+pydca_tpu_torch.cli.plmdca_main compute_fn protein <msa> --apc``.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from __future__ import annotations
 import argparse
 import logging
 import os
+import sys
 
 from ..backmap import SequenceBackmapper
 from ..config_log import configure_logging
@@ -33,15 +40,12 @@ from ..family import BatchRun, FamilyFit, family_plm_fit_bucketed
 from ..io import output as dca_utilities
 from ..io.fasta import read_msa
 from ..parallel.fit import launch_mesh
+from ..parallel.spawn import spawn_cli, spawn_world
 from ..plm import PlmDCA
 from ..profiling import StageTimers
+from ..runtime import enable_compilation_cache
 
 logger = logging.getLogger(__name__)
-
-# subcommand -> the ROADMAP Queue 1 item that ports it
-_UNPORTED_COMMANDS = {
-    "warmup": "Queue 1 #14 (cold start / warmup)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -91,9 +95,9 @@ def build_parser() -> argparse.ArgumentParser:
         )
         sp.add_argument(
             "--mesh", choices=["auto", "single"], default="auto",
-            help="auto (default): shard the sequences over the ranks when run "
-            "under torchrun --nproc_per_node=K (one process per card); single: "
-            "one device",
+            help="auto (default): shard the sequences over the ranks, one process "
+            "per card: under torchrun --nproc_per_node=K, or started here with "
+            "--device cuda when K > 1 cards are visible; single: one device",
         )
         sp.add_argument("--refseq_file", help="FASTA file with reference sequence")
         sp.add_argument("--output_dir")
@@ -107,9 +111,27 @@ def build_parser() -> argparse.ArgumentParser:
             sp.add_argument("--linear_dist", type=int)
             sp.add_argument("--num_site_pairs", type=int)
 
-    sw = subparsers.add_parser("warmup", help="not ported")
+    sw = subparsers.add_parser(
+        "warmup",
+        help="build the CUDA kernels a plmdca run at this MSA's shapes loads into "
+        "the build cache (no compute); the next plmdca process starts built",
+    )
     sw.add_argument("biomolecule", choices=["protein", "PROTEIN", "rna", "RNA"])
     sw.add_argument("msa_file")
+    sw.add_argument("--seqid", type=float)
+    sw.add_argument("--max_iterations", type=int)
+    sw.add_argument("--seq_block", type=int)
+    sw.add_argument("--precision", choices=["auto", "bfloat16", "float32"])
+    sw.add_argument("--chunk_size", type=int)
+    sw.add_argument("--param_space", choices=["auto", "w2", "compact"], default="auto")
+    sw.add_argument(
+        "--mesh", choices=["auto", "single"], default="auto",
+        help="the compute_* --mesh mode to warm for (every rank loads the same "
+        "libraries)",
+    )
+    sw.add_argument("--device", default="cuda",
+                    help="cuda, cuda:K or cpu (the CPU builds nothing)")
+    sw.add_argument("--verbose", action="store_true")
     sb = subparsers.add_parser(
         "compute_fn_batch",
         help="FN scores for many MSA families, fitted one after another",
@@ -141,17 +163,9 @@ def _writer(write: bool):
     return emit
 
 
-def _reject_command(the_command) -> None:
-    if the_command in _UNPORTED_COMMANDS:
-        raise NotImplementedError(
-            f"{the_command} is not ported yet (ROADMAP {_UNPORTED_COMMANDS[the_command]})"
-        )
-
-
-def _reject_unported(the_command, precision, param_space) -> None:
+def _reject_unported(precision, param_space) -> None:
     """Raise ``NotImplementedError`` for every request the port cannot
     honour yet; nothing is silently ignored."""
-    _reject_command(the_command)
     if precision in ("bfloat16", "bf16"):
         raise NotImplementedError(
             "--precision bfloat16 is not ported yet (ROADMAP Queue 1 #6)"
@@ -186,7 +200,7 @@ def execute_from_command_line(
     device="cuda",
 ):
     """Run one subcommand; returns the engine (its timers and fit result)."""
-    _reject_unported(the_command, precision, param_space)
+    _reject_unported(precision, param_space)
     if verbose:
         configure_logging()
     mesh, device = launch_mesh(mesh, device)
@@ -340,9 +354,39 @@ def execute_batch(
     return BatchRun(paths, fits, timers)
 
 
+def run_warmup(args) -> float:
+    """``plmdca warmup``: read the MSA (its post-dedup N, L, q) and build
+    what a run at those shapes loads; prints the JAX CLI's line."""
+    from ..warmup import warmup_plm
+
+    if args.verbose:
+        configure_logging()
+    _reject_unported(args.precision, args.param_space)
+    msa = read_msa(args.msa_file, args.biomolecule)
+    dt = warmup_plm(
+        msa.num_seqs, msa.seqs_len, msa.q,
+        seqid=0.8 if args.seqid is None else args.seqid,
+        max_iterations=100 if args.max_iterations is None else args.max_iterations,
+        seq_block=args.seq_block,
+        chunk_size=50 if args.chunk_size is None else args.chunk_size,
+        param_space=args.param_space,
+        mesh=None if args.mesh == "single" else args.mesh,
+        device=args.device,
+    )
+    print(f"warmed plmDCA cache for N={msa.num_seqs}, L={msa.seqs_len}, "
+          f"q={msa.q} ({dt:.1f} s build)")
+    return dt
+
+
 def run_plm_dca(argv=None):
+    """The ``plmdca`` CLI on ``argv`` (default ``sys.argv[1:]``); returns
+    the engine, or ``None`` when it started one rank a card (and raises
+    ``SystemExit`` with a failed rank's exit code)."""
+    enable_compilation_cache()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
-    _reject_command(args.the_command)
+    if args.the_command == "warmup":
+        return run_warmup(args)
     if args.the_command == "compute_fn_batch":
         return execute_batch(
             msa_files=args.msa_files,
@@ -355,6 +399,13 @@ def run_plm_dca(argv=None):
             bucket=not args.no_bucket,
             device=args.device,
         )
+    world = spawn_world(args.mesh, args.device)
+    if world:
+        _reject_unported(args.precision, args.param_space)
+        code = spawn_cli("plmdca", argv, world, args.device)
+        if code:
+            raise SystemExit(code)
+        return None
     return execute_from_command_line(
         msa_file=args.msa_file,
         biomolecule=args.biomolecule,

@@ -1,10 +1,12 @@
 """FASTA MSA ingestion.
 
-Port of ``pydca_tpu/io/fasta.py`` (Python path only; the optional native
-codec is not ported yet).  A self-contained FASTA parser: handles wrapped
-sequence lines, upper-cases residues, drops duplicate sequences while
-preserving first-seen order, and encodes to an ``(N, L)`` int8 array with
-0-based states and ``gap = q - 1``.
+Port of ``pydca_tpu/io/fasta.py``.  A self-contained FASTA parser: handles
+wrapped sequence lines, upper-cases residues, drops duplicate sequences
+while preserving first-seen order, and encodes to an ``(N, L)`` int8 array
+with 0-based states and ``gap = q - 1``.  :func:`read_msa` reads through
+the native C++ codec (:mod:`pydca_tpu_torch.native.fastacodec`, built with
+``g++`` at first use) and falls back to the Python path, with a warning,
+where there is no compiler or the codec fails.
 
 Behaviour matches the reference reader (``pydca/fasta_reader/fasta_reader.py``):
 - sequences are read in file order and upper-cased (``fasta_reader.py:103-106``),
@@ -15,6 +17,7 @@ Behaviour matches the reference reader (``pydca/fasta_reader/fasta_reader.py``):
 
 from __future__ import annotations
 
+import logging
 import os
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
@@ -22,6 +25,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..alphabets import Alphabet, get_alphabet
+
+logger = logging.getLogger(__name__)
 
 __all__ = [
     "MSA",
@@ -161,6 +166,13 @@ def read_msa(
         matching the reference reader.
     """
     alphabet = get_alphabet(biomolecule)
+    native = _get_native_codec()
+    if native is not None:
+        try:
+            data, ids = native.read_and_encode(file_name, alphabet, dedup=dedup)
+            return MSA(data=data, alphabet=alphabet, ids=ids if keep_ids else None)
+        except Exception as exc:  # the Python path reads it, or raises its own error
+            logger.warning("native FASTA codec failed (%s); using the Python path", exc)
     ids, seqs = read_sequences(file_name)
     lengths = {len(s) for s in seqs}
     if len(lengths) != 1:
@@ -180,3 +192,25 @@ def write_fasta(file_name: str, ids: Sequence[str], seqs: Sequence[str]) -> None
     with open(file_name, "w") as fh:
         for sid, seq in zip(ids, seqs):
             fh.write(f">{sid}\n{seq}\n")
+
+
+# ----------------------------------------------------------------- native hook
+_NATIVE = None
+_NATIVE_CHECKED = False
+
+
+def _get_native_codec():
+    """The native FASTA codec module, built at the first call; ``None``
+    (warned once) where it cannot be built."""
+    global _NATIVE, _NATIVE_CHECKED
+    if _NATIVE_CHECKED:
+        return _NATIVE
+    _NATIVE_CHECKED = True
+    from ..native import fastacodec
+
+    if fastacodec.available():
+        _NATIVE = fastacodec
+    else:
+        logger.warning("native FASTA codec unavailable (no g++ or a failed build); "
+                       "reading FASTA with the Python path")
+    return _NATIVE

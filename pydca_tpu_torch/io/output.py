@@ -7,13 +7,15 @@ subcommands use, which replicate the reference's output formats exactly
 1-indexed and files carry ``#`` metadata headers.  :func:`write_params`
 writes ``compute_params``' two files and :func:`write_batch_scores`
 ``compute_fn_batch``'s, for both CLIs; the last three writers are the
-``pydca`` CLI's (TP rates, contact categories, trimmed MSA).
+``pydca`` CLI's (TP rates, contact categories, trimmed MSA);
+:func:`make_archive` and :func:`write_params_binary` are the API's.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import zipfile
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -25,6 +27,7 @@ logger = logging.getLogger(__name__)
 __all__ = [
     "create_directories",
     "get_dca_output_file_path",
+    "make_archive",
     "mfdca_param_metadata",
     "plmdca_param_metadata",
     "residue_repr_metadata",
@@ -32,6 +35,7 @@ __all__ = [
     "write_couplings_csv",
     "write_fields_csv",
     "write_params",
+    "write_params_binary",
     "write_batch_scores",
     "write_single_site_freqs",
     "write_pair_site_freqs",
@@ -55,6 +59,22 @@ def get_dca_output_file_path(
     """Build ``output_dir/<prefix><msa-stem><postfix>`` (``dca_utilities.py:29-56``)."""
     root, _ = os.path.splitext(os.path.basename(msa_file_name))
     return os.path.join(output_dir, prefix.strip() + root.strip() + postfix.strip())
+
+
+def make_archive(root_dir: str, dest_dir: Optional[str] = None) -> str:
+    """Zip all files under ``root_dir`` (``dca_utilities.py:59-106``)."""
+    root_dir = os.path.abspath(root_dir)
+    if not os.path.isdir(root_dir):
+        raise FileNotFoundError(root_dir)
+    base = os.path.basename(root_dir)
+    dest_dir = os.path.dirname(root_dir) if not dest_dir else os.path.abspath(dest_dir)
+    archive_name = os.path.join(dest_dir, base + ".zip")
+    with zipfile.ZipFile(archive_name, "w", zipfile.ZIP_DEFLATED) as zh:
+        for dir_name, _, files in os.walk(root_dir):
+            rel = os.path.relpath(dir_name, os.path.dirname(root_dir))
+            for f in files:
+                zh.write(os.path.join(dir_name, f), os.path.join(rel, f))
+    return archive_name
 
 
 def mfdca_param_metadata(inst) -> List[str]:
@@ -186,6 +206,20 @@ def write_params(
         )
     )
     write_couplings_csv(couplings_file, couplings, metadata=meta)
+
+
+def _host(a):
+    """A tensor (on any device) or array as a host numpy array."""
+    return a.detach().cpu().numpy() if hasattr(a, "detach") else np.asarray(a)
+
+
+def write_params_binary(
+    couplings=None, fields=None, couplings_file_path=None, fields_file_path=None
+) -> None:
+    """Save couplings/fields as ``.npy`` (``dca_utilities.py:439-463``);
+    tensors are fetched to the host first."""
+    np.save(couplings_file_path, _host(couplings))
+    np.save(fields_file_path, _host(fields))
 
 
 def write_batch_scores(output_dir, msa_files, msas, scores_per_family, prefix,

@@ -6,9 +6,12 @@ plain ``extern "C"`` interface, loaded with :mod:`ctypes`:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o _build/lib<name>_<hash>.so csrc/<name>.cu
 
-The library lands in ``pydca_tpu_torch/_build/`` (git-ignored), named by a
-hash of the source, the shared headers (``csrc/*.cuh``) and the flags, so
-a stale library is never loaded.
+The library lands in :data:`BUILD_DIR`, named by a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so a stale library is never
+loaded.  :data:`BUILD_DIR` is ``pydca_tpu_torch/_build/`` (git-ignored)
+unless :func:`pydca_tpu_torch.runtime.enable_compilation_cache` moves it;
+the host codec (:mod:`pydca_tpu_torch.native.fastacodec`) builds there too,
+through :func:`compile_library`.
 When ``nvcc`` is missing this raises; there is no fallback.
 """
 
@@ -23,11 +26,15 @@ import tempfile
 from pathlib import Path
 from typing import Dict, Optional
 
-__all__ = ["NVCC_FLAGS", "build", "find_nvcc", "library_path", "load"]
+__all__ = [
+    "DEFAULT_BUILD_DIR", "NVCC_FLAGS", "build", "compile_library", "find_nvcc",
+    "hashed_path", "library_path", "load",
+]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+DEFAULT_BUILD_DIR = _PKG / "_build"
+BUILD_DIR = DEFAULT_BUILD_DIR  # where libraries are put and found (runtime.py moves it)
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -50,14 +57,44 @@ def find_nvcc() -> Optional[str]:
     return None
 
 
+def hashed_path(name: str, sources, flags) -> Path:
+    """``BUILD_DIR/lib<name>_<hash>.so`` for the first of ``sources``, the
+    names and bytes of the others and the ``flags``."""
+    h = hashlib.sha256(Path(sources[0]).read_bytes())
+    for extra in sources[1:]:
+        extra = Path(extra)
+        h.update(extra.name.encode() + b"\0" + extra.read_bytes())
+    h.update("\0".join(flags).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
 def library_path(name: str) -> Path:
     """Where the library for ``csrc/<name>.cu`` lives for this source, the
     shared headers ``csrc/*.cuh`` and the flags."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    for header in sorted(CSRC.glob("*.cuh")):
-        h.update(header.name.encode() + b"\0" + header.read_bytes())
-    h.update("\0".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    return hashed_path(name, [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))], NVCC_FLAGS)
+
+
+def compile_library(out: Path, compiler: str, flags, source: Path, what: str) -> Path:
+    """``compiler *flags -o <tmp> source``, then rename the result to
+    ``out``: a concurrent or interrupted build never leaves a half-written
+    library under the final name.  A failed compile raises with its
+    output."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    try:
+        cmd = [compiler, *flags, "-o", tmp, str(source)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"{os.path.basename(compiler)} failed for {what} (exit {proc.returncode}):\n"
+                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return out
 
 
 def build(name: str) -> Path:
@@ -71,24 +108,7 @@ def build(name: str) -> Path:
             f"cannot build the CUDA kernel {name!r}: nvcc not found on PATH, "
             "under $CUDA_HOME/bin or /usr/local/cuda/bin"
         )
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent or interrupted
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed for {name!r} (exit {proc.returncode}):\n"
-                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    return compile_library(out, nvcc, NVCC_FLAGS, CSRC / f"{name}.cu", repr(name))
 
 
 def load(name: str) -> ctypes.CDLL:

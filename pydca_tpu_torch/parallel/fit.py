@@ -77,22 +77,32 @@ def init_distributed(backend: Optional[str] = None, **kwargs):
 def launch_mesh(mesh: str, device: str):
     """``(mesh, device)`` for a CLI run: ``--mesh single`` -> one device;
     ``--mesh auto`` under ``torchrun`` (``WORLD_SIZE`` above 1) initialises
-    the default group unless the caller already has one (NCCL for a card,
-    gloo for the CPU), and a group of more than one rank gives a
-    :class:`DataMesh` on this rank's device: ``cuda`` means
-    ``cuda:LOCAL_RANK``, ``cuda:K`` card K on every rank (two ranks on one
-    card need gloo: NCCL refuses them).  A card that does not exist
-    raises.  Otherwise one device (one process seeing several cards
-    raises: :func:`~pydca_tpu_torch.parallel.mesh.reject_several_cards`).
+    the default group unless the caller already has one, and a group of
+    more than one rank gives a :class:`DataMesh` on this rank's device:
+    ``cuda`` means ``cuda:LOCAL_RANK`` under NCCL; ``cuda:K`` puts every
+    rank on card K, which NCCL refuses, so those ranks take gloo (CUDA
+    tensors staged through the host) and one line says so; the CPU takes
+    gloo.  A card that does not exist raises.  Otherwise one device: a
+    named card ``cuda:K`` is card K; an unindexed ``cuda`` in a process
+    that sees several cards raises here
+    (:func:`~pydca_tpu_torch.parallel.mesh.reject_several_cards`; the CLIs
+    start one rank a card first, :mod:`~pydca_tpu_torch.parallel.spawn`).
     """
     if mesh == "single":
         return None, device
     dev = torch.device(device)
     if not dist.is_initialized() and torchrun_world() > 1:
+        backend = "gloo"
         if dev.type == "cuda":
+            shared = dev.index is not None
             dev = _rank_card(dev)
             torch.cuda.set_device(dev)
-        init_distributed("nccl" if dev.type == "cuda" else "gloo")
+            if shared:
+                logger.warning("all %d ranks share card %s: gloo, since NCCL refuses two "
+                               "ranks on one card", torchrun_world(), dev)
+            else:
+                backend = "nccl"
+        init_distributed(backend)
     if dist.is_initialized() and dist.get_world_size() > 1:
         if dev.type == "cuda":
             dev = _rank_card(dev)

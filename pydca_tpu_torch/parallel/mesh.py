@@ -34,14 +34,14 @@ __all__ = [
     "make_mesh",
     "reject_several_cards",
     "resolve_mesh",
+    "several_cards",
     "shard_msa",
     "stripe",
     "torchrun_world",
 ]
 
-# the ROADMAP Queue 1 items that carry what is not ported of the mesh
+# the ROADMAP Queue 1 item that carries what is not ported of the mesh
 MODEL_AXIS_ITEM = "ROADMAP Queue 1 #16"
-SEVERAL_CARDS_ITEM = "ROADMAP Queue 1 #17"
 
 
 @dataclass
@@ -152,22 +152,40 @@ def _distributed_world() -> int:
     return 1
 
 
+def several_cards(device) -> int:
+    """The count of visible cards when ``device`` means every card (an
+    unindexed ``cuda`` on a process that sees more than one), else 0.  A
+    named card ``cuda:K`` is one device."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or dev.index is not None:
+        return 0
+    count = torch.cuda.device_count()
+    return count if count > 1 else 0
+
+
 def reject_several_cards(device) -> None:
-    """One process is one rank: a single process that sees more than one
-    card under ``mesh="auto"`` raises, naming the ``torchrun`` launch."""
-    if torch.device(device).type == "cuda" and torch.cuda.device_count() > 1:
+    """An engine is one process, one rank: under ``mesh="auto"`` a process
+    without a process group that is asked for every card (unindexed
+    ``cuda``) of several raises, naming the launches that run one rank a
+    card.  A named card ``cuda:K`` runs on that card."""
+    count = several_cards(device)
+    if count:
         raise NotImplementedError(
-            f"--mesh auto in one process over {torch.cuda.device_count()} cards is "
-            f"not ported yet ({SEVERAL_CARDS_ITEM}); launch one process per card "
-            "with torchrun --nproc_per_node=<cards>, or pass --mesh single"
+            f"mesh='auto' on device 'cuda' in one process over {count} cards: the "
+            "port's ranks are processes (the JAX package shards in one), and an "
+            "engine's constructor does not start them; run the CLI (plmdca/mfdca "
+            "... --mesh auto --device cuda starts one rank a card itself), launch "
+            "one process a card with torchrun --nproc_per_node=<cards>, or name one "
+            "card (cuda:K)"
         )
 
 
 def resolve_mesh(mesh, device) -> Optional[DataMesh]:
     """``None`` -> one device; ``"auto"`` -> the default process group when
-    one is initialised with a world size above 1 (else one device; one
-    process seeing several cards raises); a :class:`DataMesh` passes
-    through (the twin of ``pydca_tpu/meanfield.py:107-119``)."""
+    one is initialised with a world size above 1, else one device (an
+    unindexed ``cuda`` in a process that sees several cards raises:
+    :func:`reject_several_cards`); a :class:`DataMesh` passes through (the
+    twin of ``pydca_tpu/meanfield.py:107-119``)."""
     if mesh is None:
         return None
     if isinstance(mesh, str):

@@ -1050,6 +1050,11 @@ class PlmDCA:
         return self.msa.q
 
     @property
+    def effective_num_sequences(self) -> float:
+        """The sum of the sequence weights (Meff), float32 on the device."""
+        return float(self.compute_seqs_weight().sum())
+
+    @property
     def fit_result(self) -> Optional[LBFGSResult]:
         return self.__fit_result
 

@@ -1,28 +1,54 @@
-"""Per-stage wall-clock timers.
+"""Per-stage wall-clock timers and device profiling.
 
-Port of ``pydca_tpu/profiling.py``'s :class:`StageTimers`.  End a timed
-region with :func:`sync` (``torch.cuda.synchronize`` on a card): PyTorch
-returns before the device has finished, so a host clock without a
-synchronise measures the enqueue.
+Port of ``pydca_tpu/profiling.py``: :class:`StageTimers`, :func:`sync` and
+:func:`device_trace` (over ``torch.profiler`` in place of
+``jax.profiler``).  End a timed region with :func:`sync`: PyTorch returns
+before the device has finished, so a host clock without a synchronise
+measures the enqueue.
 
 Usage::
 
     timers = StageTimers()
     with timers.stage("weights"):
-        w = stats.sequence_weights(...)
-        sync(w.device)
+        w = sync(stats.sequence_weights(...))
     logger.info("%s", timers.summary())
+
+    with device_trace("dca-trace"):   # no-op when the path is falsy
+        fit_plm(...)
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
-from .device import sync
+import torch
 
-__all__ = ["StageTimers", "sync"]
+from . import device as _device
+
+__all__ = ["StageTimers", "device_trace", "sync"]
+
+
+def _tensor_leaves(x):
+    if isinstance(x, torch.Tensor):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensor_leaves(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _tensor_leaves(v)
+
+
+def sync(x):
+    """Wait for the device of every tensor leaf of ``x`` (tensors inside
+    lists, tuples and dicts); returns ``x``.  Each card is synchronised
+    once; CPU tensors need nothing."""
+    for dev in {t.device for t in _tensor_leaves(x)}:
+        _device.sync(dev)
+    return x
 
 
 class StageTimers:
@@ -75,3 +101,21 @@ class StageTimers:
             lines.append(line)
         lines.append(f"{'total':<{width}}  {self.total:9.3f}s")
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str]) -> Iterator[None]:
+    """A ``torch.profiler`` context (the CPU, and the card when there is
+    one) that writes a Chrome trace, ``trace.<pid>.json``, into ``log_dir``;
+    a no-op when ``log_dir`` is falsy.  A profiler that fails to start
+    raises."""
+    if not log_dir:
+        yield
+        return
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace.{os.getpid()}.json"))

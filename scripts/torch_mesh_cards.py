@@ -21,8 +21,19 @@ Rank 0 prints one line a case: the walls of both, the sharded run's
 collectives (count and seconds, the device synchronised around each),
 peak memory, and the agreement with one card: weights exactly, θ and the
 FN-APC ranking (Spearman, top-20 overlap) at the bars of ``chip_smoke.py``
-phase 16.  ``--device cpu --small`` runs the same on the CPU under gloo at
-small shapes, to rehearse a launch without a card.
+phase 16.
+
+A fourth case, ``cli``, compares the two launches of the CLI over every
+card: rank 0 runs ``plmdca compute_fn --apc --mesh auto --device cuda`` on
+the ``plm`` family as one process (which starts one rank a card itself,
+``pydca_tpu_torch.parallel.spawn``) and then ``torchrun
+--nproc_per_node=<cards>`` on the same argv, while the other ranks wait;
+the two files must be equal byte for byte, and it prints both walls.
+
+``--device cpu --small`` runs the same on the CPU under gloo at small
+shapes, to rehearse a launch without a card (the ``cli`` case's one
+process calls ``spawn_cli`` with gloo ranks there).  ``--case NAME``
+(repeatable) runs only the named cases after the warm-up.
 """
 
 from __future__ import annotations
@@ -35,6 +46,8 @@ import sys
 import time
 from datetime import timedelta
 
+import tempfile
+
 import torch
 import torch.distributed as dist
 
@@ -45,7 +58,9 @@ from pydca_tpu_torch.meanfield import MeanFieldDCA
 from pydca_tpu_torch.ops import cuda_kernels as ck
 from pydca_tpu_torch.parallel import init_distributed, make_mesh
 from pydca_tpu_torch.plm import PlmDCA
-from pydca_tpu_torch.synthetic import planted_family, spearman, top_k_overlap
+from pydca_tpu_torch.synthetic import (
+    planted_family, spearman, top_k_overlap, write_family_fasta,
+)
 
 CASES = {  # name: (N, L, q, seed, iterations, seq_block)
     "plm": (16384, 195, 21, 0, 100, None),
@@ -109,11 +124,67 @@ def run_case(name, shape, msa, dev, mesh):
     return wall, timers, weights, params, fn_apc
 
 
+def clean_env():
+    """This process's environment without the variables of the torchrun
+    that launched it, and with the checkout on the path."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k not in TORCHRUN_VARS and not k.startswith("TORCHELASTIC")}
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (root, env.get("PYTHONPATH")) if p)
+    return env
+
+
+TORCHRUN_VARS = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "LOCAL_WORLD_SIZE", "GROUP_RANK",
+                 "GROUP_WORLD_SIZE", "ROLE_RANK", "ROLE_NAME", "ROLE_WORLD_SIZE",
+                 "MASTER_ADDR", "MASTER_PORT")
+
+
+def cli_case(shape, world, device) -> dict:
+    """Rank 0: the ``plm`` family's ``plmdca compute_fn --apc --mesh auto``
+    launched as one process over every card and under torchrun; both
+    walls and whether the two files are equal."""
+    n, l, q, _, iters, _ = shape
+    with tempfile.TemporaryDirectory() as tmp:
+        fa = os.path.join(tmp, "plm.fa")
+        write_family_fasta(fa, draw(shape).data, alphabets.PROTEIN)
+        argv = ["compute_fn", "protein", fa, "--apc", "--max_iterations", str(iters),
+                "--mesh", "auto", "--device", device]
+        env = clean_env()
+        if device == "cuda":
+            one = [sys.executable, "-m", "pydca_tpu_torch.cli.plmdca_main"]
+        else:  # the CPU is not "every card": the rehearsal calls the spawner itself
+            one = [sys.executable, "-c", "import sys; from pydca_tpu_torch.parallel import "
+                   f"spawn_cli; sys.exit(spawn_cli('plmdca', sys.argv[1:], {world}, 'cpu'))"]
+        many = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                f"--nproc_per_node={world}", "-m", "pydca_tpu_torch.cli.plmdca_main"]
+        walls, files = {}, {}
+        for name, cmd in (("one_process", one), ("torchrun", many)):
+            out = os.path.join(tmp, name)
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd + argv + ["--output_dir", out], env=env,
+                                  capture_output=True, text=True, timeout=900)
+            walls[name] = round(time.perf_counter() - t0, 4)
+            if proc.returncode != 0:
+                raise RuntimeError(f"cli case, {name} failed (exit {proc.returncode}):\n"
+                                   f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+            names = os.listdir(out)
+            if len(names) != 1:
+                raise RuntimeError(f"cli case, {name}: {len(names)} files, expected rank 0's one")
+            with open(os.path.join(out, names[0]), "rb") as fh:
+                files[name] = fh.read()
+    return dict(case="cli", shape=[n, l, q], ranks=world, one_process_wall=walls["one_process"],
+                torchrun_wall=walls["torchrun"],
+                files_equal=files["one_process"] == files["torchrun"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--small", action="store_true", help="small shapes (a rehearsal)")
+    ap.add_argument("--case", action="append", choices=["plm", "mf", "deep", "cli"],
+                    help="run only these cases (default: all four)")
     args = ap.parse_args()
+    chosen = set(args.case or ("plm", "mf", "deep", "cli"))
     cases = SMALL if args.small else CASES
     local = int(os.environ.get("LOCAL_RANK", "0"))
     if args.device == "cuda":
@@ -138,6 +209,8 @@ def main() -> int:
     for name, shape in SMALL.items():  # the warm-up, untimed
         run_case(name, shape, draw(shape), dev, None)
     for name, shape in cases.items():
+        if name not in chosen:
+            continue
         msa = draw(shape)
         one = run_case(name, shape, msa, dev, None) if rank == 0 else None
         dist.barrier()
@@ -163,7 +236,18 @@ def main() -> int:
             rec["theta_within"] = bool((diff <= THETA_TOL[1] + THETA_TOL[0] * p1.abs()).all())
         print(json.dumps(rec), flush=True)
         del one, many
+    reset(dev)
+    ok = True
+    if rank == 0 and "cli" in chosen:
+        rec = cli_case(cases["plm"], world, args.device)
+        print(json.dumps(rec), flush=True)
+        ok = rec["files_equal"]
+    dist.barrier()
     dist.destroy_process_group()
+    if not ok:
+        print("torch_mesh_cards: the one-process run's file differs from torchrun's",
+              file=sys.stderr)
+        return 1
     return 0
 
 

@@ -81,31 +81,6 @@ def test_planted_pairs_recovered(tmp_path):
     assert planted_recovery(st, pairs, PLANTED_TOP) >= PLANTED_MIN_SHARE
 
 
-@pytest.mark.parametrize(
-    "extra,match",
-    [
-        (["warmup"], "Queue 1 #14"),
-    ],
-)
-def test_unported_options_raise(tmp_path, extra, match):
-    fa = str(tmp_path / "f.fa")
-    write_family_fasta(fa, planted_family(20, 12, 5, n_pairs=1)[0], talph.RNA)
-    cmd, flags = extra[0], extra[1:]
-    argv = [cmd, "rna", fa, "--device", "cpu", "--output_dir", str(tmp_path)] + flags
-    if cmd == "warmup":
-        argv = [cmd, "rna", fa]
-    with pytest.raises(NotImplementedError, match=match):
-        tcli.run_meanfield_dca(argv)
-    assert not any(p.endswith(".txt") for p in os.listdir(tmp_path))
-
-
-def test_mesh_over_several_cards_raises(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 #17") as exc:
-        tcli.run_meanfield_dca(["compute_fn", "rna", "x.fa", "--device", "cuda"])
-    assert "torchrun --nproc_per_node" in str(exc.value)
-
-
 def test_cuda_without_card_raises(tmp_path, monkeypatch):
     """``--device cuda`` never falls back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

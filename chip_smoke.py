@@ -68,7 +68,10 @@ Builds the port's CUDA kernels from ``pydca_tpu_torch/csrc`` with nvcc
 
 One line per phase; the next-to-last line is the kernel record (JSON), the
 last line the device record (JSON).  Exits non-zero, with no result, when
-there is no card or any phase fails.  Imports nothing of JAX.
+there is no card or any phase fails.  Imports nothing of JAX.  The
+one-card CLI runs name card 0 (``--device cuda:0``): on a machine with
+several cards an unindexed ``cuda`` under the default ``--mesh auto``
+would start one rank a card.
 """
 
 from __future__ import annotations
@@ -393,9 +396,17 @@ def phase_gram(dev):
     return max_err, timing
 
 
+def cli_device(device):
+    """The CLIs' ``--device`` for a one-card phase: card 0 by name, since an
+    unindexed ``cuda`` under the default ``--mesh auto`` starts one rank a
+    card on a machine with several."""
+    return "cuda:0" if device == "cuda" else device
+
+
 def run_mf_cli(biomolecule, fa, out_dir, device):
     inst = mfdca_main.run_meanfield_dca([
-        "compute_fn", biomolecule, fa, "--apc", "--device", device, "--output_dir", out_dir,
+        "compute_fn", biomolecule, fa, "--apc", "--device", cli_device(device),
+        "--output_dir", out_dir,
     ])
     stem = os.path.splitext(os.path.basename(fa))[0]
     return inst, read_scores(os.path.join(out_dir, f"MFDCA_apc_fn_scores_{stem}.txt"))
@@ -538,7 +549,7 @@ def phase_plm_di(tmp):
     t0 = time.perf_counter()
     inst = plmdca_main.run_plm_dca([
         "compute_di", "protein", fa, "--apc", "--max_iterations", "100",
-        "--device", "cuda", "--output_dir", os.path.join(tmp, "plm_di"),
+        "--device", cli_device("cuda"), "--output_dir", os.path.join(tmp, "plm_di"),
     ])
     wall = time.perf_counter() - t0
     launches = ck.identity_counts.launches
@@ -569,7 +580,7 @@ def phase_mf_di(tmp):
     reset_launches()
     t0 = time.perf_counter()
     inst = mfdca_main.run_meanfield_dca([
-        "compute_di", "protein", fa, "--apc", "--device", "cuda",
+        "compute_di", "protein", fa, "--apc", "--device", cli_device("cuda"),
         "--output_dir", os.path.join(tmp, "mf_di"),
     ])
     wall = time.perf_counter() - t0
@@ -1105,7 +1116,7 @@ def phase_refseq_plm(tmp, fa, codes, pairs, smi):
     t0 = time.perf_counter()
     inst = plmdca_main.run_plm_dca([
         "compute_fn", "protein", fa, "--apc", "--max_iterations", "100", "--refseq_file", rf,
-        "--device", "cuda", "--output_dir", out,
+        "--device", cli_device("cuda"), "--output_dir", out,
     ])
     wall = time.perf_counter() - t0
     launches = ck.identity_counts.launches
@@ -1166,7 +1177,8 @@ def phase_refseq_mf(tmp, fa, runs, smi):
         reset_launches()
         t0 = time.perf_counter()
         inst = mfdca_main.run_meanfield_dca([
-            "compute_fn", "protein", fa, "--apc", "--refseq_file", rf, "--device", device,
+            "compute_fn", "protein", fa, "--apc", "--refseq_file", rf,
+            "--device", cli_device(device),
             "--output_dir", os.path.join(tmp, f"refseq_mf_{device}"),
         ])
         wall = time.perf_counter() - t0
@@ -1635,7 +1647,7 @@ def phase_spawned_ranks(tmp, smi, main_fa, wall_b):
     argv = ["compute_fn", "protein", main_fa, "--apc", "--mesh", "auto", "--device", "cuda:0",
             "--output_dir", out, "--max_iterations", "100"]
     t0 = time.perf_counter()
-    code = spawn_cli("plmdca", argv, 2, "cuda:0")
+    code = spawn_cli(plmdca_main.run_plm_dca, argv, 2, "cuda:0")
     wall = time.perf_counter() - t0
     check(code == 0, f"phase 16 (e): a spawned rank failed (exit {code})")
     files = os.listdir(out)
@@ -1644,7 +1656,7 @@ def phase_spawned_ranks(tmp, smi, main_fa, wall_b):
             open(os.path.join(tmp, "p16b_plm", files[0]), "rb") as fb:
         same = fe.read() == fb.read()
     check(same, "phase 16 (e): the spawned ranks' file differs from (b)'s")
-    print(f"phase 16 (e) [{smi}] spawn_cli('plmdca', 2 ranks, 'cuda:0'), gloo on card 0: the "
+    print(f"phase 16 (e) [{smi}] spawn_cli(run_plm_dca, 2 ranks, 'cuda:0'), gloo on card 0: the "
           f"file equals (b)'s byte for byte; wall {wall:.2f} s (two processes started, "
           f"imports, group, CLI) against (b)'s ranks' plm CLI walls "
           f"{' / '.join(f'{w:.2f}' for w in wall_b)} s: the launch costs "
@@ -1752,11 +1764,12 @@ def phase_cold_start(tmp, smi, main_fa, mf_fa):
         dict(name="plm", cli="plmdca", stages=["weights", "fit", "score"], fa=main_fa,
              kernels=["identity_counts"],
              argv=["compute_fn", "protein", main_fa, "--apc", "--max_iterations", "100",
-                   "--device", "cuda"],
+                   "--device", cli_device("cuda")],
              file="PLMDCA_apc_fn_scores_planted_protein.txt", ref=os.path.join(tmp, "main")),
         dict(name="mf", cli="mfdca", stages=["weights", "gram", "corr", "inverse", "score"],
              kernels=["identity_counts", "weighted_gram"],
-             fa=mf_fa, argv=["compute_fn", "protein", mf_fa, "--apc", "--device", "cuda"],
+             fa=mf_fa, argv=["compute_fn", "protein", mf_fa, "--apc",
+                             "--device", cli_device("cuda")],
              file="MFDCA_apc_fn_scores_planted_mf.txt", ref=os.path.join(tmp, "mf")),
     ]
     launches = dict(ident=0, gram=0)
@@ -1776,7 +1789,7 @@ def phase_cold_start(tmp, smi, main_fa, mf_fa):
                   f"expected {want} (the codec with g++, the kernels with nvcc)")
             warm_dir = os.path.join(tmp, f"p17_{case['name']}_warmup{rep}")
             cmd = [sys.executable, "-m", f"pydca_tpu_torch.cli.{case['cli']}_main", "warmup",
-                   "protein", case["fa"], "--device", "cuda"]
+                   "protein", case["fa"], "--device", cli_device("cuda")]
             wall, out = run_process(cmd, cli_env(warm_dir), f"phase 17 {case['name']} warmup")
             check(out.startswith(f"warmed {'plmDCA' if case['cli'] == 'plmdca' else 'mfDCA'} "
                                  "cache for N="), f"phase 17 warmup printed {out!r}")
@@ -1867,7 +1880,7 @@ def read_scores(path):
 def run_cli(biomolecule, fa, out_dir, device):
     inst = plmdca_main.run_plm_dca([
         "compute_fn", biomolecule, fa,
-        "--apc", "--max_iterations", "100", "--device", device,
+        "--apc", "--max_iterations", "100", "--device", cli_device(device),
         "--output_dir", out_dir,
     ])
     stem = os.path.splitext(os.path.basename(fa))[0]

@@ -360,7 +360,7 @@ def run_meanfield_dca(argv=None):
         )
     world = spawn_world(args.mesh, args.device)
     if world:
-        code = spawn_cli("mfdca", argv, world, args.device)
+        code = spawn_cli(run_meanfield_dca, argv, world, args.device)
         if code:
             raise SystemExit(code)
         return None
@@ -382,5 +382,12 @@ def run_meanfield_dca(argv=None):
     )
 
 
+def main(argv=None) -> None:
+    """The ``mfdca-torch`` console script: :func:`run_meanfield_dca` without its
+    result, so that a finished run exits 0 (a failed rank raises
+    ``SystemExit`` with its code)."""
+    run_meanfield_dca(argv)
+
+
 if __name__ == "__main__":
-    run_meanfield_dca()
+    main()

@@ -402,7 +402,7 @@ def run_plm_dca(argv=None):
     world = spawn_world(args.mesh, args.device)
     if world:
         _reject_unported(args.precision, args.param_space)
-        code = spawn_cli("plmdca", argv, world, args.device)
+        code = spawn_cli(run_plm_dca, argv, world, args.device)
         if code:
             raise SystemExit(code)
         return None
@@ -431,5 +431,12 @@ def run_plm_dca(argv=None):
     )
 
 
+def main(argv=None) -> None:
+    """The ``plmdca-torch`` console script: :func:`run_plm_dca` without its
+    result, so that a finished run exits 0 (a failed rank raises
+    ``SystemExit`` with its code)."""
+    run_plm_dca(argv)
+
+
 if __name__ == "__main__":
-    run_plm_dca()
+    main()

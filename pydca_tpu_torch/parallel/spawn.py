@@ -15,12 +15,11 @@ code of any rank, whose error it prints; the other ranks are stopped.
 
 from __future__ import annotations
 
-import importlib
 import logging
 import os
 import sys
 import tempfile
-from typing import Sequence
+from typing import Callable, Sequence
 
 import torch
 import torch.distributed as dist
@@ -31,13 +30,7 @@ from .mesh import several_cards, torchrun_world
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["ENTRY_POINTS", "spawn_cli", "spawn_world"]
-
-# CLI name -> (module, function) that runs its argv
-ENTRY_POINTS = {
-    "plmdca": ("pydca_tpu_torch.cli.plmdca_main", "run_plm_dca"),
-    "mfdca": ("pydca_tpu_torch.cli.mfdca_main", "run_meanfield_dca"),
-}
+__all__ = ["spawn_cli", "spawn_world"]
 
 
 def spawn_world(mesh: str, device: str) -> int:
@@ -49,7 +42,7 @@ def spawn_world(mesh: str, device: str) -> int:
     return several_cards(device)
 
 
-def _rank_main(rank: int, cli: str, argv: Sequence[str], world: int, device: str,
+def _rank_main(rank: int, run: Callable, argv: Sequence[str], world: int, device: str,
                store: str) -> None:
     """One rank: its card and process group, then the CLI on ``argv``."""
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank), WORLD_SIZE=str(world),
@@ -64,28 +57,28 @@ def _rank_main(rank: int, cli: str, argv: Sequence[str], world: int, device: str
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         init_distributed("gloo", **group)
-    module, func = ENTRY_POINTS[cli]
     try:
-        getattr(importlib.import_module(module), func)(list(argv))
+        run(list(argv))
     finally:
         dist.destroy_process_group()
 
 
-def spawn_cli(cli: str, argv: Sequence[str], world: int, device: str) -> int:
-    """Run the CLI ``cli`` (``"plmdca"`` or ``"mfdca"``) on ``argv`` in
-    ``world`` rank processes and wait for them; returns 0, or the first
-    nonzero exit code of a rank (the others are stopped).
+def spawn_cli(run: Callable, argv: Sequence[str], world: int, device: str) -> int:
+    """Run a CLI's entry ``run`` (``plmdca_main.run_plm_dca`` or
+    ``mfdca_main.run_meanfield_dca``; a module-level function, which the
+    spawned ranks import by name) on ``argv`` in ``world`` rank processes
+    and wait for them; returns 0, or the first nonzero exit code of a rank
+    (the others are stopped).
 
     ``device``: ``"cuda"`` puts rank r on card r under NCCL; ``"cuda:K"``
     puts every rank on card K under gloo; ``"cpu"`` runs gloo on the CPU.
     ``argv`` should ask for the same device and ``--mesh auto``.
     """
-    if cli not in ENTRY_POINTS:
-        raise ValueError(f"unknown CLI {cli!r}; one of {sorted(ENTRY_POINTS)}")
+    cli = run.__name__
     logger.info("starting %d ranks of %s on %s", world, cli, device)
     with tempfile.TemporaryDirectory(prefix="pydca_ranks_") as tmp:
         ctx = mp.start_processes(
-            _rank_main, args=(cli, list(argv), world, device, os.path.join(tmp, "store")),
+            _rank_main, args=(run, list(argv), world, device, os.path.join(tmp, "store")),
             nprocs=world, join=False, start_method="spawn",
         )
         try:

@@ -32,8 +32,7 @@ the two files must be equal byte for byte, and it prints both walls.
 
 ``--device cpu --small`` runs the same on the CPU under gloo at small
 shapes, to rehearse a launch without a card (the ``cli`` case's one
-process calls ``spawn_cli`` with gloo ranks there).  ``--case NAME``
-(repeatable) runs only the named cases after the warm-up.
+process calls ``spawn_cli`` with gloo ranks there).
 """
 
 from __future__ import annotations
@@ -153,8 +152,9 @@ def cli_case(shape, world, device) -> dict:
         if device == "cuda":
             one = [sys.executable, "-m", "pydca_tpu_torch.cli.plmdca_main"]
         else:  # the CPU is not "every card": the rehearsal calls the spawner itself
-            one = [sys.executable, "-c", "import sys; from pydca_tpu_torch.parallel import "
-                   f"spawn_cli; sys.exit(spawn_cli('plmdca', sys.argv[1:], {world}, 'cpu'))"]
+            one = [sys.executable, "-c", "import sys; from pydca_tpu_torch.cli.plmdca_main import "
+                   "run_plm_dca; from pydca_tpu_torch.parallel import spawn_cli; "
+                   f"sys.exit(spawn_cli(run_plm_dca, sys.argv[1:], {world}, 'cpu'))"]
         many = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                 f"--nproc_per_node={world}", "-m", "pydca_tpu_torch.cli.plmdca_main"]
         walls, files = {}, {}
@@ -181,10 +181,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--small", action="store_true", help="small shapes (a rehearsal)")
-    ap.add_argument("--case", action="append", choices=["plm", "mf", "deep", "cli"],
-                    help="run only these cases (default: all four)")
     args = ap.parse_args()
-    chosen = set(args.case or ("plm", "mf", "deep", "cli"))
     cases = SMALL if args.small else CASES
     local = int(os.environ.get("LOCAL_RANK", "0"))
     if args.device == "cuda":
@@ -209,8 +206,6 @@ def main() -> int:
     for name, shape in SMALL.items():  # the warm-up, untimed
         run_case(name, shape, draw(shape), dev, None)
     for name, shape in cases.items():
-        if name not in chosen:
-            continue
         msa = draw(shape)
         one = run_case(name, shape, msa, dev, None) if rank == 0 else None
         dist.barrier()
@@ -238,7 +233,7 @@ def main() -> int:
         del one, many
     reset(dev)
     ok = True
-    if rank == 0 and "cli" in chosen:
+    if rank == 0:
         rec = cli_case(cases["plm"], world, args.device)
         print(json.dumps(rec), flush=True)
         ok = rec["files_equal"]

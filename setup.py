@@ -29,8 +29,8 @@ setup(
             "plmdca=pydca_tpu.cli.plmdca_main:run_plm_dca",
             "pydca=pydca_tpu.cli.main:run_pydca",
             "a2m2aln=pydca_tpu.extras.a2m2aln:run_a2m2aln",
-            "mfdca-torch=pydca_tpu_torch.cli.mfdca_main:run_meanfield_dca",
-            "plmdca-torch=pydca_tpu_torch.cli.plmdca_main:run_plm_dca",
+            "mfdca-torch=pydca_tpu_torch.cli.mfdca_main:main",
+            "plmdca-torch=pydca_tpu_torch.cli.plmdca_main:main",
             "pydca-torch=pydca_tpu_torch.cli.main:run_pydca",
             "a2m2aln-torch=pydca_tpu_torch.extras.a2m2aln:run_a2m2aln",
         ],

@@ -5,13 +5,17 @@ port's own Python path), the reference's 1-based reader shim
 (``fasta_reader``), ``a2m2aln``, ``make_archive`` and
 ``write_params_binary``, ``PlmDCA.effective_num_sequences``, the top-level
 names, ``profiling.sync``/``device_trace`` and ``examples/demo_torch.py``,
-each on inputs made from a seed with numpy.
+each on inputs made from a seed with numpy; and the port's console scripts
+of ``setup.py``, run as the wrapper pip generates runs them.
 """
 
 import importlib.util
 import io
 import os
+import re
 import shutil
+import subprocess
+import sys
 import zipfile
 
 import numpy as np
@@ -252,3 +256,51 @@ def test_demo_runs_on_the_cpu(tmp_path, capsys):
     for text in ("trimmed MSA:", "mfDCA: N=", "mfDCA top 5", "plmDCA (5 L-BFGS iterations)",
                  "backmapped to refseq coordinates", "skipping contact-map evaluation"):
         assert text in out
+
+
+def console_scripts():
+    """``setup.py``'s port scripts: name -> (module, function)."""
+    with open(os.path.join(REPO, "setup.py")) as fh:
+        found = re.findall(r'"([\w-]+-torch)=([\w.]+):(\w+)"', fh.read())
+    return {name: (module, func) for name, module, func in found}
+
+
+@pytest.fixture(scope="module")
+def script_family(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("scripts")
+    codes = planted_family(80, 12, 5, seed=4, n_pairs=2)[0]
+    fa = str(tmp / "fam.fa")
+    write_family_fasta(fa, codes, talph.RNA)
+    return tmp, fa
+
+
+@pytest.mark.parametrize("script,command", [
+    ("plmdca-torch", "compute_fn"), ("plmdca-torch", "warmup"),
+    ("mfdca-torch", "compute_fn"), ("mfdca-torch", "warmup"),
+])
+def test_console_script_exits_zero(script, command, script_family):
+    """pip's wrapper runs ``sys.exit(func())``: anything but None or an int
+    would be printed and exit 1."""
+    tmp, fa = script_family
+    module, func = console_scripts()[script]
+    argv = [command, "rna", fa, "--device", "cpu"]
+    if command == "compute_fn":
+        argv += ["--apc", "--output_dir", str(tmp / script)]
+        argv += ["--max_iterations", "5"] if script == "plmdca-torch" else []
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1",
+               PYDCA_TPU_CACHE_DIR=str(tmp / "cache"))
+    proc = subprocess.run(
+        [sys.executable, "-c", f"import sys; from {module} import {func}; sys.exit({func}())",
+         *argv], capture_output=True, text=True, env=env, timeout=120, cwd=str(tmp))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "Traceback" not in proc.stderr
+    if command == "warmup":
+        assert proc.stdout.startswith("warmed ")
+
+
+def test_console_scripts_name_every_cli():
+    want = {"plmdca-torch": ("pydca_tpu_torch.cli.plmdca_main", "main"),
+            "mfdca-torch": ("pydca_tpu_torch.cli.mfdca_main", "main"),
+            "pydca-torch": ("pydca_tpu_torch.cli.main", "run_pydca"),
+            "a2m2aln-torch": ("pydca_tpu_torch.extras.a2m2aln", "run_a2m2aln")}
+    assert console_scripts() == want

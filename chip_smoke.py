@@ -51,22 +51,35 @@ Builds the port's CUDA kernels from ``pydca_tpu_torch/csrc`` with nvcc
   ``--mesh auto --device cuda:0`` on phase 3's and phase 6's files (b), and
   the deep streamed fit of phase 12 over the same two ranks (c); on a
   machine with two cards or more, (b) under NCCL on two cards (d)
-  (phase 16).  The ranks are worker processes of this script
-  (``chip_smoke.py --phase16-worker <spec> <rank>``) that meet at a
-  ``FileStore`` in the temporary directory.  Phase 16 (e) runs (b)'s
+  (phase 16); (b)'s ranks also run ``plmdca`` with ``--precision
+  bfloat16`` and with ``--param_space w2``, each held to its one-process
+  run of phase 19 at the rank bar.  The ranks are worker processes of
+  this script (``chip_smoke.py --phase16-worker <spec> <rank>``) that
+  meet at a ``FileStore`` in the temporary directory.  Phase 16 (e) runs (b)'s
   ``plmdca`` argv through ``spawn_cli``, the CLIs' own launch of one rank
   a card from one process, with two gloo ranks on card 0: the file must
   equal (b)'s byte for byte, and the wall beside (b)'s is the launch's cost;
 - cold start and ``warmup``: ``plmdca compute_fn --apc`` on phase 3's file
-  and ``mfdca compute_fn --apc`` on phase 6's as CLI processes, three of
+  and ``mfdca compute_fn --apc`` on phase 6's as CLI processes, one of
   each (i) cold (``PYDCA_TPU_CACHE_DIR`` an empty directory: nvcc and g++
   run in the process), (ii) after ``warmup`` into an empty directory, (iii)
   warm, with the split of each process's wall; every file equal to its
   phase's byte for byte (phase 17); ``read_msa`` through the native codec
   against its Python path on phase 3's file and on phase 12's codes as a
-  10^5 x 1000 FASTA, arrays and ids equal (phase 18).
+  10^5 x 1000 FASTA, arrays and ids equal (phase 18);
+- bfloat16 products and the w2 space (run after phase 15, before phase 16,
+  which holds its two-rank runs to these): ``plmdca compute_fn --apc
+  --precision bfloat16`` on phase 3's file against phase 3's float32 file
+  at the rank bar, with ms per iteration, host syncs, peak memory and both
+  logits products in float32 and bfloat16 at phase 3's theta (CUDA
+  events; their kernels under ``torch.profiler``) (a); ``--param_space w2`` on the same file, with its
+  evaluations, s per evaluation, peak memory and optimizer bytes against
+  ``W2SPACE_MAX_BYTES`` (b); ``PlmDCA(precision="bfloat16")`` streamed on
+  phase 12's codes for two iterations beside phase 12's float32 s per
+  evaluation (c); one bfloat16 and one w2 evaluation on the card against
+  the port's CPU route at the CPU tests' tolerances (d) (phase 19).
 
-One line per phase; the next-to-last line is the kernel record (JSON), the
+One line per phase and its seconds; the next-to-last line is the kernel record (JSON), the
 last line the device record (JSON).  Exits non-zero, with no result, when
 there is no card or any phase fails.  Imports nothing of JAX.  The
 one-card CLI runs name card 0 (``--device cuda:0``): on a machine with
@@ -705,22 +718,27 @@ def phase_stream_cli(tmp, dev):
     return inst
 
 
-def streamed_eval_profile(inst, msa, l, q):
+def is_gemm(name: str) -> bool:
+    """Whether a kernel's name is one of cuBLAS's GEMM kernels."""
+    return any(k in name.lower() for k in ("gemm", "nvjet", "xmma", "cutlass"))
+
+
+def streamed_eval_profile(inst, msa, l, q, mm_bf16=False):
     """One more streamed evaluation at the fitted parameters under
     ``torch.profiler``: host wall ms, device ms, the products' (cuBLAS
-    gemm kernels') device ms and the four longest kernels."""
+    GEMM kernels') device ms and the four longest kernels."""
     theta = inst.fit_result.x
     weights = inst.compute_seqs_weight()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         plm.plm_loss_and_grad_chunked(theta, msa, weights, inst.lambda_h, inst.lambda_J,
-                                      l, q, inst.seq_block)
+                                      l, q, inst.seq_block, mm_bf16=mm_bf16)
         torch.cuda.synchronize()
         wall = 1e3 * (time.perf_counter() - t0)
     events = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
     device = sum(e.device_time_total for e in events) / 1e3
-    products = sum(e.device_time_total for e in events if "gemm" in e.key.lower()) / 1e3
+    products = sum(e.device_time_total for e in events if is_gemm(e.key)) / 1e3
     top = "; ".join(f"{e.key[:60]} {e.device_time_total / 1e3:.1f} ms" for e in events[:4])
     return wall, device, products, top
 
@@ -728,8 +746,9 @@ def streamed_eval_profile(inst, msa, l, q):
 def phase_stream_deep(dev, tmp):
     """``PlmDCA`` at N = 10^5, L = 1000, q = 21 through the engine, two
     iterations: the streamed route with 8 blocks of 12782 sequences.
-    Returns the codes (phase 15 searches them); saves them, the weights and
-    theta in ``tmp`` (``deep_*.npy``) for phase 16."""
+    Returns the codes (phases 15 and 19 read them) and the fit's s per
+    evaluation; saves the codes, the weights and theta in ``tmp``
+    (``deep_*.npy``) for phase 16."""
     n, l, q = DEEP_SHAPE
     t0 = time.perf_counter()
     codes, _ = planted_family(n, l, q, seed=12, n_pairs=20)
@@ -772,7 +791,7 @@ def phase_stream_deep(dev, tmp):
     for name, a in (("codes", codes), ("weights", inst.compute_seqs_weight().cpu().numpy()),
                     ("theta", res.x.cpu().numpy())):
         np.save(os.path.join(tmp, f"deep_{name}.npy"), a)
-    return codes
+    return codes, fit_s / res.n_evals
 
 
 class IoClock:
@@ -1360,6 +1379,179 @@ def phase_eval(tmp, rf, dca_file, ref, planted, smi):
           f"files {host_s:.3f} s on the host", flush=True)
 
 
+# ------------------------------------------------------------- phase 19
+# the CPU tests' tolerances (tests/test_torch_plm_bf16.py, tests/test_torch_plm_w2.py)
+BF16_LOSS_RTOL, BF16_GRAD_REL_L2 = 1e-5, 1e-4
+W2_LOSS_RTOL, W2_GRAD_MAX_REL = 1e-6, 1e-6
+CARD_VS_CPU_ROWS = 512  # phase 3's first rows for (d): the CPU evaluates at the real width
+
+
+def rank_bar(scores, ref, l, what):
+    """FN-APC Spearman and top-20 overlap against ``ref`` at the JAX
+    package's bar; returns the line's text."""
+    rho, top = spearman(scores, ref, l), top_k_overlap(scores, ref, 20)
+    check(rho >= 0.98 and top >= 0.9, f"{what}: spearman {rho:.4f}, top-20 overlap {top:.2f}")
+    return f"spearman {rho:.4f} top-20 overlap {top:.2f}"
+
+
+def product_profile(x, w, ct, q, l, mm_bf16, reps=10):
+    """The forward (``x @ W``) and backward (``x^T @ ct``) logits products
+    as the fused fit calls them (the bfloat16 casts of ``W`` and ``ct``
+    included): ms per call by CUDA events and TFLOP/s from it; under
+    torch.profiler, the longest kernel's name and the GEMM kernels' share
+    of the device time it recorded.  The profiler on the card's machine
+    drops kernel records at the end of some sessions
+    (``scripts/torch_profiler_drops.py``), so its times are not used."""
+    flops = 2.0 * x.shape[0] * (l * q) * (q * l)
+    out = {}
+    for name, fn in (("forward", lambda: plm._logits_mm(x, w, q, l, mm_bf16)),
+                     ("backward", lambda: plm._mm_b(x, ct, mm_bf16=mm_bf16))):
+        ms = cuda_ms(fn, reps)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_time_total > 0]
+        total = sum(e.device_time_total for e in events)
+        gemm = sum(e.device_time_total for e in events if is_gemm(e.key))
+        top = max(events, key=lambda e: e.device_time_total).key[:48] if events else None
+        out[name] = dict(ms=ms, tflops=flops / (ms * 1e-3) / 1e12, kernel=top,
+                         gemm_share=gemm / total if total else None)
+    return out
+
+
+def profile_text(prof):
+    def one(k, v):
+        if v["kernel"] is None:
+            return f"{k} {v['ms']:.3f} ms, {v['tflops']:.1f} TFLOP/s (no kernel record captured)"
+        return (f"{k} {v['ms']:.3f} ms, {v['tflops']:.1f} TFLOP/s (GEMM "
+                f"{100 * v['gemm_share']:.1f}% of the recorded device time, {v['kernel']})")
+    return "; ".join(one(k, v) for k, v in prof.items())
+
+
+def phase_bf16_cli(tmp, smi, main_fa, inst_main, scores_main):
+    """(a) ``plmdca compute_fn --apc --precision bfloat16`` on phase 3's
+    file on card 0 against phase 3's float32 file, and both products in
+    float32 and bfloat16 at phase 3's fitted theta (:func:`product_profile`)."""
+    l, q = inst_main.sequences_len, inst_main.num_site_states
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    inst, (_, scores) = run_cli("protein", main_fa, os.path.join(tmp, "p19a"), "cuda",
+                                ["--precision", "bfloat16"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(inst.mm_bf16, "(a): the engine does not run bfloat16 products")
+    bar = rank_bar(scores, scores_main, l, "phase 19 (a) bfloat16 against phase 3")
+    res, fit_s = inst.fit_result, inst.timers.elapsed("fit")
+    ref, ref_s = inst_main.fit_result, inst_main.timers.elapsed("fit")
+    # the two products at phase 3's shapes, its one-hot and its fitted theta
+    theta = ref.x
+    codes = torch.from_numpy(inst_main.msa.data).to(theta.device)
+    x, maskq = plm._prep_msa(codes, l, q)
+    w = plm._expand_w4(theta[l * q :], l, q)
+    logits = plm._logits_mm(x, w, q, l).add_(theta[: l * q].reshape(l, q).T[None])
+    ct, _ = plm._ct_gh(logits, maskq, inst_main.compute_seqs_weight())
+    del logits
+    profs = {"float32": product_profile(x, w, ct, q, l, False),
+             "bfloat16": product_profile(x.to(torch.bfloat16), w, ct, q, l, True)}
+    del x, maskq, w, ct
+    torch.cuda.empty_cache()
+    per_it = 1e3 * fit_s / max(res.num_iters, 1)
+    ref_it = 1e3 * ref_s / max(ref.num_iters, 1)
+    print(f"phase 19 (a) [{smi}] plmdca compute_fn --apc --precision bfloat16 N="
+          f"{inst.num_sequences} L={l} q={q}: FN-APC against phase 3's float32 file {bar}; "
+          f"{res.num_iters} iterations, {res.n_evals} evaluations, {per_it:.2f} ms/iteration, "
+          f"host syncs/iteration {res.host_syncs / max(res.num_iters, 1):.2f}, fit {fit_s:.3f} s, "
+          f"peak memory {peak:.2f} GiB; phase 3 (float32): {ref.num_iters} iterations, "
+          f"{ref_it:.2f} ms/iteration, host syncs/iteration "
+          f"{ref.host_syncs / max(ref.num_iters, 1):.2f}; the products at phase 3's theta "
+          f"(CUDA events; kernels from torch.profiler), float32: "
+          f"{profile_text(profs['float32'])}; bfloat16: "
+          f"{profile_text(profs['bfloat16'])}", flush=True)
+    return scores
+
+
+def phase_w2_cli(tmp, smi, main_fa, inst_main, scores_main):
+    """(b) ``plmdca compute_fn --apc --param_space w2`` on phase 3's file."""
+    l, q = inst_main.sequences_len, inst_main.num_site_states
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    inst, (_, scores) = run_cli("protein", main_fa, os.path.join(tmp, "p19b"), "cuda",
+                                ["--param_space", "w2"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    bar = rank_bar(scores, scores_main, l, "phase 19 (b) w2 against phase 3")
+    res, fit_s = inst.fit_result, inst.timers.elapsed("fit")
+    vec = 4 * (l * q + (l * q) ** 2)
+    vectors = vec * (2 * 5 + 4)
+    check(plm._resolve_param_space("w2", l, q, 5, False), "(b): w2 resolves to compact here")
+    print(f"phase 19 (b) [{smi}] plmdca compute_fn --apc --param_space w2 N={inst.num_sequences} "
+          f"L={l} q={q}: FN-APC against phase 3's float32 file {bar}; {fit_text(res, fit_s)}; "
+          f"peak memory {peak:.2f} GiB; a vector {vec / 2**20:.1f} MiB, the optimizer's 2m + 4 "
+          f"= 14 vectors {vectors / 2**30:.3f} GiB against W2SPACE_MAX_BYTES "
+          f"{plm.W2SPACE_MAX_BYTES / 2**30:.0f} GiB", flush=True)
+    return scores
+
+
+def phase_bf16_deep(dev, smi, deep_codes, deep_s_eval):
+    """(c) ``PlmDCA(precision="bfloat16")`` streamed at 10^5 x 1000, q 21
+    (phase 12's codes), two iterations, and one evaluation under
+    torch.profiler, beside phase 12's float32 s/evaluation."""
+    n, l, q = DEEP_SHAPE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    inst = plm.PlmDCA(MSA(data=deep_codes, alphabet=alphabets.PROTEIN), "protein",
+                      max_iterations=2, device=dev.type, precision="bfloat16")
+    scores = inst.compute_sorted_FN_APC()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(inst.seq_block == 12782 and inst.mm_bf16, "(c): not the streamed bfloat16 route")
+    check(len(scores) == l * (l - 1) // 2 and bool(np.isfinite([s for _, s in scores]).all()),
+          "(c): scores missing or not finite")
+    res, fit_s = inst.fit_result, inst.timers.elapsed("fit")
+    msa = torch.from_numpy(deep_codes).to(dev)
+    wall_ms, dev_ms, mm_ms, top = streamed_eval_profile(inst, msa, l, q, mm_bf16=True)
+    s_eval = fit_s / res.n_evals
+    print(f"phase 19 (c) [{smi}] PlmDCA(precision='bfloat16') streamed N={n} L={l} q={q}, "
+          f"seq_block {inst.seq_block}: {fit_text(res, fit_s)}; {s_eval:.4f} s/evaluation "
+          f"against phase 12's float32 {deep_s_eval:.4f} (x{deep_s_eval / s_eval:.2f}); one "
+          f"evaluation under torch.profiler: wall {wall_ms:.1f} ms, device {dev_ms:.1f} ms, the "
+          f"products' kernels {mm_ms:.1f} ms (longest: {top}); peak memory {peak:.2f} GiB",
+          flush=True)
+
+
+def phase_card_vs_cpu(smi, inst_main):
+    """(d) one bfloat16 evaluation and one w2 evaluation on the card
+    against the port's CPU route, at phase 3's fitted theta on its first
+    CARD_VS_CPU_ROWS rows, with the CPU tests' tolerances."""
+    l, q = inst_main.sequences_len, inst_main.num_site_states
+    lam_h, lam_j = inst_main.lambda_h, inst_main.lambda_J
+    theta = inst_main.fit_result.x
+    codes = torch.from_numpy(inst_main.msa.data[:CARD_VS_CPU_ROWS])
+    weights = inst_main.compute_seqs_weight()[:CARD_VS_CPU_ROWS].cpu()
+    z = plm.theta_to_z(theta, l, q)
+    got = {}
+    for dev_name in ("cuda", "cpu"):
+        d = torch.device(dev_name)
+        c, w = codes.to(d), weights.to(d)
+        bf = plm.plm_loss_and_grad_chunked(theta.to(d), c, w, lam_h, lam_j, l, q,
+                                           CARD_VS_CPU_ROWS, mm_bf16=True)
+        x, maskq = plm._prep_msa(c, l, q)
+        w2 = plm._plm_loss_and_grad_w2_prepped(z.to(d), x, maskq, w, lam_h, lam_j, l, q)
+        got[dev_name] = [(float(f), g.cpu().double()) for f, g in (bf, w2)]
+    (bf_card, w2_card), (bf_cpu, w2_cpu) = got["cuda"], got["cpu"]
+    bf_loss = abs(bf_card[0] - bf_cpu[0]) / abs(bf_cpu[0])
+    bf_grad = float((bf_card[1] - bf_cpu[1]).norm() / bf_cpu[1].norm())
+    w2_loss = abs(w2_card[0] - w2_cpu[0]) / abs(w2_cpu[0])
+    w2_grad = float((w2_card[1] - w2_cpu[1]).abs().max() / w2_cpu[1].abs().max())
+    check(bf_loss <= BF16_LOSS_RTOL and bf_grad <= BF16_GRAD_REL_L2,
+          f"(d) bfloat16 card vs CPU: loss {bf_loss:.3e}, gradient relative L2 {bf_grad:.3e}")
+    check(w2_loss <= W2_LOSS_RTOL and w2_grad <= W2_GRAD_MAX_REL,
+          f"(d) w2 card vs CPU: loss {w2_loss:.3e}, gradient {w2_grad:.3e} of its largest")
+    print(f"phase 19 (d) [{smi}] card against the CPU route at phase 3's theta, N="
+          f"{CARD_VS_CPU_ROWS} L={l} q={q}: bfloat16 evaluation loss relative {bf_loss:.3e} "
+          f"(<= {BF16_LOSS_RTOL:g}), gradient relative L2 {bf_grad:.3e} (<= {BF16_GRAD_REL_L2:g}); "
+          f"w2 evaluation loss relative {w2_loss:.3e} (<= {W2_LOSS_RTOL:g}), gradient "
+          f"{w2_grad:.3e} of its largest entry (<= {W2_GRAD_MAX_REL:g})", flush=True)
+
+
 # ------------------------------------------------------------- phase 16
 WORKER_TIMEOUT_S = 300  # each rank process of phase 16 (b)-(d)
 GROUP_TIMEOUT = timedelta(seconds=120)  # a collective that waits longer fails the run
@@ -1457,23 +1649,27 @@ def phase16_worker(spec_path: str, rank: int) -> int:
 
     plmdca_main.launch_mesh = mfdca_main.launch_mesh = timed_launch
     report = {"rank": rank}
-    for name, cli, fa in (("plm", plmdca_main.run_plm_dca, spec["plm_fa"]),
-                          ("mf", mfdca_main.run_meanfield_dca, spec["mf_fa"])):
+    cases = [("plm", plmdca_main.run_plm_dca, spec["plm_fa"], []),
+             ("mf", mfdca_main.run_meanfield_dca, spec["mf_fa"], [])]
+    cases += [(name, plmdca_main.run_plm_dca, spec["plm_fa"], flags)
+              for name, flags in spec.get("flag_cases", [])]
+    for name, cli, fa, flags in cases:
+        is_plm = name.startswith("plm")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         argv = ["compute_fn", "protein", fa, "--apc", "--mesh", "auto", "--device", str(dev),
-                "--output_dir", spec[f"{name}_out"]]
+                "--output_dir", spec[f"{name}_out"]] + flags
         t0 = time.perf_counter()
-        inst = cli(argv + (["--max_iterations", "100"] if name == "plm" else []))
+        inst = cli(argv + (["--max_iterations", "100"] if is_plm else []))
         wall = time.perf_counter() - t0
         mesh = meshes[-1]
         rec = dict(wall=wall, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                    collectives=mesh.collectives, timers={k: inst.timers.elapsed(k) for k in (
-                       ("weights", "fit", "score") if name == "plm" else
+                       ("weights", "fit", "score") if is_plm else
                        ("weights", "gram", "corr", "inverse", "score"))},
                    ident=ck.identity_counts.launches, gram=ck.weighted_gram.launches)
-        if name == "plm":
+        if is_plm:
             res = inst.fit_result
             rec.update(iters=res.num_iters, n_evals=res.n_evals, host_syncs=res.host_syncs,
                        theta=digest(res.x), weights=inst.compute_seqs_weight().cpu().tolist())
@@ -1557,7 +1753,7 @@ def check_cli_ranks(reps, name, out_dir, ref_weights, ref_scores, l):
     for rep in reps:
         rec = rep[name]
         coll_s = sum(t for _, _, t in rec["collectives"].values())
-        if name == "plm":
+        if name.startswith("plm"):
             it = max(rec["iters"], 1)
             fit = rec["timers"]["fit"]
             parts.append(
@@ -1576,11 +1772,17 @@ def check_cli_ranks(reps, name, out_dir, ref_weights, ref_scores, l):
     return "; ".join(parts)
 
 
-def phase_mesh_two_ranks(tmp, smi, main_fa, main_scores, inst_main, mf_ref, deep_block):
-    """(b) two ranks on card 0 under gloo through both CLIs, (c) the deep
-    streamed fit on the same ranks, (d) on two cards under NCCL when the
-    machine has them.  Returns the launches of (b)-(d) and (b)'s ranks'
-    plm CLI walls."""
+FLAG_CASES = [("plm_bf16", ["--precision", "bfloat16"]), ("plm_w2", ["--param_space", "w2"])]
+
+
+def phase_mesh_two_ranks(tmp, smi, main_fa, main_scores, inst_main, mf_ref, deep_block,
+                         flag_scores):
+    """(b) two ranks on card 0 under gloo through both CLIs, and the plm
+    CLI with ``--precision bfloat16`` and with ``--param_space w2``, each
+    against its one-process run of phase 19 (``flag_scores``), (c) the
+    deep streamed fit on the same ranks, (d) on two cards under NCCL when
+    the machine has them.  Returns the launches of (b)-(d) and (b)'s
+    ranks' plm CLI walls."""
     cards = torch.cuda.device_count()
     main_w = inst_main.compute_seqs_weight().cpu()
     plm_l = inst_main.sequences_len
@@ -1593,7 +1795,10 @@ def phase_mesh_two_ranks(tmp, smi, main_fa, main_scores, inst_main, mf_ref, deep
                     plm_fa=main_fa, mf_fa=mf_ref["fa"],
                     plm_out=os.path.join(tmp, f"p16{tag}_plm"),
                     mf_out=os.path.join(tmp, f"p16{tag}_mf"))
-        if tag == "b":  # (c) rides on (b)'s ranks
+        if tag == "b":  # the flag cases and (c) ride on (b)'s ranks
+            spec["flag_cases"] = FLAG_CASES
+            for name, _ in FLAG_CASES:
+                spec[f"{name}_out"] = os.path.join(tmp, f"p16{tag}_{name}")
             spec.update(deep_codes=os.path.join(tmp, "deep_codes.npy"),
                         deep_theta=os.path.join(tmp, "deep_theta.npy"),
                         deep_weights=os.path.join(tmp, "deep_weights.npy"),
@@ -1605,10 +1810,12 @@ def phase_mesh_two_ranks(tmp, smi, main_fa, main_scores, inst_main, mf_ref, deep
         texts = [check_cli_ranks(reps, "plm", spec["plm_out"], main_w, main_scores, plm_l),
                  check_cli_ranks(reps, "mf", spec["mf_out"], mf_ref["weights"],
                                  mf_ref["file_scores"], mf_l)]
+        texts += [check_cli_ranks(reps, name, spec[f"{name}_out"], main_w, flag_scores[name],
+                                  plm_l) for name, _ in spec.get("flag_cases", [])]
         for rep in reps:
-            launches["ident"] += rep["plm"]["ident"] + rep["mf"]["ident"] + \
-                rep.get("deep", {}).get("ident", 0)
-            launches["gram"] += rep["plm"]["gram"] + rep["mf"]["gram"]
+            runs = [v for k, v in rep.items() if k != "rank"]
+            launches["ident"] += sum(r["ident"] for r in runs)
+            launches["gram"] += sum(r.get("gram", 0) for r in runs)
         where = "two ranks on card 0, gloo" if tag == "b" else "two cards, NCCL"
         print(f"phase 16 ({tag}) [{smi}] {where}: " + " | ".join(texts)
               + f"; both CLIs' ranks in {wall:.2f} s", flush=True)
@@ -1664,7 +1871,7 @@ def phase_spawned_ranks(tmp, smi, main_fa, wall_b):
 
 
 # ------------------------------------------------------------- phases 17-18
-CLI_REPS = 3  # processes a mode and case: min/median/max over them
+CLI_REPS = 1  # processes a mode and case (min/median/max over them when above 1)
 CLI_TIMEOUT_S = 300
 # One CLI process of phase 17: it times its own imports, the CUDA context,
 # the first cuBLAS (and, for mean-field, cuSOLVER) call and the FASTA read
@@ -1748,13 +1955,16 @@ def cli_run(case, cache_dir, out_dir, tag):
 
 
 def spread(xs) -> str:
+    """One process's wall, or min/median/max over several."""
+    if len(xs) == 1:
+        return f"{xs[0]:.3f}"
     return "/".join(f"{v:.3f}" for v in (min(xs), float(np.median(xs)), max(xs)))
 
 
 def phase_cold_start(tmp, smi, main_fa, mf_fa):
     """Phase 17: the CLI process wall of ``plmdca compute_fn --apc`` on
     phase 3's file and ``mfdca compute_fn --apc`` on phase 6's, as
-    subprocesses, CLI_REPS times each: (i) cold, the build cache
+    subprocesses, CLI_REPS process(es) each: (i) cold, the build cache
     (``PYDCA_TPU_CACHE_DIR``) an empty directory, so nvcc and g++ run in
     the process; (ii) after ``warmup`` into an empty directory (the
     warmup's own wall, then the run's); (iii) warm, the kernels built,
@@ -1816,11 +2026,12 @@ def phase_cold_start(tmp, smi, main_fa, mf_fa):
         stages = {k: float(np.median([r["stages"][k] for r in warm])) for k in case["stages"]}
         start = med["wall"] - med["inside"]
         rest = med["cli"] - med["read"] - sum(stages.values())
-        print(f"phase 17 [{smi}] {case['name']} {case['cli']} compute_fn --apc, CLI process wall "
-              f"min/median/max over {CLI_REPS}: cold {spread([r['wall'] for r in runs['cold']])} s "
+        print(f"phase 17 [{smi}] {case['name']} {case['cli']} compute_fn --apc, CLI process wall"
+              + ("" if CLI_REPS == 1 else f" min/median/max over {CLI_REPS}")
+              + f": cold {spread([r['wall'] for r in runs['cold']])} s "
               f"(nvcc and g++ in the process); warmup {spread(warmups)} s, then "
               f"{spread([r['wall'] for r in runs['after warmup']])} s; warm "
-              f"{spread([r['wall'] for r in warm])} s = median python start and exit "
+              f"{spread([r['wall'] for r in warm])} s = python start and exit "
               f"{start:.3f} + import torch {med['torch']:.3f} + import the port {med['port']:.3f} "
               f"+ CUDA context {med['context']:.3f} + first cuBLAS call {med['cublas']:.3f}"
               + (f" + first cuSOLVER call {med['cusolver']:.3f}" if case["cli"] == "mfdca" else "")
@@ -1828,7 +2039,7 @@ def phase_cold_start(tmp, smi, main_fa, mf_fa):
               + " ".join(f"{k} {v:.3f}" for k, v in stages.items())
               + f" + the rest of the CLI (parse, engine, file) {rest:.3f} s; each cold run built "
               f"the codec with g++ and {'/'.join(case['kernels'])} with nvcc; cold minus warm "
-              f"(median) {float(np.median([r['wall'] for r in runs['cold']])) - med['wall']:.3f} s; "
+              f"{float(np.median([r['wall'] for r in runs['cold']])) - med['wall']:.3f} s; "
               f"all {len(every)} files equal phase {3 if case['cli'] == 'plmdca' else 6}'s byte "
               "for byte, each read through the codec", flush=True)
     return launches
@@ -1877,14 +2088,27 @@ def read_scores(path):
     return header, scores
 
 
-def run_cli(biomolecule, fa, out_dir, device):
+def run_cli(biomolecule, fa, out_dir, device, flags=()):
     inst = plmdca_main.run_plm_dca([
         "compute_fn", biomolecule, fa,
         "--apc", "--max_iterations", "100", "--device", cli_device(device),
-        "--output_dir", out_dir,
+        "--output_dir", out_dir, *flags,
     ])
     stem = os.path.splitext(os.path.basename(fa))[0]
     return inst, read_scores(os.path.join(out_dir, f"PLMDCA_apc_fn_scores_{stem}.txt"))
+
+
+class PhaseClock:
+    """Prints the seconds of each phase and of the script so far."""
+
+    def __init__(self):
+        self.start = self.last = time.perf_counter()
+
+    def lap(self, phase: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {phase} took {now - self.last:.1f} s; the script so far "
+              f"{now - self.start:.1f} s", flush=True)
+        self.last = now
 
 
 def main() -> int:
@@ -1894,7 +2118,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; no card, no result",
               file=sys.stderr)
         return 1
-    script_t0 = time.perf_counter()
+    clock = PhaseClock()
 
     dev = torch.device("cuda")
     set_precision()
@@ -1914,9 +2138,11 @@ def main() -> int:
     print(f"phase 1 torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}; nvcc build of {len(fresh)} "
           f"of {len(KERNELS)} kernels in parallel {build_s:.2f} s", flush=True)
+    clock.lap("1")
 
     # ---- phase 2: kernel vs plain version on the card
     max_err, timing = phase_kernel(dev)
+    clock.lap("2")
 
     with tempfile.TemporaryDirectory() as tmp:
         # ---- phase 3: main path at PF02826 width
@@ -1953,6 +2179,7 @@ def main() -> int:
               f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
               f"host syncs/iter {res.host_syncs / max(res.num_iters, 1):.2f}; "
               f"kernel launches {launches}", flush=True)
+        clock.lap("3")
 
         # ---- phase 4: the same RNA-shaped family on the CPU and on the card
         n, l, q = RNA_SHAPE
@@ -1976,27 +2203,38 @@ def main() -> int:
               f"iterations cpu {runs['cpu'][0].fit_result.num_iters} "
               f"cuda {runs['cuda'][0].fit_result.num_iters}; wall cpu "
               f"{runs['cpu'][2]:.2f} s cuda {runs['cuda'][2]:.2f} s", flush=True)
+        clock.lap("4")
 
         plm_fa, plm_runs = fa, runs
 
         # ---- phases 5-7: the mean-field path
         gram_err, gram_timing = phase_gram(dev)
+        clock.lap("5")
         mf_launches, mf_ref = phase_meanfield(tmp)
+        clock.lap("6")
         mf_fa, mf_runs = phase_meanfield_cpu_vs_cuda(tmp)
+        clock.lap("7")
 
         # ---- phases 8-10: DI on both paths, compute_params
         phase_plm_di(tmp)
+        clock.lap("8")
         phase_mf_di(tmp)
+        clock.lap("9")
         phase_di_cpu_vs_cuda(tmp, plm_fa, plm_runs, mf_fa, mf_runs)
+        clock.lap("10")
 
         # ---- phases 11-12: streaming of deep alignments
         stream_inst = phase_stream_cli(tmp, dev)
-        deep_codes = phase_stream_deep(dev, tmp)
+        clock.lap("11")
+        deep_codes, deep_s_eval = phase_stream_deep(dev, tmp)
+        clock.lap("12")
 
         # ---- phases 13-14: checkpoints, family batches
         ckpt_launches = phase_checkpoint(tmp, dev, inst_main, stream_inst)
         del stream_inst
+        clock.lap("13")
         fam_ident, fam_gram, fam_ident_err, fam_gram_err = phase_families(tmp, dev)
+        clock.lap("14")
 
         # ---- phase 15: reference sequences (backmapping, search, trimming, evaluator)
         rf, dca_file, ref, planted, ref_ident = phase_refseq_plm(
@@ -2005,31 +2243,45 @@ def main() -> int:
         phase_search_deep(deep_codes, smi, dev)
         deep_fa = os.path.join(tmp, "deep_protein.fa")  # phase 18 reads it
         write_family_fasta(deep_fa, deep_codes, alphabets.PROTEIN)
-        del deep_codes
         phase_trim(tmp, main_fa, rf, smi)
         phase_eval(tmp, rf, dca_file, ref, planted, smi)
+        clock.lap("15")
+
+        # ---- phase 19: bfloat16 products, the w2 space (before phase 16,
+        # whose two-rank flag cases it gives their one-process runs)
+        reset_launches()
+        flag_scores = {
+            "plm_bf16": phase_bf16_cli(tmp, smi, main_fa, inst_main, scores_main),
+            "plm_w2": phase_w2_cli(tmp, smi, main_fa, inst_main, scores_main),
+        }
+        phase_bf16_deep(dev, smi, deep_codes, deep_s_eval)
+        del deep_codes
+        phase_card_vs_cpu(smi, inst_main)
+        p19_ident = ck.identity_counts.launches
+        check(p19_ident == 3, f"phase 19 launched identity_counts {p19_ident} times, expected 3 "
+              "(one a plm run: (a), (b), (c))")
+        print(f"phase 19 kernel launches {{'identity_counts': {p19_ident}}}", flush=True)
+        clock.lap("19")
 
         # ---- phase 16: data parallelism over the sequences (torch.distributed)
-        t16 = time.perf_counter()
         mesh_a = phase_mesh_one_rank(dev, tmp, main_fa, inst_main, mf_ref)
         mesh_bd, walls_b = phase_mesh_two_ranks(tmp, smi, main_fa, scores_main, inst_main,
-                                                mf_ref, plm.streaming_block(*DEEP_SHAPE))
+                                                mf_ref, plm.streaming_block(*DEEP_SHAPE),
+                                                flag_scores)
         phase_spawned_ranks(tmp, smi, main_fa, walls_b)
-        print(f"phase 16 took {time.perf_counter() - t16:.1f} s; the script so far "
-              f"{time.perf_counter() - script_t0:.1f} s", flush=True)
+        clock.lap("16")
 
         # ---- phases 17-18: cold start and warmup, the FASTA decode
-        t17 = time.perf_counter()
         cold = phase_cold_start(tmp, smi, main_fa, mf_ref["fa"])
+        clock.lap("17")
         phase_fasta_decode(tmp, smi, main_fa, deep_fa)
-        print(f"phases 17-18 took {time.perf_counter() - t17:.1f} s; the script so far "
-              f"{time.perf_counter() - script_t0:.1f} s", flush=True)
+        clock.lap("18")
 
     records = []
     for name, (ms, plain_ms, lib_ms, bound), n_launch, err in (
         ("identity_counts", timing["pf02826_deep"],
          launches + ckpt_launches + fam_ident + ref_ident + ref_mf["identity_counts"]
-         + mesh_a["ident"] + mesh_bd["ident"] + cold["ident"],
+         + mesh_a["ident"] + mesh_bd["ident"] + cold["ident"] + p19_ident,
          max(max_err, fam_ident_err)),
         ("weighted_gram", gram_timing["protein"],
          mf_launches + fam_gram + ref_mf["weighted_gram"] + mesh_a["gram"] + mesh_bd["gram"]

@@ -12,14 +12,15 @@ over one rank per card with the sequences sharded
 (:mod:`pydca_tpu_torch.parallel.spawn`).  With ``--refseq_file`` (scores
 and parameters mapped onto a reference sequence, its template search on
 the same device), ``--seq_block`` (the streamed loss; past 1 GiB of
-logits the engine streams by itself) and ``--checkpoint`` (resume and
-bounded retry); ``compute_fn_batch`` over many families on one device
+logits the engine streams by itself), ``--checkpoint`` (resume and
+bounded retry), ``--precision bfloat16`` (bfloat16 operands for the
+logits products) and ``--param_space w2`` (L-BFGS over the full symmetric
+coupling matrix); ``compute_fn_batch`` over many families on one device
 (:mod:`pydca_tpu_torch.family`); ``warmup``, which builds the kernels a
-run at the MSA's shapes loads (:mod:`pydca_tpu_torch.warmup`).  The flag
-values the port cannot honour yet are accepted by the parser and rejected
-with ``NotImplementedError`` naming their ROADMAP item.  The kernels are
-cached where :func:`pydca_tpu_torch.runtime.enable_compilation_cache`
-says (``$PYDCA_TPU_CACHE_DIR``).
+run at the MSA's shapes loads (:mod:`pydca_tpu_torch.warmup`).  The
+kernels are cached where
+:func:`pydca_tpu_torch.runtime.enable_compilation_cache` says
+(``$PYDCA_TPU_CACHE_DIR``).
 
 Run as ``python -m pydca_tpu_torch.cli.plmdca_main compute_di protein
 <msa> --apc --device cuda`` (or the console script ``plmdca-torch``), or
@@ -82,11 +83,16 @@ def build_parser() -> argparse.ArgumentParser:
         )
         sp.add_argument(
             "--precision", choices=["auto", "bfloat16", "float32"],
-            help="matmul operand precision; only float32 (= auto) is ported",
+            help="operand precision of the two logits products (default auto = "
+            "float32; bfloat16 rounds both products' operands to bfloat16 and "
+            "accumulates in float32)",
         )
         sp.add_argument(
             "--param_space", choices=["auto", "w2", "compact"],
-            help="optimizer parameterization; only compact (= auto) is ported",
+            help="optimizer parameterization: compact (= auto default) is the "
+            "reference's flat pair layout; w2 runs L-BFGS over the full symmetric "
+            "coupling matrix (no expansion per evaluation, (L*q)^2 floats a vector; "
+            "falls back to compact under bfloat16 or past 6 GiB of optimizer vectors)",
         )
         sp.add_argument(
             "--checkpoint", metavar="PATH",
@@ -163,19 +169,6 @@ def _writer(write: bool):
     return emit
 
 
-def _reject_unported(precision, param_space) -> None:
-    """Raise ``NotImplementedError`` for every request the port cannot
-    honour yet; nothing is silently ignored."""
-    if precision in ("bfloat16", "bf16"):
-        raise NotImplementedError(
-            "--precision bfloat16 is not ported yet (ROADMAP Queue 1 #6)"
-        )
-    if param_space == "w2":
-        raise NotImplementedError(
-            "--param_space w2 is not ported yet (ROADMAP Queue 1 #10)"
-        )
-
-
 def execute_from_command_line(
     msa_file=None,
     biomolecule=None,
@@ -200,7 +193,6 @@ def execute_from_command_line(
     device="cuda",
 ):
     """Run one subcommand; returns the engine (its timers and fit result)."""
-    _reject_unported(precision, param_space)
     if verbose:
         configure_logging()
     mesh, device = launch_mesh(mesh, device)
@@ -216,7 +208,9 @@ def execute_from_command_line(
         device=device,
         seq_block=seq_block,
         checkpoint_path=checkpoint,
+        precision=precision,
         mesh=mesh,
+        param_space=param_space,
     )
     seqbackmapper = None
     if refseq_file:
@@ -357,17 +351,18 @@ def execute_batch(
 def run_warmup(args) -> float:
     """``plmdca warmup``: read the MSA (its post-dedup N, L, q) and build
     what a run at those shapes loads; prints the JAX CLI's line."""
+    from ..plm import resolve_precision
     from ..warmup import warmup_plm
 
     if args.verbose:
         configure_logging()
-    _reject_unported(args.precision, args.param_space)
     msa = read_msa(args.msa_file, args.biomolecule)
     dt = warmup_plm(
         msa.num_seqs, msa.seqs_len, msa.q,
         seqid=0.8 if args.seqid is None else args.seqid,
         max_iterations=100 if args.max_iterations is None else args.max_iterations,
         seq_block=args.seq_block,
+        mm_bf16=resolve_precision(args.precision),
         chunk_size=50 if args.chunk_size is None else args.chunk_size,
         param_space=args.param_space,
         mesh=None if args.mesh == "single" else args.mesh,
@@ -401,7 +396,6 @@ def run_plm_dca(argv=None):
         )
     world = spawn_world(args.mesh, args.device)
     if world:
-        _reject_unported(args.precision, args.param_space)
         code = spawn_cli(run_plm_dca, argv, world, args.device)
         if code:
             raise SystemExit(code)

@@ -31,15 +31,18 @@ def resolve_device(name) -> torch.device:
 
 
 def set_precision() -> None:
-    """Run float32 contractions in full float32 (TF32 off).
+    """Run float32 contractions in full float32 (TF32 off), and bfloat16
+    products without reduced-precision reductions.
 
     The JAX package pins its frequency and count contractions to
     ``Precision.HIGHEST`` (``pydca_tpu/stats.py:209,233``,
     ``pydca_tpu/ops/pallas_kernels.py:172``); TF32 keeps only ~3 decimal
-    digits.
+    digits.  The bfloat16 logits products (``precision="bfloat16"``)
+    accumulate in float32, as ``preferred_element_type=float32`` does.
     """
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def sync(device) -> None:

@@ -17,16 +17,31 @@ workarounds are not ported:
 - the L-BFGS history is one ``(2m, D)`` tensor whose rows are written in
   place (rows 0..m-1 = S, m..2m-1 = Y), not 2m leaves behind a switch;
 - the logits operand is the plain 2-D ``(L*q, q*L)`` coupling matrix and
-  both logits products are ``torch.matmul``; logits keep the ``(N, q, L)``
-  layout;
+  both logits products are library GEMMs (:func:`_mm`); logits keep the
+  ``(N, q, L)`` layout;
 - the streamed objective takes the (N, L) alignment and a block size
   instead of zero-weight padded ``(nb, block, L)`` blocks: the last block
   may be short.
 
+Options, with the JAX package's meaning and defaults:
+
+- ``precision="bfloat16"`` (``mm_bf16``): both logits products take
+  bfloat16 operands (the cotangent of the backward one included) and
+  accumulate and return float32 (:func:`resolve_precision`, :func:`_mm`);
+- ``hist_bf16``: the fused loop keeps its history rows in bfloat16 and
+  combines them in float32 (:func:`default_hist_bf16`: off, as the JAX
+  package resolves it off a TPU);
+- ``param_space="w2"``: L-BFGS over ``z = [h, w2]``, the full symmetric
+  ``(L*q, q*L)`` logits operand itself, with every gradient projected onto
+  the symmetric zero-diagonal subspace (:func:`theta_to_z`,
+  :func:`_plm_loss_and_grad_w2_prepped`, :func:`plm_loss_and_grad_w2_chunked`);
+  it falls back to the compact layout under bfloat16 products or past
+  ``W2SPACE_MAX_BYTES`` of optimizer vectors (:func:`_resolve_param_space`).
+
 Checkpoints (``fit_plm(checkpoint_path=...)``) are the JAX package's npz
 files, key for key (``_save_state`` / ``_load_state``): either package
-resumes the other's file, and a failed chunk is retried at most twice from
-the file.
+resumes the other's file, in the parameter space and history dtype the
+file holds, and a failed chunk is retried at most twice from the file.
 
 The fused loop's structure is the JAX package's (see the note above
 ``pydca_tpu/plm.py::_plm_fused_steps``): logits are linear along a search
@@ -80,7 +95,11 @@ __all__ = [
     "plm_loss",
     "plm_loss_and_grad",
     "plm_loss_and_grad_chunked",
+    "plm_loss_and_grad_w2_chunked",
+    "resolve_precision",
     "streaming_block",
+    "theta_to_z",
+    "z_to_theta",
 ]
 
 _F32 = np.float32
@@ -102,6 +121,36 @@ def streaming_block(n: int, l: int, q: int) -> Optional[int]:
 
 class PlmDCAException(Exception):
     """Errors specific to the plmDCA engine."""
+
+
+def default_mm_bf16() -> bool:
+    """Default operand precision of the logits products: float32, as in
+    the JAX package (``pydca_tpu/plm.py:65-79``).  ``precision="bfloat16"``
+    is the explicit switch."""
+    return False
+
+
+def resolve_precision(precision) -> bool:
+    """Map a user-facing precision name to the ``mm_bf16`` flag:
+    ``None``/``"auto"`` -> :func:`default_mm_bf16`; ``"bfloat16"``/``"bf16"``
+    -> True; ``"float32"``/``"f32"`` -> False; anything else raises."""
+    if precision is None or precision == "auto":
+        return default_mm_bf16()
+    if precision in ("bfloat16", "bf16"):
+        return True
+    if precision in ("float32", "f32"):
+        return False
+    raise PlmDCAException(
+        f"invalid precision {precision!r}; choose auto, bfloat16 or float32"
+    )
+
+
+def default_hist_bf16() -> bool:
+    """Default dtype of the fused loop's L-BFGS history rows: float32.
+    The JAX package stores them in bfloat16 on a TPU only
+    (``pydca_tpu/plm.py:99-111``); the port runs on a GPU or the CPU,
+    where the JAX package keeps float32 too."""
+    return False
 
 
 # --------------------------------------------------------------- loss function
@@ -179,18 +228,64 @@ def _w4_cot_to_compact(gw: torch.Tensor, l: int, q: int) -> torch.Tensor:
     return _pair_pullback_rows(gj4.reshape(l * l, q * q), l, q)
 
 
-def _logits_mm(x: torch.Tensor, w: torch.Tensor, q: int, l: int) -> torch.Tensor:
-    """Forward logits product ``(N, Lq) @ (Lq, qL)`` -> ``(N, q, L)``."""
-    return torch.matmul(x, w).reshape(-1, q, l)
+def _x_dtype(mm_bf16: bool) -> torch.dtype:
+    """The one-hot's dtype: bfloat16 under bfloat16 products (0 and 1 are
+    exact, so it is stored once per fit and never cast per evaluation),
+    else float32."""
+    return torch.bfloat16 if mm_bf16 else torch.float32
 
 
-def _mm_b(x: torch.Tensor, ct: torch.Tensor, acc: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Backward logits product: ``x^T @ ct`` contracting N -> ``(Lq, qL)``;
-    added into ``acc`` in place when it is given."""
-    ct2 = ct.reshape(ct.shape[0], -1)
-    if acc is None:
-        return torch.matmul(x.T, ct2)
-    return acc.addmm_(x.T, ct2)
+def _mm(a: torch.Tensor, b: torch.Tensor, mm_bf16: bool,
+        out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``a @ b`` in float32, added into ``out`` in place when it is given.
+
+    ``mm_bf16``: both operands are rounded to bfloat16 and the products
+    summed and returned in float32, as ``preferred_element_type=float32``
+    gives in the JAX package (``pydca_tpu/plm.py:132-139``).  On a card
+    that is one cuBLAS bfloat16 GEMM with a float32 output
+    (``aten::mm.dtype`` / ``aten::addmm.dtype``); the CPU has no kernel for
+    those, so it multiplies the rounded operands in float32, where the
+    product of two bfloat16 values is exact."""
+    if mm_bf16:
+        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        if a.device.type == "cuda":
+            if out is None:
+                return torch.mm(a, b, out_dtype=torch.float32)
+            return torch.addmm(out, a, b, out_dtype=torch.float32, out=out)
+        a, b = a.float(), b.float()
+    return torch.mm(a, b) if out is None else out.addmm_(a, b)
+
+
+class _LogitsMM(torch.autograd.Function):
+    """``x @ W`` whose backward is ``x^T @ ct`` through :func:`_mm`: under
+    bfloat16 products the cotangent is rounded to bfloat16 too, as the JAX
+    package's custom VJP does (``pydca_tpu/plm.py:147-158``); torch's own
+    transpose would keep it in float32."""
+
+    @staticmethod
+    def forward(ctx, x, w, mm_bf16):
+        ctx.save_for_backward(x)
+        ctx.mm_bf16 = mm_bf16
+        return _mm(x, w, mm_bf16)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (x,) = ctx.saved_tensors
+        return None, _mm(x.T, ct, ctx.mm_bf16), None
+
+
+def _logits_mm(x: torch.Tensor, w: torch.Tensor, q: int, l: int,
+               mm_bf16: bool = False) -> torch.Tensor:
+    """Forward logits product ``(N, Lq) @ (Lq, qL)`` -> float32 ``(N, q, L)``."""
+    return _LogitsMM.apply(x, w, mm_bf16).reshape(-1, q, l)
+
+
+def _mm_b(x: torch.Tensor, ct: torch.Tensor, acc: Optional[torch.Tensor] = None,
+          mm_bf16: bool = False) -> torch.Tensor:
+    """Backward logits product: ``x^T @ ct`` contracting N -> float32
+    ``(Lq, qL)`` (``pydca_tpu/plm.py:763`` ``_mm_b4``); added into ``acc``
+    in place when it is given."""
+    return _mm(x.T, ct.reshape(ct.shape[0], -1), mm_bf16, acc)
 
 
 def _lse_q(logits: torch.Tensor) -> torch.Tensor:
@@ -204,25 +299,29 @@ def _picked(logits: torch.Tensor, maskq: torch.Tensor) -> torch.Tensor:
     return torch.where(maskq, logits, torch.zeros((), dtype=logits.dtype, device=logits.device)).sum(dim=1)
 
 
-def plm_loss(theta, msa, weights, lambda_h, lambda_j, l: int, q: int):
+def plm_loss(theta, msa, weights, lambda_h, lambda_j, l: int, q: int,
+             mm_bf16: bool = False):
     """Regularized negative log-pseudolikelihood (symmetric-J variant).
 
     ``loss = sum_i sum_n -w_n log P(s_ni | s_n,-i) + lambda_h ||h||^2
     + lambda_J ||J_triu||^2``  (``plmdca_numerics.cpp:436-607``).
+    ``mm_bf16``: the logits product takes bfloat16 operands (:func:`_mm`).
     """
     x, maskq = _prep_msa(msa, l, q, theta.dtype)
     h = theta[: l * q].reshape(l, q)
-    logits = _logits_mm(x, _expand_w4(theta[l * q :], l, q), q, l) + h.T[None]
+    logits = _logits_mm(x, _expand_w4(theta[l * q :], l, q), q, l, mm_bf16) + h.T[None]
     nll = (weights[:, None] * (_lse_q(logits) - _picked(logits, maskq))).sum()
     reg = lambda_h * (h * h).sum() + lambda_j * (theta[l * q :] ** 2).sum()
     return nll + reg
 
 
-def plm_loss_and_grad(theta, msa, weights, lambda_h, lambda_j, l: int, q: int):
-    """``(loss, grad)`` of :func:`plm_loss` by torch autograd."""
+def plm_loss_and_grad(theta, msa, weights, lambda_h, lambda_j, l: int, q: int,
+                      mm_bf16: bool = False):
+    """``(loss, grad)`` of :func:`plm_loss` by torch autograd (the logits
+    product's backward is :class:`_LogitsMM`'s)."""
     theta = theta.detach().requires_grad_(True)
     with torch.enable_grad():
-        loss = plm_loss(theta, msa, weights, lambda_h, lambda_j, l, q)
+        loss = plm_loss(theta, msa, weights, lambda_h, lambda_j, l, q, mm_bf16)
         (grad,) = torch.autograd.grad(loss, theta)
     return loss.detach(), grad
 
@@ -243,8 +342,42 @@ def init_params(msa, weights, l: int, q: int, block: Optional[int] = None,
     return theta
 
 
+def _blocks(msa, weights, block: int, l: int, q: int, dtype):
+    """``(x, maskq, weights)`` of each block of ``block`` sequences, built
+    as it is reached; the last block may be short."""
+    for start in range(0, msa.shape[0], block):
+        x, maskq = _prep_msa(msa[start : start + block], l, q, dtype)
+        yield x, maskq, weights[start : start + block]
+
+
+def _data_term(h, w, batches, l: int, q: int, mm_bf16: bool = False, gw=None):
+    """The weighted negative log-pseudolikelihood over ``batches`` of
+    ``(x, maskq, weights)`` at fields ``h`` ``(L, q)`` and logits operand
+    ``w`` ``(L*q, q*L)``, its fields gradient ``(q, L)`` and its raw
+    ``w`` gradient ``(L*q, q*L)`` (added into ``gw`` when it is given).
+    One batch's logits and cotangent are alive at a time, and each batch's
+    ``x^T ct`` is added into the one ``w``-gradient buffer in place."""
+    lq = l * q
+    if gw is None:
+        gw = torch.zeros((lq, q * l), dtype=torch.float32, device=h.device)
+    gh = torch.zeros((q, l), dtype=torch.float32, device=h.device)
+    nll = torch.zeros((), dtype=torch.float32, device=h.device)
+    if mm_bf16:
+        w = w.to(torch.bfloat16)  # rounded once per evaluation, not per block
+    for x, maskq, wb in batches:
+        logits = _logits_mm(x, w, q, l, mm_bf16).add_(h.T[None])
+        nll += _nll_at(logits, _picked(logits, maskq), wb)
+        ct, gh_b = _ct_gh(logits, maskq, wb)
+        del logits
+        gh += gh_b
+        _mm_b(x, ct, gw, mm_bf16)
+        del x, maskq, ct
+    return nll, gh, gw
+
+
 def plm_loss_and_grad_chunked(theta, msa, weights, lambda_h, lambda_j,
-                              l: int, q: int, block: int, mesh=None):
+                              l: int, q: int, block: int, mesh=None,
+                              mm_bf16: bool = False):
     """Streamed ``(loss, grad)`` of :func:`plm_loss` over blocks of
     ``block`` sequences (``pydca_tpu/plm.py:487-539``).
 
@@ -252,33 +385,23 @@ def plm_loss_and_grad_chunked(theta, msa, weights, lambda_h, lambda_j,
     value and gradient add up exactly across blocks, and only one block's
     one-hot, logits and cotangent are alive at a time: O(block * L * q)
     device memory instead of O(N * L * q).  Forward and backward are
-    written by hand: the coupling operand ``W`` is expanded once per
-    evaluation, each block's ``x^T ct`` is added into one ``(L*q, q*L)``
-    buffer in place, and that buffer is pulled back to the pair layout
-    once.  When ``block`` does not divide N, the last block holds the
-    N mod block remaining rows (the JAX package pads it with zero-weight
-    rows instead).  ``mesh``: ``msa`` and ``weights`` are this rank's
-    stripe; the data term's value and gradient (after the pullback: D
-    floats, half the ``(L*q, q*L)`` buffer) are summed over the ranks in
-    one collective before the regulariser is added.
+    written by hand (:func:`_data_term`): the coupling operand ``W`` is
+    expanded once per evaluation, and the ``(L*q, q*L)`` gradient buffer
+    is pulled back to the pair layout once.  When ``block`` does not
+    divide N, the last block holds the N mod block remaining rows (the JAX
+    package pads it with zero-weight rows instead).  ``mesh``: ``msa`` and
+    ``weights`` are this rank's stripe; the data term's value and gradient
+    (after the pullback: D floats, half the ``(L*q, q*L)`` buffer) are
+    summed over the ranks in one collective before the regulariser is
+    added.  ``mm_bf16``: both products take bfloat16 operands; each
+    block's one-hot is built in bfloat16.
     """
     lq = l * q
     h = theta[:lq].reshape(l, q)
     jflat = theta[lq:]
     w = _expand_w4(jflat, l, q)
-    gw = torch.zeros_like(w)
-    gh = torch.zeros((q, l), dtype=theta.dtype, device=theta.device)
-    nll = torch.zeros((), dtype=theta.dtype, device=theta.device)
-    for start in range(0, msa.shape[0], block):
-        wb = weights[start : start + block]
-        x, maskq = _prep_msa(msa[start : start + block], l, q, theta.dtype)
-        logits = _logits_mm(x, w, q, l).add_(h.T[None])
-        nll += _nll_at(logits, _picked(logits, maskq), wb)
-        ct, gh_b = _ct_gh(logits, maskq, wb)
-        del logits
-        gh += gh_b
-        _mm_b(x, ct, gw)
-        del x, maskq, ct
+    batches = _blocks(msa, weights, block, l, q, _x_dtype(mm_bf16))
+    nll, gh, gw = _data_term(h, w, batches, l, q, mm_bf16)
     del w
     # the data term's gradient and value in one buffer, one collective
     buf = torch.empty(theta.shape[0] + 1, dtype=theta.dtype, device=theta.device)
@@ -293,6 +416,98 @@ def plm_loss_and_grad_chunked(theta, msa, weights, lambda_h, lambda_j,
     g[lq:].add_(jflat, alpha=2.0 * lambda_j)
     loss = buf[-1] + lambda_h * (h * h).sum() + lambda_j * torch.dot(jflat, jflat)
     return loss, g
+
+
+# ------------------------------------------------- w2-space ("z-space") loss
+#
+# pydca_tpu/plm.py:313-437: L-BFGS over z = [h, w2], w2 the full (L*q, q*L)
+# logits operand itself, restricted to the subspace S of operands that are
+# symmetric under the pair mirror and zero on the diagonal site blocks.
+# z0 = [h0, 0] is in S and every gradient is projected onto S, so the
+# iterates stay there: plain L-BFGS of the same strictly convex objective on
+# S, with the compact layout's optimum and another trajectory.  The
+# evaluation needs no coupling expansion or pullback; the optimizer's
+# vectors hold L*q + (L*q)^2 floats.  The projection P(G) = 0.5 (G +
+# mirror(G)), diagonal blocks zeroed, reads mirror(G) as a permutation of
+# the raw gradient on both routes (the JAX package's streamed form; its
+# full-batch form computes the mirror as a third product, which on a card
+# costs a (N, L*q) x (L*q, q*L) GEMM where the permutation moves (L*q)^2
+# floats once).
+
+
+def _combine_w2_projection(g_raw, mirror, l: int, q: int):
+    """``0.5 (G + mirror(G))`` with the diagonal site blocks zeroed
+    (``pydca_tpu/plm.py:341-352``)."""
+    g4 = (0.5 * (g_raw + mirror)).reshape(l, q, q, l)
+    offdiag = 1.0 - torch.eye(l, dtype=g_raw.dtype, device=g_raw.device)
+    return (g4 * offdiag[:, None, None, :]).reshape(l * q, q * l)
+
+
+def _w2_mirror(g, l: int, q: int):
+    """``mirror(G)[(j, b), (a, i)] = G[(i, a), (b, j)]`` of a raw
+    ``(L*q, q*L)`` operand gradient (``pydca_tpu/plm.py:659``)."""
+    return g.reshape(l, q, q, l).permute(3, 2, 1, 0).reshape(l * q, q * l)
+
+
+def theta_to_z(theta: torch.Tensor, l: int, q: int) -> torch.Tensor:
+    """Compact reference-layout theta -> ``z = [h, w2.ravel()]``
+    (``pydca_tpu/plm.py:392-400``): the entries move, none is computed."""
+    return torch.cat([theta[: l * q], _expand_w4(theta[l * q :], l, q).reshape(-1)])
+
+
+def z_to_theta(z: torch.Tensor, l: int, q: int) -> torch.Tensor:
+    """``z = [h, w2.ravel()]`` -> compact reference-layout theta
+    (``pydca_tpu/plm.py:403-414``): the (i < j) blocks, averaged with their
+    mirrors, ``J_p(a, b) = 0.5 * (w4[j, b, a, i] + w4[i, a, b, j])``."""
+    plan = _pair_plan(l, z.device)
+    blk = z[l * q :].reshape(l, q, q, l).permute(3, 0, 2, 1).reshape(l * l, q, q)  # (i, j, a, b)
+    j_pairs = 0.5 * (blk[plan.ij_rows] + blk[plan.ji_rows].transpose(-1, -2))
+    return torch.cat([z[: l * q], j_pairs.reshape(-1)])
+
+
+def _w2_loss_and_grad(z, batches, lambda_h, lambda_j, l: int, q: int, mesh=None):
+    """``(loss, grad)`` over ``z = [h, w2]`` from the data term over
+    ``batches``: the raw gradient (``L*q + (L*q)^2`` floats) and the value
+    in one buffer, summed over the ranks in one collective, then projected
+    onto S, so that every rank holds the same projected gradient.  The
+    regulariser ``lambda_h ||h||^2 + 0.5 lambda_J ||w2||^2`` equals the
+    compact layout's on S (each pair coupling appears twice in w2)."""
+    lq = l * q
+    h = z[:lq].reshape(l, q)
+    w2 = z[lq:]
+    buf = torch.empty(z.shape[0] + 1, dtype=z.dtype, device=z.device)
+    g = buf[:-1]
+    graw = g[lq:].view(lq, q * l).zero_()
+    nll, gh, _ = _data_term(h, w2.view(lq, q * l), batches, l, q, gw=graw)
+    g[:lq] = gh.T.reshape(-1)
+    buf[-1] = nll
+    if mesh is not None:
+        mesh.sum_(buf, "grad_allreduce")
+    graw.copy_(_combine_w2_projection(graw, _w2_mirror(graw, l, q), l, q))
+    g[:lq] += (2.0 * lambda_h * h).reshape(-1)
+    g[lq:].add_(w2, alpha=lambda_j)
+    # sum(w2 * w2), as the JAX package sums it: over (L*q)^2 entries the
+    # CPU's float32 torch.dot (and vector_norm) are off by 1e-6 and more
+    loss = buf[-1] + lambda_h * (h * h).sum() + 0.5 * lambda_j * (w2 * w2).sum()
+    return loss, g
+
+
+def _plm_loss_and_grad_w2_prepped(z, x, maskq, weights, lambda_h, lambda_j,
+                                  l: int, q: int, mesh=None):
+    """Full-batch ``(loss, grad)`` over ``z = [h, w2]`` on the one-hot and
+    pick mask of one fit (``pydca_tpu/plm.py:417-434``, the value and the
+    gradient its custom VJP gives, projected onto S)."""
+    return _w2_loss_and_grad(z, [(x, maskq, weights)], lambda_h, lambda_j, l, q, mesh)
+
+
+def plm_loss_and_grad_w2_chunked(z, msa, weights, lambda_h, lambda_j,
+                                 l: int, q: int, block: int, mesh=None):
+    """Streamed ``(loss, grad)`` over ``z = [h, w2]`` over blocks of
+    ``block`` sequences (``pydca_tpu/plm.py:619-671``): no expansion, no
+    pullback; the raw gradient is accumulated over the blocks and projected
+    once."""
+    return _w2_loss_and_grad(z, _blocks(msa, weights, block, l, q, torch.float32),
+                             lambda_h, lambda_j, l, q, mesh)
 
 
 def _phi_dphi(logits, picked, u, upicked, weights, alpha: float):
@@ -329,7 +544,7 @@ def _ct_gh(logits, maskq, weights):
 
 
 def _grad_at(logits, x1h, maskq, weights, theta, lambda_h, lambda_j,
-             l: int, q: int, mesh=None) -> torch.Tensor:
+             l: int, q: int, mesh=None, mm_bf16: bool = False) -> torch.Tensor:
     """Full flat gradient at the carried logits / parameters.  ``mesh``:
     the data gradient (this rank's rows) is summed over the ranks in one
     flat buffer of D floats before ``2 lambda theta`` is added."""
@@ -337,7 +552,7 @@ def _grad_at(logits, x1h, maskq, weights, theta, lambda_h, lambda_j,
     ct, gh = _ct_gh(logits, maskq, weights)
     g = torch.empty_like(theta)
     g[:lq] = gh.T.reshape(-1)
-    g[lq:] = _w4_cot_to_compact(_mm_b(x1h, ct), l, q)
+    g[lq:] = _w4_cot_to_compact(_mm_b(x1h, ct, mm_bf16=mm_bf16), l, q)
     del ct
     if mesh is not None:
         mesh.sum_(g, "grad_allreduce")
@@ -355,10 +570,10 @@ def _data_sum(mesh, *vals: torch.Tensor) -> torch.Tensor:
     return both
 
 
-def _prep_u(x1h, maskq, d, l: int, q: int):
+def _prep_u(x1h, maskq, d, l: int, q: int, mm_bf16: bool = False):
     """Direction image in logits space: u = x1h @ E(d_J) + d_h (once per
     direction), plus its picked-state reduction."""
-    u = _logits_mm(x1h, _expand_w4(d[l * q :], l, q), q, l)
+    u = _logits_mm(x1h, _expand_w4(d[l * q :], l, q), q, l, mm_bf16)
     u += d[: l * q].reshape(l, q).T[None]
     return u, _picked(u, maskq)
 
@@ -369,7 +584,8 @@ class PlmFusedState:
     """State of the fused plm L-BFGS loop.
 
     Device tensors: ``x``, ``g`` (flat D), the ``(2m, D)`` history ``z``
-    and the carried ``logits`` ``(N, q, L)`` / ``picked`` ``(N, L)``.
+    (float32, or bfloat16 rows with ``hist_bf16``) and the carried
+    ``logits`` ``(N, q, L)`` / ``picked`` ``(N, L)``.
     Host float32: ``f`` and the scalar squares; ``zzt`` ``(2m, 2m)`` and
     ``zg`` ``(2m,)`` are CPU tensors.  ``host_syncs`` counts the
     device-to-host reads the loop has made.
@@ -411,14 +627,15 @@ def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 def _plm_fused_state0(
     msa, weights, lambda_h, lambda_j, l: int, q: int, m: int,
-    epsilon: float = 1e-3, mesh=None,
+    epsilon: float = 1e-3, mesh=None, mm_bf16: bool = False, hist_bf16: bool = False,
 ) -> PlmFusedState:
     """Fresh state at the reference init (``plmdca_numerics.cpp:207-249``):
     ``h0 = log(fi * Meff + 1)`` centred per site, ``J = 0``.  ``mesh``:
     ``msa`` and ``weights`` are this rank's stripe; the carried logits are
-    this rank's rows."""
+    this rank's rows.  ``hist_bf16``: the history rows are bfloat16
+    (``pydca_tpu/plm.py:958``)."""
     lh, lj = _F32(lambda_h), _F32(lambda_j)
-    x1h, maskq = _prep_msa(msa, l, q)
+    x1h, maskq = _prep_msa(msa, l, q, _x_dtype(mm_bf16))
     n = msa.shape[0]
     lq = l * q
     dim = lq + l * (l - 1) // 2 * q * q
@@ -427,10 +644,12 @@ def _plm_fused_state0(
     # J0 = 0 exactly: the logits are the broadcast fields
     logits = h0.T[None].expand(n, q, l).contiguous()
     picked = _picked(logits, maskq)
-    g = _grad_at(logits, x1h, maskq, weights, theta, float(lh), float(lj), l, q, mesh)
+    g = _grad_at(logits, x1h, maskq, weights, theta, float(lh), float(lj), l, q, mesh,
+                 mm_bf16)
     st = PlmFusedState(
         x=theta, f=_F32(0), g=g,
-        z=torch.zeros((2 * m, dim), dtype=torch.float32, device=msa.device),
+        z=torch.zeros((2 * m, dim), dtype=torch.bfloat16 if hist_bf16 else torch.float32,
+                      device=msa.device),
         zzt=torch.zeros((2 * m, 2 * m), dtype=torch.float32),
         zg=torch.zeros((2 * m,), dtype=torch.float32),
         gg=_F32(0), xx=_F32(0), rh=_F32(0), rj=_F32(0),
@@ -445,19 +664,41 @@ def _plm_fused_state0(
     return st
 
 
+def _hist_combine(c: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """``Z^T c`` in float32 for the host coefficients ``c``: one product
+    over float32 rows; bfloat16 rows are upcast one at a time
+    (``pydca_tpu/plm.py:1000-1007``), so no float32 copy of the history is
+    made."""
+    if z.dtype == torch.float32:
+        return torch.matmul(_to_device(c, z.device), z)
+    d = torch.zeros(z.shape[1], dtype=torch.float32, device=z.device)
+    for r in range(z.shape[0]):
+        d.add_(z[r], alpha=float(c[r]))
+    return d
+
+
+def _hist_dot(z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``Z @ g`` in float32; bfloat16 rows are upcast one at a time
+    (``pydca_tpu/plm.py:1102-1108``)."""
+    if z.dtype == torch.float32:
+        return torch.matmul(z, g)
+    return torch.stack([torch.dot(row.float(), g) for row in z])
+
+
 def _plm_fused_step(
     st: PlmFusedState, x1h, maskq, weights, lh, lj, l: int, q: int,
     epsilon: float, ftol: float, wolfe: float, max_linesearch: int, mesh=None,
+    mm_bf16: bool = False,
 ) -> None:
     """One fused L-BFGS iteration, updating ``st`` in place
     (``pydca_tpu/plm.py:996-1137``)."""
     lq = l * q
     m = st.z.shape[0] // 2
-    dev = st.x.device
+    hist_bf16 = st.z.dtype == torch.bfloat16
     gamma, cfull, _, _ = direction_coeffs(
         st.zg, st.zzt, torch.tensor(st.gg), st.k, m
     )
-    d = torch.matmul(_to_device(cfull, dev), st.z)  # Z^T c
+    d = _hist_combine(cfull, st.z)  # Z^T c
     d.add_(st.g, alpha=float(gamma)).neg_()  # d = -(gamma*g + Z^T c)
     # exact dots over (d, g, x): the estimates from direction_coeffs can
     # lose low bits to cancellation
@@ -480,7 +721,7 @@ def _plm_fused_step(
     c2 = lh * dh2 + lj * dj2
     reg0 = lh * st.rh + lj * st.rj
 
-    u, upicked = _prep_u(x1h, maskq, d, l, q)
+    u, upicked = _prep_u(x1h, maskq, d, l, q, mm_bf16)
 
     def phi(alpha):
         nll, dnll = fetch_f32(
@@ -511,12 +752,20 @@ def _plm_fused_step(
     st.logits.add_(u, alpha=a)
     st.picked.add_(upicked, alpha=a)
     del u, upicked
-    g_new = _grad_at(st.logits, x1h, maskq, weights, st.x, float(lh), float(lj), l, q, mesh)
-    zg_old_rows = torch.matmul(st.z, g_new)  # Z @ g' with the rows before the write
+    g_new = _grad_at(st.logits, x1h, maskq, weights, st.x, float(lh), float(lj), l, q, mesh,
+                     mm_bf16)
+    zg_old_rows = _hist_dot(st.z, g_new)  # Z @ g' with the rows before the write
+    rows_dots = []
+    if hist_bf16:
+        # the new rows as they will be stored, and their dots with g'
+        # (the JAX package reads Z @ g' from the rounded rows)
+        s_row = (d * a).to(torch.bfloat16)
+        y_row = (g_new - st.g).to(torch.bfloat16)
+        rows_dots = [torch.dot(s_row.float(), g_new), torch.dot(y_row.float(), g_new)]
     vals = fetch_f32(st, zg_old_rows, torch.dot(g_new, g_new),
-                     torch.dot(st.g, g_new), torch.dot(d, g_new))
+                     torch.dot(st.g, g_new), torch.dot(d, g_new), *rows_dots)
     zg_new = torch.tensor(vals[: 2 * m], dtype=torch.float32)
-    gg_new, gog, dgn = vals[2 * m :]
+    gg_new, gog, dgn = vals[2 * m : 2 * m + 3]
 
     xd = hd + jd
     xx_new = max(st.xx + _F32(2.0) * alpha * xd + alpha * alpha * dnorm2, _F32(0.0))
@@ -528,10 +777,15 @@ def _plm_fused_step(
     sy = alpha * (dgn - dg0)
     slot = st.k % m
     if sy > _F32(1e-10):
-        torch.mul(d, a, out=st.z[slot])  # s = alpha * d
-        torch.sub(g_new, st.g, out=st.z[slot + m])  # y = g' - g
-        zg_new[slot] = float(alpha * dgn)  # s . g'
-        zg_new[slot + m] = float(gg_new - gog)  # y . g'
+        if hist_bf16:
+            st.z[slot].copy_(s_row)
+            st.z[slot + m].copy_(y_row)
+            zg_new[slot], zg_new[slot + m] = float(vals[-2]), float(vals[-1])
+        else:
+            torch.mul(d, a, out=st.z[slot])  # s = alpha * d
+            torch.sub(g_new, st.g, out=st.z[slot + m])  # y = g' - g
+            zg_new[slot] = float(alpha * dgn)  # s . g'
+            zg_new[slot + m] = float(gg_new - gog)  # y . g'
         # Z@s = alpha * Z@d = -alpha*(gamma*Zg + ZZt@c);  Z@y = Z@g' - Z@g
         zd = -st.zg if bad_dir else -(gamma * st.zg + st.zzt @ cfull)
         zs_vec = zd * a
@@ -557,7 +811,7 @@ def _plm_fused_steps(
     st: PlmFusedState, x1h, maskq, weights, lambda_h, lambda_j,
     l: int, q: int, num_steps: int,
     epsilon: float = 1e-3, ftol: float = 1e-4, wolfe: float = 0.9,
-    max_linesearch: int = 10, mesh=None,
+    max_linesearch: int = 10, mesh=None, mm_bf16: bool = False,
 ) -> PlmFusedState:
     """Advance the fused optimizer by up to ``num_steps`` iterations (in
     place; returns ``st``)."""
@@ -565,7 +819,7 @@ def _plm_fused_steps(
     k_end = st.k + num_steps
     while not st.done and st.k < k_end:
         _plm_fused_step(st, x1h, maskq, weights, lh, lj, l, q,
-                        epsilon, ftol, wolfe, max_linesearch, mesh)
+                        epsilon, ftol, wolfe, max_linesearch, mesh, mm_bf16)
     return st
 
 
@@ -574,8 +828,8 @@ def fused_state_from_numpy(leaves: dict, device) -> PlmFusedState:
     e.g. ``jax.device_get(state)._asdict()``) -> the port's state.
 
     Split ``(h, J)`` pairs become flat D vectors and the 2m history leaves
-    are stacked into the ``(2m, D)`` history; the caches carry over
-    unchanged.
+    are stacked into the ``(2m, D)`` history (bfloat16 when the leaves
+    are); the caches carry over unchanged.
     """
     dev = torch.device(device)
 
@@ -585,11 +839,13 @@ def fused_state_from_numpy(leaves: dict, device) -> PlmFusedState:
     def dev_tensor(a):
         return torch.tensor(np.asarray(a, np.float32), device=dev)
 
+    hist_bf16 = np.asarray(leaves["z"][0][0]).dtype.name == "bfloat16"
     return PlmFusedState(
         x=dev_tensor(flat(leaves["x"])),
         f=_F32(leaves["f"]),
         g=dev_tensor(flat(leaves["g"])),
-        z=dev_tensor(np.stack([flat(r) for r in leaves["z"]])),
+        z=dev_tensor(np.stack([flat(r) for r in leaves["z"]])).to(
+            torch.bfloat16 if hist_bf16 else torch.float32),
         zzt=torch.tensor(np.asarray(leaves["zzt"], np.float32)),
         zg=torch.tensor(np.asarray(leaves["zg"], np.float32)),
         gg=_F32(leaves["gg"]), xx=_F32(leaves["xx"]),
@@ -630,30 +886,52 @@ def lbfgs_state_from_numpy(leaves: dict, device) -> LBFGSState:
     )
 
 
-# ------------------------------------------------ streamed generic loop
-def _make_loss_fun(msa, weights, lambda_h, lambda_j, l: int, q: int, block: int,
-                   mesh=None):
-    """The streamed objective ``theta -> (loss, grad)`` of one fit."""
+# ------------------------------------------------ the generic loop
+def _make_loss_fun(msa, weights, lambda_h, lambda_j, l: int, q: int, block: Optional[int],
+                   mesh=None, mm_bf16: bool = False, w2space: bool = False):
+    """The generic loop's objective ``x -> (loss, grad)`` of one fit
+    (``pydca_tpu/plm.py:591-616``): the streamed compact loss over blocks
+    of ``block`` sequences, or with ``w2space`` the loss over ``z = [h,
+    w2]``, streamed, or full-batch on a one-hot built here when ``block``
+    is ``None``."""
+    if w2space:
+        if block is None:
+            x, maskq = _prep_msa(msa, l, q)
+            return functools.partial(
+                _plm_loss_and_grad_w2_prepped, x=x, maskq=maskq, weights=weights,
+                lambda_h=lambda_h, lambda_j=lambda_j, l=l, q=q, mesh=mesh,
+            )
+        return functools.partial(
+            plm_loss_and_grad_w2_chunked, msa=msa, weights=weights,
+            lambda_h=lambda_h, lambda_j=lambda_j, l=l, q=q, block=block, mesh=mesh,
+        )
     return functools.partial(
         plm_loss_and_grad_chunked, msa=msa, weights=weights,
         lambda_h=lambda_h, lambda_j=lambda_j, l=l, q=q, block=block, mesh=mesh,
+        mm_bf16=mm_bf16,
     )
 
 
 def _plm_lbfgs_state0(msa, weights, lambda_h, lambda_j, l: int, q: int,
-                      m: int, block: int, mesh=None) -> LBFGSState:
+                      m: int, block: Optional[int], mesh=None, mm_bf16: bool = False,
+                      w2space: bool = False) -> LBFGSState:
     """Fresh generic state at the reference init, ``fi`` summed over the
-    sequence blocks (``pydca_tpu/plm.py:570-588``)."""
-    theta0 = init_params(msa, weights, l, q, block=block, mesh=mesh)
-    fun = _make_loss_fun(msa, weights, lambda_h, lambda_j, l, q, block, mesh)
-    return lbfgs_init(fun, theta0, m=m)
+    sequence blocks (``pydca_tpu/plm.py:570-588``); in the w2 space
+    ``z0 = [h0, 0]`` (J is zero at the init, so no expansion)."""
+    x0 = init_params(msa, weights, l, q, block=block, mesh=mesh)
+    if w2space:
+        lq = l * q
+        x0 = torch.cat([x0[:lq], torch.zeros(lq * lq, dtype=x0.dtype, device=x0.device)])
+    fun = _make_loss_fun(msa, weights, lambda_h, lambda_j, l, q, block, mesh, mm_bf16, w2space)
+    return lbfgs_init(fun, x0, m=m)
 
 
 def _plm_lbfgs_steps(st: LBFGSState, msa, weights, lambda_h, lambda_j,
-                     l: int, q: int, num_steps: int, block: int, mesh=None) -> LBFGSState:
-    """Advance the streamed fit by up to ``num_steps`` iterations (in place;
+                     l: int, q: int, num_steps: int, block: Optional[int], mesh=None,
+                     mm_bf16: bool = False, w2space: bool = False) -> LBFGSState:
+    """Advance the generic fit by up to ``num_steps`` iterations (in place;
     returns ``st``)."""
-    fun = _make_loss_fun(msa, weights, lambda_h, lambda_j, l, q, block, mesh)
+    fun = _make_loss_fun(msa, weights, lambda_h, lambda_j, l, q, block, mesh, mm_bf16, w2space)
     return lbfgs_steps(fun, st, num_steps)
 
 
@@ -661,20 +939,22 @@ def _plm_lbfgs_steps(st: LBFGSState, msa, weights, lambda_h, lambda_j,
 def _generic_from_fused(st: PlmFusedState) -> LBFGSState:
     """Fused -> generic state (``pydca_tpu/plm.py:1154-1170``): the same
     iterate and history, ``rho = 1 / (s . y)`` from the diagonal of the
-    cached ``S Y^T`` block, 0 on an empty slot."""
+    cached ``S Y^T`` block, 0 on an empty slot; bfloat16 rows become
+    float32."""
     m = st.z.shape[0] // 2
     sy = torch.diagonal(st.zzt[:m, m:])
     rho = torch.where(sy != 0, 1.0 / torch.where(sy == 0, torch.ones_like(sy), sy),
                       torch.zeros_like(sy))
     return LBFGSState(
-        x=st.x, f=st.f, g=st.g, z=st.z, rho=rho, k=st.k, done=st.done,
+        x=st.x, f=st.f, g=st.g, z=st.z.to(torch.float32), rho=rho, k=st.k, done=st.done,
         converged=st.converged, ls_failed=st.ls_failed, n_evals=st.n_evals,
         host_syncs=st.host_syncs,
     )
 
 
 def _fused_from_generic(gst: LBFGSState, x1h, maskq, weights, lambda_h, lambda_j,
-                        l: int, q: int, epsilon: float = 1e-3, mesh=None) -> PlmFusedState:
+                        l: int, q: int, epsilon: float = 1e-3, mesh=None,
+                        mm_bf16: bool = False) -> PlmFusedState:
     """Generic -> fused state at the checkpointed iterate
     (``pydca_tpu/plm.py:864-915, 1400-1416``): one forward for the carried
     logits, one gradient, and the history caches ``zzt = Z Z^T`` and
@@ -683,9 +963,10 @@ def _fused_from_generic(gst: LBFGSState, x1h, maskq, weights, lambda_h, lambda_j
     lq = l * q
     lh, lj = _F32(lambda_h), _F32(lambda_j)
     x = gst.x
-    logits = _logits_mm(x1h, _expand_w4(x[lq:], l, q), q, l).add_(x[:lq].reshape(l, q).T[None])
+    logits = _logits_mm(x1h, _expand_w4(x[lq:], l, q), q, l, mm_bf16).add_(
+        x[:lq].reshape(l, q).T[None])
     picked = _picked(logits, maskq)
-    g = _grad_at(logits, x1h, maskq, weights, x, float(lh), float(lj), l, q, mesh)
+    g = _grad_at(logits, x1h, maskq, weights, x, float(lh), float(lj), l, q, mesh, mm_bf16)
     m2 = gst.z.shape[0]
     st = PlmFusedState(
         x=x, f=_F32(0), g=g, z=gst.z,
@@ -717,14 +998,15 @@ def _save_state(path: str, state) -> None:
     (flat reference-layout D vectors, float32 arrays and 0-d scalars,
     int32 ``k`` and ``n_evals``, bool flags), so that either package
     resumes the other's file.  A fused state keeps its caches (resume is
-    bitwise) and its ``(2m, D)`` history as ``z``; a generic state splits
+    bitwise) and its ``(2m, D)`` history as ``z`` (bfloat16 rows as their
+    exact float32 values, with ``z_bf16`` set); a generic state splits
     the history into ``s_hist`` and ``y_hist``.  The file is written next
     to ``path`` and renamed over it, so a process that dies while writing
     leaves the last checkpoint whole."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
 
     def host(t):
-        return t.detach().cpu().numpy().astype(np.float32, copy=False)
+        return t.detach().to(torch.float32).cpu().numpy()
 
     def f32(v):
         return np.asarray(v, np.float32)
@@ -749,7 +1031,7 @@ def _save_state(path: str, state) -> None:
         n_evals=np.asarray(state.n_evals, np.int32),
     )
     if isinstance(state, PlmFusedState):
-        arrays["z_bf16"] = np.asarray(False)
+        arrays["z_bf16"] = np.asarray(state.z.dtype == torch.bfloat16)
     tmp = path + ".tmp"
     with open(tmp, "wb") as fh:
         np.savez(fh, **arrays)
@@ -762,8 +1044,10 @@ def _load_state(path: str, device):
     ``ops.lbfgs.LBFGSState``.  The D-vectors, the history and the carried
     logits go to ``device``; ``zzt``, ``zg`` and ``rho`` stay CPU tensors
     and the scalars host values.  A fused file written with bfloat16
-    history rows (the JAX package's TPU default) loads exactly, since its
-    rows are stored as float32; the fit goes on with float32 rows."""
+    history rows (``z_bf16``; the JAX package's TPU default) loads them
+    back as bfloat16, exactly (they are stored as their float32 values),
+    and the fit goes on with bfloat16 rows, as the JAX package's does
+    (``pydca_tpu/plm.py:1507-1509``)."""
     dev = torch.device(device)
     with np.load(path if path.endswith(".npz") else path + ".npz") as z:
 
@@ -776,13 +1060,13 @@ def _load_state(path: str, device):
         flags = dict(k=int(z["k"]), done=bool(z["done"]), converged=bool(z["converged"]),
                      ls_failed=bool(z["ls_failed"]))
         if "zzt" in z.files:
+            rows = on_dev("z")
             if "z_bf16" in z.files and bool(z["z_bf16"]):
-                logger.info(
-                    "checkpoint %s holds bfloat16 history rows; continuing with "
-                    "float32 rows (bfloat16 history: ROADMAP Queue 1 #6)", path,
-                )
+                logger.info("checkpoint %s holds bfloat16 history rows; continuing with "
+                            "bfloat16 rows", path)
+                rows = rows.to(torch.bfloat16)
             return PlmFusedState(
-                x=on_dev("x"), f=_F32(z["f"]), g=on_dev("g"), z=on_dev("z"),
+                x=on_dev("x"), f=_F32(z["f"]), g=on_dev("g"), z=rows,
                 zzt=on_host("zzt"), zg=on_host("zg"), gg=_F32(z["gg"]), xx=_F32(z["xx"]),
                 rh=_F32(z["rh"]), rj=_F32(z["rj"]), logits=on_dev("logits"),
                 picked=on_dev("picked"), n_evals=int(z["n_evals"]), **flags,
@@ -800,20 +1084,58 @@ def _load_state(path: str, device):
         )
 
 
-def _check_space(state, path: str, l: int, q: int) -> None:
-    """A checkpoint must hold this fit's compact parameter vector: a
-    ``param_space="w2"`` file (``Lq + (Lq)^2`` entries, ``pydca_tpu/plm.py:1287``)
-    is refused rather than read as another layout."""
+def _check_space(state, path: str, l: int, q: int) -> bool:
+    """Whether a checkpoint of this fit's (L, q) is in the w2 parameter
+    space (``Lq + (Lq)^2`` entries, ``pydca_tpu/plm.py:1287``) rather than
+    the compact one; a size that fits neither raises ``ValueError``."""
     lq = l * q
     size = state.x.shape[0]
     if size == lq + lq * lq:
-        raise NotImplementedError(
-            f"checkpoint {path} is in the w2 parameter space, which is not ported "
-            "yet (ROADMAP Queue 1 #10)"
-        )
+        return True
     dim = lq + l * (l - 1) // 2 * q * q
     if size != dim:
-        raise ValueError(f"checkpoint {path} holds {size} parameters; this fit has {dim}")
+        raise ValueError(f"checkpoint {path} holds {size} parameters; this fit has {dim} "
+                         f"(compact) or {lq + lq * lq} (w2)")
+    return False
+
+
+# w2-space memory budget (pydca_tpu/plm.py:1419-1422): the optimizer holds
+# about 2m + 4 vectors of L*q + (L*q)^2 floats (x, g, the direction, the
+# line search's trial and the m s/y pairs).
+W2SPACE_MAX_BYTES = 6 << 30
+
+
+def _resolve_param_space(param_space: str, l: int, q: int, m: int, mm_bf16: bool) -> bool:
+    """Whether the fit runs in the w2 space (``pydca_tpu/plm.py:1425-1466``).
+
+    ``auto`` and ``compact`` resolve to the compact layout; ``w2`` to the
+    w2 space, except under bfloat16 products (the w2 loss keeps float32
+    operands) or when its vectors pass ``W2SPACE_MAX_BYTES``: then the fit
+    runs in the compact layout, with the JAX package's warning.  Any other
+    name raises."""
+    if param_space == "compact":
+        return False
+    if param_space != "w2":
+        if param_space != "auto":
+            raise PlmDCAException(
+                f"invalid param_space {param_space!r}; choose auto, w2 or compact"
+            )
+        return False
+    if mm_bf16:
+        logger.warning(
+            "param_space='w2' does not support bfloat16 operands; "
+            "running the compact parameterization instead"
+        )
+        return False
+    vec_bytes = 4 * (l * q + (l * q) * (q * l))
+    if vec_bytes * (2 * m + 4) > W2SPACE_MAX_BYTES:
+        logger.warning(
+            "param_space='w2' needs ~%.1f GiB of optimizer vectors at "
+            "L=%d, q=%d; falling back to compact",
+            vec_bytes * (2 * m + 4) / 2**30, l, q,
+        )
+        return False
+    return True
 
 
 def fit_plm(
@@ -831,7 +1153,10 @@ def fit_plm(
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 50,
     seq_block: Optional[int] = None,
+    mm_bf16: Optional[bool] = None,
     mesh=None,
+    param_space: str = "auto",
+    hist_bf16: Optional[bool] = None,
 ) -> LBFGSResult:
     """Run the plmDCA optimization on ``msa.device``.
 
@@ -843,11 +1168,21 @@ def fit_plm(
     is called after each chunk.  Reference budget: m=5, epsilon=1e-3,
     ftol=1e-4, <= ``max_iterations`` iterations (``plmdcaBackend.cpp:68-75``).
 
+    ``mm_bf16``: both logits products take bfloat16 operands and
+    accumulate in float32 (``None``: :func:`default_mm_bf16`, float32).
+    ``hist_bf16``: the fused loop's history rows are bfloat16 (``None``:
+    :func:`default_hist_bf16`, float32).  ``param_space``: ``"auto"`` /
+    ``"compact"`` (the reference layout) or ``"w2"`` (the generic loop over
+    ``z = [h, w2]``, :func:`_resolve_param_space`); the result is in the
+    compact layout either way (:func:`z_to_theta`).
+
     ``checkpoint_path`` (``pydca_tpu/plm.py:1262-1385``; ``.npz`` is
     appended to a bare path): resume from the file when it exists, in
     whichever format it holds (the loop the arguments ask for continues);
-    save the state after a chunk once ``checkpoint_every`` iterations have
-    passed since the last save, and when the fit ends.  A chunk that raises
+    a file in the other parameter space wins, since history vectors cannot
+    be converted between spaces (``pydca_tpu/plm.py:1284-1294``).  Save the
+    state after a chunk once ``checkpoint_every`` iterations have passed
+    since the last save, and when the fit ends.  A chunk that raises
     ``RuntimeError`` (a device fault; never ``NotImplementedError``) is
     retried at most twice, each time from the file: a chunk updates the
     state in place, so the state in memory after an error is never
@@ -862,25 +1197,42 @@ def fit_plm(
     barrier, and every rank reads it: a resumed fused fit rebuilds its
     rows' logits (``_fused_from_generic``).
     """
+    if mm_bf16 is None:
+        mm_bf16 = default_mm_bf16()
+    if hist_bf16 is None:
+        hist_bf16 = default_hist_bf16()
+    w2space = _resolve_param_space(param_space, l, q, m, mm_bf16)
     weights = weights.to(torch.float32)
     step = max_iterations if chunk_size is None else int(chunk_size)
-    use_fused = seq_block is None
-    block = None if use_fused else int(seq_block)
+    chunked = seq_block is not None
+    block = int(seq_block) if chunked else None
+    use_fused = not chunked and not w2space
     if checkpoint_path is not None and not checkpoint_path.endswith(".npz"):
         checkpoint_path = checkpoint_path + ".npz"
-    if use_fused:
-        x1h, maskq = _prep_msa(msa, l, q)
+    prepped = []
+
+    def fused_inputs():
+        """The fused loop's one-hot and pick mask, built once per fit."""
+        if not prepped:
+            prepped.extend(_prep_msa(msa, l, q, _x_dtype(mm_bf16)))
+        return prepped
 
     def restore():
         """The checkpoint's state, in the form of this fit's loop."""
+        nonlocal w2space, use_fused
         state = _load_state(checkpoint_path, msa.device)
-        _check_space(state, checkpoint_path, l, q)
+        ckpt_w2 = _check_space(state, checkpoint_path, l, q)
         if isinstance(state, PlmFusedState) and (mesh is not None or not use_fused):
             # a fused file's logits cover every row: a rank rebuilds its own
             state = _generic_from_fused(state)
+        if ckpt_w2 != w2space:
+            logger.info("checkpoint is in %s space; continuing in that space",
+                        "w2" if ckpt_w2 else "compact")
+            w2space = ckpt_w2
+            use_fused = not chunked and not w2space
         if use_fused and not isinstance(state, PlmFusedState):
-            return _fused_from_generic(state, x1h, maskq, weights, lambda_h, lambda_j, l, q,
-                                       mesh=mesh)
+            return _fused_from_generic(state, *fused_inputs(), weights, lambda_h, lambda_j, l, q,
+                                       mesh=mesh, mm_bf16=mm_bf16)
         return state
 
     def save(state):
@@ -897,21 +1249,29 @@ def fit_plm(
         state = restore()
         logger.info("resumed plmDCA optimizer state at iteration %d", state.k)
     elif use_fused:
-        state = _plm_fused_state0(msa, weights, lambda_h, lambda_j, l, q, m, mesh=mesh)
+        state = _plm_fused_state0(msa, weights, lambda_h, lambda_j, l, q, m, mesh=mesh,
+                                  mm_bf16=mm_bf16, hist_bf16=hist_bf16)
     else:
-        state = _plm_lbfgs_state0(msa, weights, lambda_h, lambda_j, l, q, m, block, mesh)
+        state = _plm_lbfgs_state0(msa, weights, lambda_h, lambda_j, l, q, m, block, mesh,
+                                  mm_bf16, w2space)
+    opts = {}  # the options that are set, as keywords: the one-device f32 call is unchanged
+    if mesh is not None:
+        opts["mesh"] = mesh
+    if mm_bf16:
+        opts["mm_bf16"] = True
+    if w2space:
+        opts["w2space"] = True
     last_saved = state.k
-    mesh_kw = {} if mesh is None else {"mesh": mesh}  # the one-device call is unchanged
     retries = 2
     while state.k < max_iterations and not state.done:
         todo = min(step, max_iterations - state.k)
         try:
             if use_fused:
-                _plm_fused_steps(state, x1h, maskq, weights, lambda_h, lambda_j, l, q, todo,
-                                 **mesh_kw)
+                _plm_fused_steps(state, *fused_inputs(), weights, lambda_h, lambda_j, l, q, todo,
+                                 **opts)
             else:
                 _plm_lbfgs_steps(state, msa, weights, lambda_h, lambda_j, l, q, todo, block,
-                                 **mesh_kw)
+                                 **opts)
         except NotImplementedError:
             raise
         except RuntimeError as exc:
@@ -931,7 +1291,10 @@ def fit_plm(
             save(state)
             last_saved = state.k
     if not use_fused:
-        return result_from_state(state)
+        res = result_from_state(state)
+        if w2space:  # back to the reference's compact layout
+            res = res._replace(x=z_to_theta(res.x, l, q))
+        return res
     return LBFGSResult(
         x=state.theta(),
         fx=float(state.f),
@@ -957,6 +1320,10 @@ class PlmDCA:
     of logits (:func:`streaming_block`), as the JAX engine does.
     ``checkpoint_path``: save the optimizer state there and resume from it
     (:func:`fit_plm`), on either fit route.
+    ``precision``: ``None``/``"auto"``/``"float32"`` or ``"bfloat16"``, the
+    logits products' operands (:func:`resolve_precision`).
+    ``param_space``: ``"auto"``/``"compact"`` or ``"w2"``
+    (:func:`_resolve_param_space`).
     ``mesh``: ``None``/``"single"`` (one device), ``"auto"`` (the default
     process group when its world size is above 1) or a
     :class:`~pydca_tpu_torch.parallel.mesh.DataMesh`: the weights' identity
@@ -980,7 +1347,9 @@ class PlmDCA:
         device,
         seq_block: Optional[int] = None,
         checkpoint_path: Optional[str] = None,
+        precision: Optional[str] = None,
         mesh=None,
+        param_space: str = "auto",
     ):
         self.device = resolve_device(device)
         self.mesh = resolve_mesh(mesh, self.device)
@@ -1005,6 +1374,12 @@ class PlmDCA:
         elif int(seq_block) < 1:
             raise PlmDCAException(f"invalid seq_block {seq_block}; must be >= 1")
         self.__seq_block = None if seq_block is None else int(seq_block)
+        self.__mm_bf16 = resolve_precision(precision)
+        if param_space not in ("auto", "w2", "compact"):
+            raise PlmDCAException(
+                f"invalid param_space {param_space!r}; choose auto, w2 or compact"
+            )
+        self.__param_space = param_space
         self.__verbose = bool(verbose)
         self.__checkpoint_path = checkpoint_path
         self.__theta: Optional[torch.Tensor] = None
@@ -1059,6 +1434,11 @@ class PlmDCA:
         return self.__fit_result
 
     @property
+    def mm_bf16(self) -> bool:
+        """Whether the logits products run with bfloat16 operands."""
+        return self.__mm_bf16
+
+    @property
     def seq_block(self) -> Optional[int]:
         """Sequences per block of the streamed loss; ``None`` on the fused
         full-batch route."""
@@ -1103,6 +1483,8 @@ class PlmDCA:
                 progress_fn=_progress if self.__verbose else None,
                 checkpoint_path=self.__checkpoint_path,
                 seq_block=self.__seq_block,
+                mm_bf16=self.__mm_bf16,
+                param_space=self.__param_space,
             )
             with self.timers.stage("fit"):
                 if self.mesh is not None:

@@ -9,8 +9,12 @@ with ``nvcc`` at first use into the cache directory of
 builds, through :func:`pydca_tpu_torch.ops._build.build`, every library
 the run on a card would load: ``identity_counts`` (the weights of both
 engines) and, for mean-field, ``weighted_gram``.  The libraries do not
-depend on the shapes; (N, L, q) decide only whether a plm run streams
-(:func:`pydca_tpu_torch.plm.streaming_block`), which the warmup reports.
+depend on the shapes or the options; (N, L, q) and the flags decide only
+the route a plm run takes (fused or streamed, the products' precision,
+the parameter space: :func:`pydca_tpu_torch.plm.streaming_block`,
+:func:`~pydca_tpu_torch.plm.resolve_precision`,
+:func:`~pydca_tpu_torch.plm._resolve_param_space`), which the warmup
+reports.
 
 A warmup launches nothing on the card.  The CUDA context and the
 cuBLAS/cuSOLVER handles are made by each process and die with it, so
@@ -32,13 +36,11 @@ from typing import Optional, Sequence
 import torch
 
 from .ops import _build
-from .plm import streaming_block
+from .plm import _resolve_param_space, default_hist_bf16, default_mm_bf16, streaming_block
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["warmup_meanfield", "warmup_plm"]
-
-W2_ITEM = "ROADMAP Queue 1 #10"
 
 
 def _build_all(names: Sequence[str], device) -> float:
@@ -86,24 +88,38 @@ def warmup_plm(
     max_iterations: int = 100,
     seq_block: Optional[int] = None,
     chunk_size: Optional[int] = 50,
+    m: int = 5,
+    mm_bf16: Optional[bool] = None,
     param_space: str = "auto",
     mesh=None,
+    hist_bf16: Optional[bool] = None,
     device="cuda",
 ) -> float:
     """Build the library a ``plmdca`` run at (N, L, q) on ``device`` loads
-    (``identity_counts``); returns seconds spent.  Logs whether the fit
-    would stream (``seq_block``, else the engine's own
-    :func:`~pydca_tpu_torch.plm.streaming_block`) and records
-    ``chunk_size``, which the fit's chunking takes and the build does
-    not.  ``param_space="w2"`` raises, as the engine does."""
-    if param_space == "w2":
-        raise NotImplementedError(f"--param_space w2 is not ported yet ({W2_ITEM})")
+    (``identity_counts``); returns seconds spent.  Resolves the route as
+    ``fit_plm`` does (``pydca_tpu/warmup.py:188-195``) and logs it: fused
+    or streamed (``seq_block``, else the engine's own
+    :func:`~pydca_tpu_torch.plm.streaming_block`), the products' operands
+    (``mm_bf16``, ``None``: the default), the history rows' dtype, and
+    the parameter space (``param_space="w2"`` falls back to compact with
+    the engine's warning where the engine would); records ``chunk_size``,
+    which the fit's chunking takes and the build does not."""
+    if mm_bf16 is None:
+        mm_bf16 = default_mm_bf16()
+    if hist_bf16 is None:
+        hist_bf16 = default_hist_bf16()
+    w2space = _resolve_param_space(param_space, l, q, m, mm_bf16)
     block = seq_block if seq_block is not None else streaming_block(n, l, q)
+    if block is not None:
+        route = f"streamed over blocks of {block}"
+    else:
+        route = "generic loop" if w2space else "fused"
     dt = _build_all(("identity_counts",), device)
     logger.info(
         "plmDCA warmup (N=%d, L=%d, q=%d, seqid %s, %d iterations in chunks of %s, %s, "
-        "mesh %s, device %s): %.1f s build into %s", n, l, q, seqid, max_iterations,
-        chunk_size, "fused" if block is None else f"streamed over blocks of {block}",
-        mesh, device, dt, _build.BUILD_DIR,
+        "%s products, %s history rows, %s parameter space, mesh %s, device %s): "
+        "%.1f s build into %s", n, l, q, seqid, max_iterations, chunk_size, route,
+        "bfloat16" if mm_bf16 else "float32", "bfloat16" if hist_bf16 else "float32",
+        "w2" if w2space else "compact", mesh, device, dt, _build.BUILD_DIR,
     )
     return dt

@@ -11,7 +11,11 @@ for bit (``tests/test_untested_features.py:42-62``).  The state conversions
 agree with JAX's on the same state: fused -> generic exactly, generic ->
 fused to float32 recompute.  The bounded retry recovers from a chunk that
 fails half way through, leaving a state that must not be continued, and
-raises where JAX does.
+raises where JAX does.  A w2-space file (``param_space="w2"``) written
+by either package resumes in the other, a w2 fit resumes bit for bit, a
+file in the other parameter space continues in its own space, and a
+fused file with bfloat16 history rows resumes with bfloat16 rows in both
+packages.
 """
 
 import logging
@@ -50,18 +54,18 @@ def problem():
     return msa, w, np.float32(0.2 * (L - 1))
 
 
-def port_fit(problem, iters, ckpt=None, seq_block=None, every=5):
+def port_fit(problem, iters, ckpt=None, seq_block=None, every=5, **kw):
     msa, w, lam = problem
     return tplm.fit_plm(torch.tensor(msa), torch.tensor(w), float(lam), float(lam), L, Q,
                         max_iterations=iters, chunk_size=5, checkpoint_path=ckpt,
-                        checkpoint_every=every, seq_block=seq_block)
+                        checkpoint_every=every, seq_block=seq_block, **kw)
 
 
-def jax_fit(problem, iters, ckpt=None, seq_block=None):
+def jax_fit(problem, iters, ckpt=None, seq_block=None, **kw):
     msa, w, lam = problem
     return jplm.fit_plm(jnp.asarray(msa), jnp.asarray(w), jnp.float32(lam), jnp.float32(lam),
                         L, Q, max_iterations=iters, chunk_size=5, checkpoint_path=ckpt,
-                        checkpoint_every=5, seq_block=seq_block)
+                        checkpoint_every=5, seq_block=seq_block, **kw)
 
 
 ROUTES = pytest.mark.parametrize("seq_block", [None, BLOCK], ids=["fused", "generic"])
@@ -115,13 +119,13 @@ def test_file_format_matches_jax(tmp_path, problem, seq_block):
         assert int(ft["k"]) == int(fj["k"]) == 5
 
 
-def resume_both(tmp_path, problem, path, seq_block, iters=10):
+def resume_both(tmp_path, problem, path, seq_block, iters=10, **kw):
     """Both packages resume copies of one file to ``iters`` iterations."""
     pj, pt = str(tmp_path / "rj.npz"), str(tmp_path / "rt.npz")
     shutil.copy(path, pj)
     shutil.copy(path, pt)
-    rj = jax_fit(problem, iters, pj, seq_block)
-    rt = port_fit(problem, iters, pt, seq_block)
+    rj = jax_fit(problem, iters, pj, seq_block, **kw)
+    rt = port_fit(problem, iters, pt, seq_block, **kw)
     return rj, rt
 
 
@@ -276,26 +280,72 @@ def test_not_implemented_is_never_retried(tmp_path, monkeypatch, caplog, problem
     assert not retry_warnings(caplog)
 
 
-def test_w2_checkpoint_raises(tmp_path, problem):
-    """A generic file over the full (Lq)^2 coupling matrix is a w2-space
-    run's (``pydca_tpu/plm.py:1287``): refused, never reinterpreted."""
-    lq = L * Q
-    st = port_state(problem, BLOCK, steps=1)
-    d = lq + lq * lq
+W2_ROUTES = pytest.mark.parametrize("seq_block", [None, BLOCK], ids=["full", "streamed"])
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_w2_cross_package_resume(tmp_path, problem, writer):
+    """A w2-space file (generic, ``L*q + (L*q)^2`` parameters) written at
+    k = 5 by either package, resumed by both to k = 10 in the w2 space; the
+    results in the compact layout."""
     path = str(tmp_path / "w2.npz")
+    (jax_fit if writer == "jax" else port_fit)(problem, 5, path, param_space="w2")
+    with np.load(path) as f:
+        assert f["x"].shape == (L * Q + (L * Q) ** 2,) and "zzt" not in f.files
+    rj, rt = resume_both(tmp_path, problem, path, None, param_space="w2")
+    assert rt.num_iters == int(rj.num_iters) == 10
+    assert rt.x.shape == (L * Q + L * (L - 1) // 2 * Q * Q,)
+    np.testing.assert_allclose(rt.fx, float(rj.fx), rtol=1e-4)
+    assert rel_l2(rt.x.numpy(), np.asarray(rj.x)) <= 1e-3
+
+
+@W2_ROUTES
+def test_w2_interrupted_resume_is_bitwise(tmp_path, problem, seq_block):
+    full = port_fit(problem, 20, seq_block=seq_block, param_space="w2")
+    ckpt = str(tmp_path / "w2")
+    part = port_fit(problem, 10, ckpt, seq_block, param_space="w2")
+    assert part.num_iters == 10
+    resumed = port_fit(problem, 20, ckpt, seq_block, param_space="w2")
+    assert resumed.num_iters == full.num_iters == 20
+    assert torch.equal(resumed.x, full.x)
+    assert resumed.fx == full.fx and resumed.n_evals == full.n_evals
+
+
+@pytest.mark.parametrize("written,asked", [("compact", "w2"), ("w2", "compact")])
+def test_checkpoint_space_wins_on_resume(tmp_path, problem, caplog, written, asked):
+    """A file in the other parameter space continues in its own space in
+    both packages (``pydca_tpu/plm.py:1284-1294``; a fused compact file
+    under a w2 request goes through ``_generic_from_fused`` and back to the
+    fused loop): the same iterations and optimum."""
+    path = str(tmp_path / "k5.npz")
+    jax_fit(problem, 5, path, param_space=written)
+    with caplog.at_level(logging.INFO, logger="pydca_tpu_torch.plm"):
+        rj, rt = resume_both(tmp_path, problem, path, None, param_space=asked)
+    assert f"checkpoint is in {written} space; continuing in that space" in caplog.text
+    assert rt.num_iters == int(rj.num_iters) == 10
+    np.testing.assert_allclose(rt.fx, float(rj.fx), rtol=1e-4)
+    assert rel_l2(rt.x.numpy(), np.asarray(rj.x)) <= 1e-3
+
+
+def test_checkpoint_of_another_shape_raises(tmp_path, problem):
+    """A file whose parameter count fits neither layout of this (L, q)."""
+    st = port_state(problem, BLOCK, steps=1)
+    d = st.x.shape[0] + 1
+    path = str(tmp_path / "odd.npz")
     tplm._save_state(path, LBFGSState(
         x=torch.zeros(d), f=st.f, g=torch.zeros(d), z=torch.zeros(2 * M, d), rho=st.rho,
         k=st.k, done=False, converged=False, ls_failed=False, n_evals=st.n_evals))
-    with pytest.raises(NotImplementedError, match="Queue 1 #10"):
-        port_fit(problem, 10, path)
-    with pytest.raises(NotImplementedError, match="Queue 1 #10"):
-        port_fit(problem, 10, path, BLOCK)
+    for seq_block in (None, BLOCK):
+        with pytest.raises(ValueError, match=f"holds {d} parameters"):
+            port_fit(problem, 10, path, seq_block)
 
 
 def test_bf16_history_file_loads(tmp_path, caplog, problem):
     """A fused file with bfloat16 history rows, as the TPU writes it (the
-    JAX fit with ``hist_bf16=True``): the rows load exactly, the fit goes
-    on in float32 and the port's next file says ``z_bf16 = False``."""
+    JAX fit with ``hist_bf16=True``): the rows load exactly and stay
+    bfloat16, both packages go on from it in bfloat16 for five iterations
+    and agree at the cross-package tolerance (f rtol 1e-4, theta relative
+    L2 <= 1e-3), and the port's next file says ``z_bf16 = True``."""
     msa, w, lam = problem
     path = str(tmp_path / "bf16.npz")
     jplm.fit_plm(jnp.asarray(msa), jnp.asarray(w), jnp.float32(lam), jnp.float32(lam), L, Q,
@@ -308,11 +358,17 @@ def test_bf16_history_file_loads(tmp_path, caplog, problem):
     with caplog.at_level(logging.INFO, logger="pydca_tpu_torch.plm"):
         st = tplm._load_state(path, "cpu")
     assert "bfloat16 history rows" in caplog.text
-    assert np.array_equal(st.z.numpy(), rows) and st.z.dtype == torch.float32
-    res = port_fit(problem, 10, path)
-    assert res.num_iters == 10 and np.isfinite(res.fx)
-    with np.load(path) as f:
-        assert int(f["k"]) == 10 and not bool(f["z_bf16"])
+    assert st.z.dtype == torch.bfloat16 and np.array_equal(st.z.float().numpy(), rows)
+    rj, rt = resume_both(tmp_path, problem, path, None)
+    assert rt.num_iters == int(rj.num_iters) == 10
+    np.testing.assert_allclose(rt.fx, float(rj.fx), rtol=1e-4)
+    assert rel_l2(rt.x.numpy(), np.asarray(rj.x)) <= 1e-3
+    for name in ("rt.npz", "rj.npz"):  # both next files keep bfloat16 rows
+        with np.load(str(tmp_path / name)) as f:
+            assert int(f["k"]) == 10 and bool(f["z_bf16"])
+            rows = f["z"]
+        assert np.array_equal(rows, np.asarray(jnp.asarray(rows).astype(jnp.bfloat16),
+                                               np.float32))
 
 
 def test_missing_generic_field_raises(tmp_path, problem):

@@ -167,16 +167,32 @@ def test_port_never_imports_jax():
 
 
 @pytest.mark.parametrize(
-    "extra,match",
+    "flags,jax_kw",
     [
-        (["compute_fn", "--precision", "bfloat16"], "Queue 1 #6"),
-        (["compute_fn", "--param_space", "w2"], "Queue 1 #10"),
+        (["--precision", "bfloat16"], dict(precision="bfloat16")),
+        (["--param_space", "w2"], dict(param_space="w2")),
     ],
+    ids=["bfloat16", "w2"],
 )
-def test_unported_options_raise(tmp_path, extra, match):
-    fa = str(tmp_path / "f.fa")
-    write_family_fasta(fa, planted_family(20, 12, 5, n_pairs=1)[0], talph.RNA)
-    cmd, flags = extra[0], extra[1:]
-    argv = [cmd, "rna", fa, "--device", "cpu", "--output_dir", str(tmp_path)] + flags
-    with pytest.raises(NotImplementedError, match=match):
-        tcli.run_plm_dca(argv)
+def test_precision_and_space_flags_match_jax_cli(tmp_path, flags, jax_kw):
+    """``--precision bfloat16`` and ``--param_space w2`` through both CLIs'
+    ``compute_fn --apc`` (the JAX CLI at ``mesh=None``: the tests' 8
+    virtual devices would send its default ``--mesh auto`` to the sharded
+    path): the same header, and FN-APC at the JAX package's rank bar."""
+    n, l, q = 300, 30, 5
+    codes, _ = planted_family(n, l, q, seed=l, n_pairs=6, n_ancestors=12)
+    fa = str(tmp_path / "fam.fa")
+    write_family_fasta(fa, codes, talph.RNA)
+    out_j, out_t = str(tmp_path / "jax"), str(tmp_path / "port")
+    jcli.execute_from_command_line(
+        msa_file=fa, biomolecule="rna", the_command="compute_fn", apc=True, output_dir=out_j,
+        mesh=None, **jax_kw,
+    )
+    tinst = tcli.run_plm_dca(["compute_fn", "rna", fa, "--apc", "--device", "cpu",
+                              "--output_dir", out_t] + flags)
+    assert tinst.mm_bf16 == ("precision" in jax_kw)
+    name = "PLMDCA_apc_fn_scores_fam.txt"
+    (hj, sj), (ht, st) = (read_scores(os.path.join(d, name)) for d in (out_j, out_t))
+    assert ht == hj and len(st) == len(sj) == l * (l - 1) // 2
+    assert spearman(st, sj, l) >= 0.98
+    assert top_k_overlap(st, sj, 20) >= 0.9

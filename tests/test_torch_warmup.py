@@ -96,13 +96,26 @@ def test_plm_warmup_takes_the_jax_flags(family_file, capsys, built):
     assert re.fullmatch(LINE.format("plmDCA"), capsys.readouterr().out.strip())
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--precision", "bfloat16"], "Queue 1 #6"),
-    (["--param_space", "w2"], "Queue 1 #10"),
-])
-def test_unported_warmup_flags_raise(flags, match, family_file):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("flags,route,warns", [
+    (["--precision", "bfloat16"], "fused, bfloat16 products, float32 history rows, compact",
+     False),
+    (["--param_space", "w2"], "generic loop, float32 products, float32 history rows, w2", False),
+    (["--param_space", "w2", "--precision", "bfloat16"],
+     "fused, bfloat16 products, float32 history rows, compact", True),
+], ids=["bfloat16", "w2", "w2_under_bfloat16"])
+def test_warmup_takes_precision_and_space(flags, route, warns, family_file, capsys, caplog,
+                                          built):
+    """``warmup --precision bfloat16`` / ``--param_space w2``: the JAX
+    CLI's line, and the route a run would take logged; w2 under bfloat16
+    products falls back to compact with the engine's warning."""
+    with caplog.at_level(logging.INFO, logger="pydca_tpu_torch"):
         plmdca_main.run_plm_dca(["warmup", "protein", family_file, "--device", "cpu"] + flags)
+    assert re.fullmatch(LINE.format("plmDCA"), capsys.readouterr().out.strip())
+    assert route in caplog.text
+    warned = [r.getMessage() for r in caplog.records if r.levelno == logging.WARNING]
+    assert warned == (["param_space='w2' does not support bfloat16 operands; running the "
+                       "compact parameterization instead"] if warns else [])
+    assert built == []
 
 
 @pytest.mark.parametrize("n,streamed", [(2000, False), (70000, True)])

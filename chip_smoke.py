@@ -77,7 +77,17 @@ Builds the port's CUDA kernels from ``pydca_tpu_torch/csrc`` with nvcc
   ``W2SPACE_MAX_BYTES`` (b); ``PlmDCA(precision="bfloat16")`` streamed on
   phase 12's codes for two iterations beside phase 12's float32 s per
   evaluation (c); one bfloat16 and one w2 evaluation on the card against
-  the port's CPU route at the CPU tests' tolerances (d) (phase 19).
+  the port's CPU route at the CPU tests' tolerances (d) (phase 19);
+- the model-sharded mean-field solve: ``cholesky_blocked``,
+  ``tri_inv_lower`` and ``spd_inverse(chol_block=2048)`` on phase 6's C
+  (D = 20000) in one process against ``cholesky_ex``, ``solve_triangular``
+  and the engine's ``spd_inverse`` (a); ``mfdca_sharded`` on phase 6's
+  codes over a 1 x 2 ('data', 'model') grid of two gloo ranks on card 0
+  (worker processes of this script, as in phase 16), at the rank bar
+  against phase 6, each rank's rows of the couplings against phase 6's and
+  its solve's peak memory below the one-card solve's (b); ``python -m
+  pydca_tpu_torch.dryrun --n 4 --device cuda:0``, a 2 x 2 grid of gloo
+  ranks on card 0 with the dryrun's three checks (c) (phase 20).
 
 One line per phase and its seconds; the next-to-last line is the kernel record (JSON), the
 last line the device record (JSON).  Exits non-zero, with no result, when
@@ -89,6 +99,7 @@ would start one rank a card.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import logging
@@ -123,7 +134,11 @@ from pydca_tpu_torch.meanfield import MeanFieldDCA
 from pydca_tpu_torch.native import fastacodec
 from pydca_tpu_torch.ops import _build
 from pydca_tpu_torch.ops import cuda_kernels as ck
-from pydca_tpu_torch.parallel import init_distributed, make_mesh, spawn_cli
+from pydca_tpu_torch.ops import linalg
+from pydca_tpu_torch.parallel import (
+    init_distributed, make_mesh, mfdca_sharded, shard_msa, spawn_cli,
+)
+from pydca_tpu_torch.profiling import StageTimers
 from pydca_tpu_torch.synthetic import (
     PLANTED_MIN_SHARE, PLANTED_TOP, planted_family, planted_recovery,
     protein_family_sweep, reference_from_row, rna_family_sweep, spearman, top_k_overlap,
@@ -1632,6 +1647,8 @@ def phase16_worker(spec_path: str, rank: int) -> int:
     ``PHASE16 {json}`` line."""
     with open(spec_path) as fh:
         spec = json.load(fh)
+    if spec.get("grid"):
+        return phase20_worker(spec, rank)
     set_precision()
     dev = torch.device("cuda", spec["cards"][rank])
     torch.cuda.set_device(dev)
@@ -1708,8 +1725,9 @@ def phase16_worker(spec_path: str, rank: int) -> int:
     return 0
 
 
-def spawn_ranks(spec: dict, tmp: str, tag: str):
-    """Run the two rank processes of one phase 16 case; their reports."""
+def spawn_ranks(spec: dict, tmp: str, tag: str, prefix: str = "PHASE16 "):
+    """Run the two rank processes of one phase 16 (or 20) case; their
+    reports (the line each prints after ``prefix``)."""
     spec_path = os.path.join(tmp, f"phase16_{tag}.json")
     with open(spec_path, "w") as fh:
         json.dump(spec, fh)
@@ -1727,10 +1745,11 @@ def spawn_ranks(spec: dict, tmp: str, tag: str):
                 p.wait()
     reports = []
     for r, (p, out) in enumerate(zip(procs, outs)):
-        lines = [ln for ln in out.splitlines() if ln.startswith("PHASE16 ")]
+        lines = [ln for ln in out.splitlines() if ln.startswith(prefix)]
         check(p.returncode == 0 and len(lines) == 1,
-              f"phase 16 ({tag}) rank {r} failed (exit {p.returncode}):\n{out[-4000:]}")
-        reports.append(json.loads(lines[0][len("PHASE16 "):]))
+              f"{prefix.strip().lower()} ({tag}) rank {r} failed (exit {p.returncode}):\n"
+              f"{out[-4000:]}")
+        reports.append(json.loads(lines[0][len(prefix):]))
     return reports
 
 
@@ -1868,6 +1887,192 @@ def phase_spawned_ranks(tmp, smi, main_fa, wall_b):
           f"imports, group, CLI) against (b)'s ranks' plm CLI walls "
           f"{' / '.join(f'{w:.2f}' for w in wall_b)} s: the launch costs "
           f"{wall - max(wall_b):.2f} s", flush=True)
+
+
+# ------------------------------------------------------------- phase 20
+SOLVE_TOL = 1e-3  # the f32 factors and inverses on phase 6's C, relative to the largest entry
+COUPLINGS_TOL = 1e-3  # the model-sharded couplings against phase 6's, relative to max |J|
+DRYRUN_TIMEOUT_S = 300
+
+
+class SolveTimers(StageTimers):
+    """Stage timers that keep the peak device memory over the stages of
+    the solve (``cholesky`` to ``syrk``, C's row slab resident)."""
+
+    solve_peak = 0
+
+    @contextlib.contextmanager
+    def stage(self, name):
+        if name == "cholesky":
+            torch.cuda.reset_peak_memory_stats()
+        with StageTimers.stage(self, name):
+            yield
+        if name == "syrk":
+            self.solve_peak = torch.cuda.max_memory_allocated()
+
+
+def rel_err(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_solve_one_card(dev, smi, mf_ref):
+    """(a) The blocked Cholesky, the triangular inverse and
+    ``spd_inverse(chol_block=2048)`` on phase 6's C (D = 20000), one
+    process on one card, against ``cholesky_ex``, ``solve_triangular`` and
+    the engine's ``spd_inverse``; returns the engine solve's peak memory
+    (C resident)."""
+    inst = MeanFieldDCA(mf_ref["fa"], "protein", device=dev)
+    c = inst.construct_corr_mat()
+    del inst
+    d = c.shape[0]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    inv_e, info_e = linalg.spd_inverse(c)
+    torch.cuda.synchronize()
+    peak_engine = torch.cuda.max_memory_allocated()
+    chol_ref, info_ref = torch.linalg.cholesky_ex(c)
+    fac, info_b = linalg.cholesky_blocked(c, 2048)
+    e_chol = rel_err(fac, chol_ref)
+    del fac
+    eye = torch.eye(d, dtype=c.dtype, device=dev)
+    w_ref = torch.linalg.solve_triangular(chol_ref, eye, upper=False)
+    del eye
+    w = linalg.tri_inv_lower(chol_ref)
+    e_tri = rel_err(w, w_ref)
+    del w, w_ref
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    inv_b, info_s = linalg.spd_inverse(c, chol_block=2048)
+    torch.cuda.synchronize()
+    peak_blocked = torch.cuda.max_memory_allocated()
+    e_inv = rel_err(inv_b, inv_e)
+    del inv_b, inv_e
+    infos = [int(x) for x in (info_e, info_ref, info_b, info_s)]
+    check(infos == [0, 0, 0, 0], f"phase 20 (a): a factorisation failed, info {infos}")
+    check(max(e_chol, e_tri, e_inv) <= SOLVE_TOL,
+          f"phase 20 (a): relative errors factor {e_chol:.3e}, triangular inverse {e_tri:.3e}, "
+          f"inverse {e_inv:.3e} above {SOLVE_TOL}")
+    ms = {name: cuda_ms(fn, 1) for name, fn in (
+        ("cholesky_ex", lambda: torch.linalg.cholesky_ex(c)),
+        ("cholesky_blocked", lambda: linalg.cholesky_blocked(c, 2048)),
+        ("solve_triangular", lambda: torch.linalg.solve_triangular(
+            chol_ref, torch.eye(d, dtype=c.dtype, device=dev), upper=False)),
+        ("tri_inv_lower", lambda: linalg.tri_inv_lower(chol_ref)),
+        ("engine spd_inverse", lambda: linalg.spd_inverse(c)),
+        ("spd_inverse(chol_block=2048)", lambda: linalg.spd_inverse(c, chol_block=2048)),
+    )}
+    del chol_ref, c
+    torch.cuda.empty_cache()
+    print(f"phase 20 (a) [{smi}] one card, phase 6's C (D={d}, float32): relative error "
+          f"(max |diff| / max |ref|) cholesky_blocked {e_chol:.3e} against cholesky_ex, "
+          f"tri_inv_lower {e_tri:.3e} against solve_triangular, spd_inverse(chol_block=2048) "
+          f"{e_inv:.3e} against the engine's (<= {SOLVE_TOL}); ms (CUDA events, one call after "
+          "one warm-up) " + ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+          + f"; solve peak (C resident) engine {peak_engine / 2**30:.2f} GiB, blocked "
+          f"{peak_blocked / 2**30:.2f} GiB", flush=True)
+    return peak_engine
+
+
+def phase20_worker(spec: dict, rank: int) -> int:
+    """One rank of phase 20 (b): ``mfdca_sharded`` on phase 6's file over a
+    1 x 2 grid, then the one-card engine on the same file (its couplings
+    must be phase 6's bit for bit) to hold the rank's rows and the FN-APC
+    ranking to; prints one ``PHASE20 {json}`` line."""
+    set_precision()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    init_distributed("gloo", store=dist.FileStore(spec["store"], 2), rank=rank, world_size=2,
+                     timeout=GROUP_TIMEOUT)
+    mesh = make_mesh(1, 2, device=dev)
+    mesh.timed = True
+    msa = fasta.read_msa(spec["mf_fa"], "protein")
+    l = msa.seqs_len
+    codes, _, valid = shard_msa(mesh, msa.data)
+    timers = SolveTimers()
+    torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    fn, fn_apc, rows = mfdca_sharded(codes, biomolecule_q=msa.q, valid=valid, mesh=mesh,
+                                     return_couplings=True, timers=timers)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    report = dict(rank=rank, model_rank=mesh.model_rank, wall=wall,
+                  stages={k: timers.elapsed(k) for k in (
+                      "weights", "gram", "corr", "cholesky", "tri_inv", "syrk", "score")},
+                  solve_peak=timers.solve_peak, rows=[rows.start, rows.stop],
+                  collectives={k: list(v) for k, v in mesh.collectives.items()},
+                  ident=ck.identity_counts.launches, gram=ck.weighted_gram.launches)
+    scores = score.sorted_scores(fn_apc, l)
+    del fn, fn_apc
+    ref = MeanFieldDCA(spec["mf_fa"], "protein", device=dev)
+    cpl = ref.compute_couplings()
+    report.update(same_as_phase6=digest(cpl) == spec["couplings"],
+                  couplings_err=float((rows.rows - cpl[rows.start : rows.stop]).abs().max()
+                                      / cpl.abs().max()))
+    ref_scores = ref.compute_sorted_FN_APC()
+    report.update(spearman=spearman(scores, ref_scores, l),
+                  top20=top_k_overlap(scores, ref_scores, 20))
+    print("PHASE20 " + json.dumps(report), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_grid_two_ranks(tmp, smi, mf_ref, one_card_peak):
+    """(b) ``mfdca_sharded`` on phase 6's codes over two gloo ranks on card
+    0 as a 1 x 2 grid: the rank bar against phase 6, the couplings' rows,
+    each rank's solve peak beside the one-card engine's, the stages and the
+    collectives.  Returns the ranks' kernel launches."""
+    spec = dict(grid=[1, 2], store=os.path.join(tmp, "store_p20"), mf_fa=mf_ref["fa"],
+                couplings=mf_ref["couplings"])
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    reps = spawn_ranks(spec, tmp, "b", prefix="PHASE20 ")
+    wall = time.perf_counter() - t0
+    parts = []
+    for rep in reps:
+        r = rep["rank"]
+        check(rep["same_as_phase6"], f"phase 20 (b) rank {r}: the one-card reference's "
+              "couplings differ from phase 6's")
+        check(rep["spearman"] >= 0.98 and rep["top20"] >= 0.9,
+              f"phase 20 (b) rank {r}: FN-APC against phase 6: spearman {rep['spearman']:.4f}, "
+              f"top-20 {rep['top20']:.2f}")
+        check(rep["couplings_err"] <= COUPLINGS_TOL,
+              f"phase 20 (b) rank {r}: couplings rows {rep['couplings_err']:.3e} off phase 6's "
+              f"(relative to max |J|; <= {COUPLINGS_TOL})")
+        check(rep["solve_peak"] < one_card_peak,
+              f"phase 20 (b) rank {r}: solve peak {rep['solve_peak'] / 2**30:.2f} GiB, not below "
+              f"the one-card solve's {one_card_peak / 2**30:.2f} GiB")
+        coll = ", ".join(f"{k} {c}x {e:.3g} elements {t:.3f} s"
+                         for k, (c, e, t) in sorted(rep["collectives"].items()))
+        parts.append(
+            f"rank {r} (model rank {rep['model_rank']}, rows {rep['rows'][0]}-{rep['rows'][1]}): "
+            f"spearman {rep['spearman']:.4f} top-20 {rep['top20']:.2f} against phase 6, "
+            f"couplings rows {rep['couplings_err']:.3e} of max |J|, solve peak "
+            f"{rep['solve_peak'] / 2**30:.2f} GiB (one card {one_card_peak / 2**30:.2f}); "
+            + " ".join(f"{k} {v:.3f} s" for k, v in rep["stages"].items())
+            + f", wall {rep['wall']:.3f} s; collectives: {coll}")
+    print(f"phase 20 (b) [{smi}] mfdca_sharded on phase 6's codes, a 1 x 2 grid of gloo ranks on "
+          f"card 0 (the model-sharded solve, the blocked Cholesky at D=20000): "
+          + " | ".join(parts) + f"; both ranks in {wall:.2f} s", flush=True)
+    return dict(ident=sum(r["ident"] for r in reps), gram=sum(r["gram"] for r in reps))
+
+
+def phase_dryrun(smi):
+    """(c) ``python -m pydca_tpu_torch.dryrun --n 4 --device cuda:0``: four
+    gloo ranks on card 0, a 2 x 2 grid, with the dryrun's three checks."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "pydca_tpu_torch.dryrun", "--n", "4",
+                           "--device", "cuda:0"], cwd=root, capture_output=True, text=True,
+                          timeout=DRYRUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("dryrun_multichip OK")]
+    check(proc.returncode == 0 and len(lines) == 1,
+          f"phase 20 (c): the dryrun failed (exit {proc.returncode}):\n{proc.stdout[-2000:]}"
+          f"{proc.stderr[-4000:]}")
+    check(lines[0].startswith("dryrun_multichip OK: mesh {'data': 2, 'model': 2}"),
+          f"phase 20 (c): {lines[0]}")
+    print(f"phase 20 (c) [{smi}] {lines[0]}; wall {wall:.2f} s (four processes)", flush=True)
 
 
 # ------------------------------------------------------------- phases 17-18
@@ -2277,15 +2482,23 @@ def main() -> int:
         phase_fasta_decode(tmp, smi, main_fa, deep_fa)
         clock.lap("18")
 
+        # ---- phase 20: the model-sharded solve, the multi-rank dryrun
+        one_card_peak = phase_solve_one_card(dev, smi, mf_ref)
+        grid = phase_grid_two_ranks(tmp, smi, mf_ref, one_card_peak)
+        phase_dryrun(smi)
+        print(f"phase 20 kernel launches {{'identity_counts': {grid['ident']}, "
+              f"'weighted_gram': {grid['gram']}}} ((b)'s two ranks)", flush=True)
+        clock.lap("20")
+
     records = []
     for name, (ms, plain_ms, lib_ms, bound), n_launch, err in (
         ("identity_counts", timing["pf02826_deep"],
          launches + ckpt_launches + fam_ident + ref_ident + ref_mf["identity_counts"]
-         + mesh_a["ident"] + mesh_bd["ident"] + cold["ident"] + p19_ident,
+         + mesh_a["ident"] + mesh_bd["ident"] + cold["ident"] + p19_ident + grid["ident"],
          max(max_err, fam_ident_err)),
         ("weighted_gram", gram_timing["protein"],
          mf_launches + fam_gram + ref_mf["weighted_gram"] + mesh_a["gram"] + mesh_bd["gram"]
-         + cold["gram"],
+         + cold["gram"] + grid["gram"],
          max(gram_err, fam_gram_err)),
     ):
         records.append({

@@ -16,14 +16,16 @@ The counting layer runs the two hand-written CUDA kernels on a card
 (``csrc/identity_counts.cu`` for the weights, ``csrc/weighted_gram.cu``
 for the Gram).  With a mesh (``mesh=``, float32 only, as in the JAX
 package) the weights' identity counts are split over the ranks by tiles
-and the Gram by rows (:mod:`pydca_tpu_torch.parallel`); C, the inverse
-and the scores are then computed on every rank.
+and the Gram by rows (:mod:`pydca_tpu_torch.parallel`).  On a mesh whose
+model axis is 1, C, the inverse and the scores are then computed on every
+rank; above 1, each rank of the model axis builds its row slab of C and
+the solve runs on the slabs (:func:`_grid_couplings`).
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,7 +37,7 @@ from .device import resolve_device, set_precision, sync
 from .io.fasta import MSA, _dedup_encoded, read_msa
 from .ops import linalg
 from .parallel.mesh import resolve_mesh, shard_msa
-from .profiling import StageTimers
+from .profiling import StageTimers, synced_stage
 
 logger = logging.getLogger(__name__)
 
@@ -110,7 +112,13 @@ class MeanFieldDCA:
         per card; ``"auto"``: the default group when its world size is above
         1).  The engine's device is then the mesh's.  Taken for float32
         only, as in the JAX package; every rank holds the whole alignment
-        and gets the same result.
+        and gets the same result.  On a mesh with a model axis above 1 (a
+        ('data', 'model') grid, :func:`~pydca_tpu_torch.parallel.make_mesh`)
+        C and ``-C^{-1}`` are row-sharded over the model axis: the FN and
+        FN-APC scores never hold a (D, D) matrix after the Gram, while what
+        needs the whole coupling matrix (``compute_couplings``, DI,
+        ``compute_params``, the fields) gathers it once over the model axis,
+        one (D, D) buffer a rank.
     """
 
     def __init__(
@@ -146,6 +154,8 @@ class MeanFieldDCA:
         self.__gram: Optional[torch.Tensor] = None
         self.__fi: Optional[torch.Tensor] = None  # raw (L, q), the Gram's diagonal
         self.__couplings: Optional[torch.Tensor] = None
+        # on a model axis above 1: this rank's padded row slab of the couplings
+        self.__coupling_rows: Optional[torch.Tensor] = None
         self.__fn_raw: Optional[np.ndarray] = None
         self.__fn_apc: Optional[np.ndarray] = None
         self.lu_fallback = False  # set when the pipeline took the LU inverse
@@ -213,6 +223,10 @@ class MeanFieldDCA:
     def _sharded(self) -> bool:
         """Whether the counts run over the mesh (float32 only, as in JAX)."""
         return self.mesh is not None and self.dtype == torch.float32
+
+    def _grid(self) -> bool:
+        """Whether the solve runs on the mesh's model axis (above 1)."""
+        return self._sharded() and self.mesh.model_size > 1
 
     def get_sequences_weight(self) -> torch.Tensor:
         if self.__weights is None:
@@ -308,9 +322,27 @@ class MeanFieldDCA:
         if corr_mat is not None:
             c = torch.as_tensor(corr_mat, device=self.device).to(self.dtype)
             return self._inverse_with_fallback(c)
-        if self.__couplings is None:
-            self._run_fused_pipeline()
+        self._pipeline()
+        if self.__couplings is None:  # a model axis: gathered once, on first use
+            l, q = self.msa.seqs_len, self.msa.q
+            d = l * (q - 1)
+            full = self.mesh.gather_rows(self.__coupling_rows, "couplings_allgather",
+                                         axis="model")
+            self.__couplings = full[:d, :d] if full.shape[0] > d else full
         return self.__couplings
+
+    def _pipeline(self) -> None:
+        """Run :meth:`_run_fused_pipeline` unless its results are cached."""
+        if self.__couplings is None and self.__coupling_rows is None:
+            self._run_fused_pipeline()
+
+    def coupling_rows(self) -> CouplingRows:
+        """This rank's rows of the couplings on a model axis above 1 (the
+        whole matrix as one slab otherwise), without a gather."""
+        self._pipeline()
+        if self.__coupling_rows is None:
+            return CouplingRows(self.__couplings, 0, self.__couplings.shape[0])
+        return _real_rows(self.__coupling_rows, self.msa.seqs_len, self.msa.q, self.mesh)
 
     def _run_fused_pipeline(self) -> None:
         """Populate the weights/fi/couplings/FN caches: the steps of the JAX
@@ -331,10 +363,16 @@ class MeanFieldDCA:
             sync(self.device)
         with timers.stage("corr"):
             self.__fi = _gram_fi(gram, l, q)
-            fi_reg = stats.regularize_fi(self.__fi, q, pc)
-            c = stats.corr_mat_from_gram(gram, fi_reg, pc, l, q)
+            if self._grid():
+                c = _corr_rows(gram, self.__fi, l, q, pc, self.mesh)
+            else:
+                c = stats.corr_mat_from_gram(gram, stats.regularize_fi(self.__fi, q, pc),
+                                             pc, l, q)
             del gram
             sync(self.device)
+        if self._grid():
+            self._run_grid_solve(c)
+            return
         with timers.stage("inverse"):
             couplings, ok = self._cholesky_couplings(c)
             sync(self.device)
@@ -354,6 +392,27 @@ class MeanFieldDCA:
             self.__fn_apc = None
             return
         self.__couplings = couplings
+        self.__fn_raw = host[1 : 1 + p]
+        self.__fn_apc = host[1 + p :]
+
+    def _run_grid_solve(self, c: torch.Tensor) -> None:
+        """The solve and score stages on the mesh's model axis, from this
+        rank's row slab of C (:func:`_grid_couplings`; the stages
+        ``cholesky``, ``tri_inv``, ``syrk`` and ``score`` in place of
+        ``inverse`` and ``score``)."""
+        l, q = self.msa.seqs_len, self.msa.q
+        couplings, fn_raw, _, host = _grid_couplings(c, l, q, self.mesh, self.timers)
+        p = fn_raw.shape[0]
+        if host[0]:
+            self.lu_fallback = True
+            del couplings
+            with self.timers.stage("inverse"):
+                self.__couplings = _grid_lu_couplings(c, l, q, self.mesh)
+                sync(self.device)
+            self.__fn_raw = None
+            self.__fn_apc = None
+            return
+        self.__coupling_rows = couplings
         self.__fn_raw = host[1 : 1 + p]
         self.__fn_apc = host[1 + p :]
 
@@ -430,11 +489,11 @@ class MeanFieldDCA:
     def _fn_scores(self):
         """FN scores (P,): the pipeline's host copy, else (after the LU
         fallback) the block reduction of the coupling matrix."""
-        couplings = self.compute_couplings()
+        self._pipeline()
         if self.__fn_raw is not None:
             return self.__fn_raw
         return score_mod.frobenius_norms_from_matrix(
-            couplings, self.msa.seqs_len, self.msa.q - 1
+            self.compute_couplings(), self.msa.seqs_len, self.msa.q - 1
         )
 
     def _di_scores(self) -> torch.Tensor:
@@ -445,13 +504,13 @@ class MeanFieldDCA:
         return di
 
     def compute_sorted_FN(self, seqbackmapper=None):
-        self.compute_couplings()  # the pipeline times its own stages
+        self._pipeline()  # the pipeline times its own stages
         with self.timers.stage("score"):
             res = score_mod.sorted_scores(self._fn_scores(), self.msa.seqs_len)
         return score_mod.backmapped(self, res, seqbackmapper)
 
     def compute_sorted_FN_APC(self, seqbackmapper=None):
-        self.compute_couplings()
+        self._pipeline()
         with self.timers.stage("score"):
             if self.__fn_apc is not None:
                 apc = self.__fn_apc
@@ -525,6 +584,77 @@ def _mf_couplings(gram: torch.Tensor, l: int, q: int, pseudocount: float):
     del c
     fn = score_mod.frobenius_norms_from_matrix(couplings, l, q - 1)
     return fi, couplings, fn, score_mod.apc(fn, l)
+
+
+class CouplingRows(NamedTuple):
+    """This rank's rows ``[start, stop)`` of the (D, D) couplings ``-C^{-1}``
+    of a model-sharded solve (all D columns; no rows on a rank whose sites
+    are all padding)."""
+
+    rows: torch.Tensor
+    start: int
+    stop: int
+
+
+def _model_sites(mesh, l: int):
+    """``(l_pad, (s0, s1))``: L padded to a multiple of the model axis, and
+    this rank's sites ``[s0, s1)`` of the padded L."""
+    per = -(-l // mesh.model_size)
+    return per * mesh.model_size, (mesh.model_rank * per, (mesh.model_rank + 1) * per)
+
+
+def _corr_rows(gram: torch.Tensor, fi: torch.Tensor, l: int, q: int, pseudocount: float,
+               mesh) -> torch.Tensor:
+    """This rank's row slab of C, padded to whole sites on every rank
+    (:func:`_model_sites`; the pad sites carry an identity block)."""
+    l_pad, sites = _model_sites(mesh, l)
+    return stats.corr_mat_from_gram(gram, stats.regularize_fi(fi, q, pseudocount), pseudocount,
+                                    l, q, sites=sites, l_pad=l_pad)
+
+
+def _grid_couplings(c: torch.Tensor, l: int, q: int, mesh, timers=None):
+    """``(couplings, fn, fn_apc, host)`` from this rank's padded row slab of
+    C over the mesh's model axis: ``-C^{-1}``'s padded row slab, the FN and
+    FN-APC scores (every rank's), and one host copy of ``[failed, fn,
+    fn_apc]`` (``failed`` summed over the model axis, so every rank takes
+    the same branch).  The factor is the blocked Cholesky above D = 4096,
+    as ``pydca_tpu/parallel/fit.py:174`` decides, else the whole C's;
+    the triangular inverse and the SYRK run on the slabs.  ``timers``
+    times ``cholesky``, ``tri_inv``, ``syrk`` and ``score``."""
+    qm1 = q - 1
+    l_pad = c.shape[1] // qm1
+    chol_block = 2048 if l * qm1 > 4096 else None
+    logger.info("model-sharded solve over %d ranks: D = %d (padded %d), %s factor, "
+                "%d rows a rank", mesh.model_size, l * qm1, l_pad * qm1,
+                "blocked" if chol_block else "replicated", c.shape[0])
+    inv, info = linalg.spd_inverse(c, chol_block=chol_block, mesh=mesh, timers=timers)
+    couplings = inv.neg_()
+    with synced_stage(timers, "score", couplings.device):
+        failed = torch.stack([(info != 0).to(couplings.dtype),
+                              (~torch.isfinite(couplings[0, 0])).to(couplings.dtype)])
+        mesh.sum_(failed, "spd_flag_allreduce", axis="model")
+        fn2 = score_mod._fn_matrix_sq(couplings, l_pad, qm1)
+        fn2 = mesh.gather_rows(fn2, "fn_allgather", axis="model")[:l, :l]
+        fn = score_mod.fn_from_sq(fn2, l)
+        fn_apc = score_mod.apc(fn, l)
+        host = torch.cat([failed.sum().reshape(1), fn, fn_apc]).cpu().numpy()
+    return couplings, fn, fn_apc, host
+
+
+def _grid_lu_couplings(c: torch.Tensor, l: int, q: int, mesh) -> torch.Tensor:
+    """The LU fallback on a model axis: C's slabs gathered whole (one D^2
+    buffer a rank), then the one-device LU inverse."""
+    d = l * (q - 1)
+    full = mesh.gather_rows(c, "lu_gather", axis="model")[:d, :d]
+    return MeanFieldDCA._lu_couplings(full)
+
+
+def _real_rows(couplings: torch.Tensor, l: int, q: int, mesh) -> CouplingRows:
+    """The real (unpadded) part of this rank's padded row slab."""
+    qm1 = q - 1
+    _, (s0, s1) = _model_sites(mesh, l)
+    start, stop = min(s0, l) * qm1, min(s1, l) * qm1
+    return CouplingRows(couplings[: stop - start, : l * qm1], start, stop)
 
 
 def _gram_fi(gram: torch.Tensor, l: int, q: int) -> torch.Tensor:

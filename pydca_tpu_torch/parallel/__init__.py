@@ -1,8 +1,11 @@
-"""Data parallelism over the alignment's sequences with ``torch.distributed``
-(the port of ``pydca_tpu/parallel``): one process per rank, each holding a
-stripe of the rows; every sum over sequences is a collective.  The ranks
-come from ``torchrun`` or, for a CLI run over every card of one process,
-from :func:`~pydca_tpu_torch.parallel.spawn.spawn_cli`."""
+"""Parallelism with ``torch.distributed`` (the port of
+``pydca_tpu/parallel``): one process per rank on a ('data', 'model') grid
+(:func:`~pydca_tpu_torch.parallel.mesh.make_mesh`).  The data axis shards
+the alignment's sequences, every sum over them a collective; the model
+axis shards the rows of the mean-field correlation and coupling matrices
+(:func:`~pydca_tpu_torch.parallel.fit.mfdca_sharded`).  The ranks come from
+``torchrun`` or, for a CLI run over every card of one process, from
+:func:`~pydca_tpu_torch.parallel.spawn.spawn_cli`."""
 
 from .mesh import (  # noqa: F401
     DataMesh,

@@ -35,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 from .. import stats
+from ..profiling import synced_stage
 from ..ops.lbfgs import LBFGSResult
 from .mesh import DataMesh, make_mesh, reject_several_cards, torchrun_world
 
@@ -212,29 +213,65 @@ def mfdca_sharded(
     valid: Optional[torch.Tensor] = None,
     return_couplings: bool = False,
     return_all: bool = False,
+    timers=None,
 ):
     """Sequence-sharded mean-field DCA: FN and FN-APC over the mesh's ranks.
 
-    The counterpart of ``pydca_tpu/parallel/fit.py::mfdca_sharded`` with a
-    ``model`` axis of 1.  ``msa``, ``weights`` and ``valid`` are this
-    rank's stripe, as for :func:`fit_plm_sharded` (given weights keep their
-    dtype: float64 weights give a float64 Gram and solve).  The Gram of the
-    stripe's rows (the ``weighted_gram`` kernel on a card) is summed over
-    the ranks; C, ``-C^{-1}`` and the scores are computed on every rank
-    (replicated).  Returns ``(fn, fn_apc)`` of length L(L-1)/2 in pair
-    order, ``(fn, fn_apc, couplings)`` with ``return_couplings``, or a dict
-    with the stripe's ``weights`` too with ``return_all``.
+    The counterpart of ``pydca_tpu/parallel/fit.py::mfdca_sharded``.
+    ``msa``, ``weights`` and ``valid`` are this rank's stripe, as for
+    :func:`fit_plm_sharded` (given weights keep their dtype: float64
+    weights give a float64 Gram and solve).  The Gram of the stripe's rows
+    (the ``weighted_gram`` kernel on a card) is summed over the data axis.
+    With a model axis of 1, C, ``-C^{-1}`` and the scores are computed on
+    every rank (replicated).  Above 1, each rank cuts its row slab of C
+    from the Gram (padded to whole sites on every rank), frees the Gram,
+    and the solve runs on the slabs (blocked Cholesky above D = 4096,
+    triangular inverse, reduce-scattered SYRK:
+    :func:`pydca_tpu_torch.ops.linalg.spd_inverse`); each rank's FN rows
+    are gathered over the model axis, and the APC is replicated.
+
+    Returns ``(fn, fn_apc)`` of length L(L-1)/2 in pair order, the same on
+    every rank; ``(fn, fn_apc, couplings)`` with ``return_couplings``
+    (above 1 on the model axis: this rank's
+    :class:`~pydca_tpu_torch.meanfield.CouplingRows`, its rows and their
+    range); or a dict with the stripe's ``weights`` too with
+    ``return_all``.  ``timers`` (a
+    :class:`~pydca_tpu_torch.profiling.StageTimers`) times the stages
+    ``weights``, ``gram``, ``corr``, and on a model axis ``cholesky``,
+    ``tri_inv``, ``syrk`` and ``score``, each ended by a device synchronise.
     """
-    from ..meanfield import _mf_couplings
+    from .. import score as score_mod
+    from ..meanfield import (
+        CouplingRows, _corr_rows, _gram_fi, _grid_couplings, _grid_lu_couplings, _mf_couplings,
+        _real_rows,
+    )
 
     mesh = _mesh_or_default(mesh, msa.device)
     l = msa.shape[1]
     q = _q_of(msa, biomolecule_q, mesh)
-    w = _local_weights(msa, weights, valid, seqid, q, mesh)
-    gram = stats.weighted_gram(msa, w, q, mesh=mesh)
-    _, couplings, fn, fn_apc = _mf_couplings(gram, l, q, pseudocount)
+    with synced_stage(timers, "weights", msa.device):
+        w = _local_weights(msa, weights, valid, seqid, q, mesh)
+    with synced_stage(timers, "gram", msa.device):
+        gram = stats.weighted_gram(msa, w, q, mesh=mesh)
+    if mesh.model_size == 1:
+        _, couplings, fn, fn_apc = _mf_couplings(gram, l, q, pseudocount)
+    else:
+        with synced_stage(timers, "corr", msa.device):
+            c = _corr_rows(gram, _gram_fi(gram, l, q), l, q, pseudocount, mesh)
+            del gram
+        couplings, fn, fn_apc, host = _grid_couplings(c, l, q, mesh, timers)
+        rows = _real_rows(couplings, l, q, mesh)
+        if host[0]:  # C is not numerically SPD: the LU fallback, on the whole C
+            del couplings
+            full = _grid_lu_couplings(c, l, q, mesh)
+            fn = score_mod.frobenius_norms_from_matrix(full, l, q - 1)
+            fn_apc = score_mod.apc(fn, l)
+            rows = CouplingRows(full[rows.start : rows.stop].clone(), rows.start, rows.stop)
+        couplings = rows
+        del c
     if return_all:
         return {"fn": fn, "fn_apc": fn_apc, "couplings": couplings, "weights": w}
     if return_couplings:
         return fn, fn_apc, couplings
     return fn, fn_apc
+

@@ -1,16 +1,27 @@
-"""The data mesh of a multi-process run: one process per rank, each holding
-a contiguous stripe of the alignment's rows on its own device.
+"""The mesh of a multi-process run: a ('data', 'model') grid of ranks, one
+process per rank, each on its own device.
 
 Port of ``pydca_tpu/parallel/mesh.py`` for ``torch.distributed``.  On the
 TPU the mesh is a grid of devices under one program and GSPMD inserts the
-``psum`` over its ``data`` axis; here each rank is a process, and the sums
-over sequences are explicit collectives (:meth:`DataMesh.sum_`): the
-identity counts, ``fi`` and Meff, the Gram, the plm loss, its gradient and
-each line-search trial's ``(phi, phi')``.  Everything else is replicated,
-bitwise equal on every rank.
+collectives; here each rank is a process, and the collectives are explicit.
+Rank ``r = d * n_model + m`` sits at data index ``d`` and model index ``m``
+(JAX's ``np.array(devices).reshape(n_data, n_model)``).
 
-Only the ``data`` axis is ported: a ``model`` axis above 1 (the
-model-sharded mean-field solve) raises naming its ROADMAP item.
+- The ``data`` axis shards the alignment's rows: a rank holds the stripe of
+  its data index, the same stripe in every model replica.  The sums over
+  sequences (:meth:`DataMesh.sum_` over the data group) are the identity
+  counts, ``fi`` and Meff, the Gram, the plm loss, its gradient and each
+  line-search trial's ``(phi, phi')``.
+- The ``model`` axis shards the rows of the mean-field correlation and
+  coupling matrices (:meth:`DataMesh.broadcast_`,
+  :meth:`DataMesh.reduce_scatter_rows`, :meth:`DataMesh.all_to_all_rows`,
+  and ``sum_`` and ``gather_rows`` with ``axis="model"``;
+  :mod:`pydca_tpu_torch.ops.linalg`).  The
+  plm fit is replicated over it.  Ranks that share a card take gloo, which
+  runs all four on CUDA tensors itself, through the host (torch 2.11 on
+  an H100); across cards, NCCL.
+
+Everything else is replicated, bitwise equal on every rank.
 """
 
 from __future__ import annotations
@@ -40,19 +51,18 @@ __all__ = [
     "torchrun_world",
 ]
 
-# the ROADMAP Queue 1 item that carries what is not ported of the mesh
-MODEL_AXIS_ITEM = "ROADMAP Queue 1 #16"
-
-
 @dataclass
 class DataMesh:
-    """The process group of a data-parallel run and this rank's place in it.
+    """The process groups of a run and this rank's place in its grid.
 
-    ``group`` is ``None`` for a one-process mesh without a process group
-    (its sums are the identity).  ``collectives`` counts, per name, the
-    calls, elements and (when ``timed``) seconds of every collective the
-    run made; ``timed`` synchronises the device around each one so its
-    time is the collective's alone.
+    ``group``, ``rank`` and ``world_size`` are the data group's (the ranks
+    that share this rank's model index); ``model_group``, ``model_rank``
+    and ``model_size`` the model group's (the ranks that share its data
+    index).  A group of one rank is ``None``: its collectives are the
+    identity.  ``collectives`` counts, per name, the calls, elements and
+    (when ``timed``) seconds of every collective the run made; ``timed``
+    synchronises the device around each one so its time is the
+    collective's alone.
     """
 
     group: Optional[object]
@@ -61,6 +71,21 @@ class DataMesh:
     device: torch.device
     timed: bool = False
     collectives: Dict[str, List[float]] = field(default_factory=dict)
+    model_group: Optional[object] = None
+    model_rank: int = 0
+    model_size: int = 1
+
+    @property
+    def leader(self) -> bool:
+        """Whether this is the grid's first rank (the one that writes files)."""
+        return self.rank == 0 and self.model_rank == 0
+
+    def _group(self, axis: str):
+        if axis == "data":
+            return self.group, self.world_size
+        if axis == "model":
+            return self.model_group, self.model_size
+        raise ValueError(f"unknown mesh axis {axis!r}; use 'data' or 'model'")
 
     def _record(self, name: str, numel: int, seconds: float) -> None:
         rec = self.collectives.setdefault(name, [0, 0, 0.0])
@@ -78,39 +103,81 @@ class DataMesh:
             sync(self.device)
         self._record(name, numel, time.perf_counter() - t0 if self.timed else 0.0)
 
-    def sum_(self, t: torch.Tensor, name: str) -> torch.Tensor:
-        """Sum ``t`` over the ranks, in place; returns ``t``."""
-        if self.group is not None:
-            self._run(name, t.numel(), lambda: dist.all_reduce(t, group=self.group))
+    def sum_(self, t: torch.Tensor, name: str, axis: str = "data") -> torch.Tensor:
+        """Sum ``t`` over the axis's ranks, in place; returns ``t``."""
+        group, _ = self._group(axis)
+        if group is not None:
+            self._run(name, t.numel(), lambda: dist.all_reduce(t, group=group))
         return t
 
     def max_(self, t: torch.Tensor, name: str) -> torch.Tensor:
-        """Elementwise maximum of ``t`` over the ranks, in place."""
+        """Elementwise maximum of ``t`` over the data ranks, in place."""
         if self.group is not None:
             self._run(name, t.numel(), lambda: dist.all_reduce(
                 t, op=dist.ReduceOp.MAX, group=self.group))
         return t
 
-    def gather_rows(self, t: torch.Tensor, name: str) -> torch.Tensor:
-        """The ranks' equal-sized stripes of ``t`` stacked along dim 0, in
-        rank order (every rank gets the whole)."""
-        if self.group is None:
+    def gather_rows(self, t: torch.Tensor, name: str, axis: str = "data") -> torch.Tensor:
+        """The axis's ranks' equal-sized stripes of ``t`` stacked along dim
+        0, in rank order (every rank gets the whole)."""
+        group, size = self._group(axis)
+        if group is None:
             return t
-        parts = [torch.empty_like(t) for _ in range(self.world_size)]
+        parts = [torch.empty_like(t) for _ in range(size)]
         src = t.contiguous()
-        self._run(name, t.numel() * self.world_size,
-                  lambda: dist.all_gather(parts, src, group=self.group))
+        self._run(name, t.numel() * size, lambda: dist.all_gather(parts, src, group=group))
         return torch.cat(parts)
 
+    def broadcast_(self, t: torch.Tensor, src: int, name: str) -> torch.Tensor:
+        """``t`` of model rank ``src`` into ``t`` on every rank of the model
+        axis, in place (``t`` contiguous); returns ``t``."""
+        group = self.model_group
+        if group is not None:
+            root = dist.get_global_rank(group, src)
+            self._run(name, t.numel(), lambda: dist.broadcast(t, src=root, group=group))
+        return t
+
+    def reduce_scatter_rows(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """The sum of ``t`` over the model axis, cut into equal stripes along
+        dim 0: model rank k gets stripe k (``psum_scatter(...,
+        scatter_dimension=0, tiled=True)``)."""
+        if self.model_group is None:
+            return t
+        out = torch.empty((t.shape[0] // self.model_size,) + tuple(t.shape[1:]),
+                          dtype=t.dtype, device=t.device)
+        src = t.contiguous()
+        self._run(name, t.numel(), lambda: _reduce_scatter(out, src, self.model_group))
+        return out
+
+    def all_to_all_rows(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """``t`` cut into equal stripes along dim 0, stripe k sent to model
+        rank k; returns what every model rank sent this one, stacked in rank
+        order."""
+        if self.model_group is None:
+            return t
+        src = t.contiguous()
+        out = torch.empty_like(src)
+        self._run(name, t.numel(),
+                  lambda: dist.all_to_all_single(out, src, group=self.model_group))
+        return out
+
     def barrier(self) -> None:
-        if self.group is not None:
-            dist.barrier(group=self.group)
+        """Wait for every rank of the grid (the data group, then the model group)."""
+        for group in (self.group, self.model_group):
+            if group is not None:
+                dist.barrier(group=group)
 
     def stripe_rows(self, n: int):
-        """``(n_pad, start, stop)``: N padded to a multiple of the world size
+        """``(n_pad, start, stop)``: N padded to a multiple of the data axis
         and this rank's rows ``[start, stop)`` of the padded alignment."""
         per = -(-n // self.world_size)
         return per * self.world_size, self.rank * per, (self.rank + 1) * per
+
+
+def _reduce_scatter(out: torch.Tensor, src: torch.Tensor, group) -> None:
+    # the name of the tensor form since torch 2.13; reduce_scatter_tensor before
+    fn = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    fn(out, src, group=group)
 
 
 def make_mesh(
@@ -120,18 +187,18 @@ def make_mesh(
     group=None,
     device,
 ) -> DataMesh:
-    """A data mesh over ``group`` (default: the default process group when
-    one is initialised, else one process without collectives).
+    """A ('data', 'model') grid over the ranks of ``group`` (default: the
+    default process group when one is initialised, else one process
+    without collectives).
 
-    ``n_data`` defaults to the group's world size and must equal it: one
-    rank per process, one device per rank.  ``n_model > 1`` (the
-    model-sharded solve) is not ported.
+    ``n_data`` defaults to the world size over ``n_model``;
+    ``n_data * n_model`` must equal the world size (one rank per process,
+    one device per rank), or ``ValueError``.  Rank ``r`` of ``group`` sits
+    at ``(r // n_model, r % n_model)``.  With ``n_model > 1`` every rank
+    creates every data group and every model group, in the same order (a
+    group of one rank is not created); ``n_model = 1`` gives the data mesh
+    over ``group`` itself.
     """
-    if n_model != 1:
-        raise NotImplementedError(
-            f"a model axis of {n_model} (the model-sharded mean-field solve) is "
-            f"not ported yet ({MODEL_AXIS_ITEM})"
-        )
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -141,9 +208,29 @@ def make_mesh(
         rank, world = 0, 1
     else:
         rank, world = dist.get_rank(group), dist.get_world_size(group)
-    if n_data is not None and int(n_data) != world:
-        raise ValueError(f"a data axis of {n_data} needs {n_data} ranks; the group has {world}")
-    return DataMesh(group=group, rank=rank, world_size=world, device=dev)
+    n_model = int(n_model)
+    if n_model < 1 or world % n_model:
+        raise ValueError(f"a model axis of {n_model} does not divide the group's {world} ranks")
+    n_data = world // n_model if n_data is None else int(n_data)
+    if n_data * n_model != world:
+        raise ValueError(f"mesh {n_data}x{n_model} needs {n_data * n_model} ranks; the group "
+                         f"has {world}")
+    if n_model == 1:
+        return DataMesh(group=group, rank=rank, world_size=world, device=dev)
+    ranks = dist.get_process_group_ranks(group)
+    d, m = divmod(rank, n_model)
+    data_group = model_group = None
+    if n_data > 1:
+        for col in range(n_model):
+            g = dist.new_group([ranks[r * n_model + col] for r in range(n_data)])
+            if col == m:
+                data_group = g
+    for row in range(n_data):
+        g = dist.new_group(ranks[row * n_model:(row + 1) * n_model])
+        if row == d:
+            model_group = g
+    return DataMesh(group=data_group, rank=d, world_size=n_data, device=dev,
+                    model_group=model_group, model_rank=m, model_size=n_model)
 
 
 def _distributed_world() -> int:

@@ -1240,7 +1240,7 @@ def fit_plm(
             _save_state(checkpoint_path, state)
             return
         mesh.barrier()  # every rank has finished the chunk
-        if mesh.rank == 0:
+        if mesh.leader:  # the grid's first rank
             gen = _generic_from_fused(state) if isinstance(state, PlmFusedState) else state
             _save_state(checkpoint_path, gen)
         mesh.barrier()  # the file is whole before any rank reads it

@@ -28,7 +28,7 @@ import torch
 
 from . import device as _device
 
-__all__ = ["StageTimers", "device_trace", "sync"]
+__all__ = ["StageTimers", "device_trace", "synced_stage", "sync"]
 
 
 def _tensor_leaves(x):
@@ -101,6 +101,18 @@ class StageTimers:
             lines.append(line)
         lines.append(f"{'total':<{width}}  {self.total:9.3f}s")
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def synced_stage(timers: Optional[StageTimers], name: str, device) -> Iterator[None]:
+    """``timers.stage(name)`` ended by a synchronise of ``device``; nothing
+    when ``timers`` is ``None``."""
+    if timers is None:
+        yield
+        return
+    with timers.stage(name):
+        yield
+        _device.sync(device)
 
 
 @contextlib.contextmanager

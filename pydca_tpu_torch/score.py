@@ -69,7 +69,8 @@ def frobenius_norms(blocks: torch.Tensor) -> torch.Tensor:
 
 
 def _fn_matrix_sq(couplings: torch.Tensor, l: int, qm1: int) -> torch.Tensor:
-    """Squared gauge-shifted Frobenius norm of every (i, j) block, ``(L, L)``.
+    """Squared gauge-shifted Frobenius norm of every (i, j) block, ``(L, L)``;
+    of a row slab of whole sites (``(n_i * q', L * q')``), its ``(n_i, L)`` rows.
 
     The orthogonal (two-way ANOVA) decomposition of the zero-sum-gauge
     shift (``pydca_tpu/score.py:62-94``): for an n x n block M with row
@@ -82,7 +83,7 @@ def _fn_matrix_sq(couplings: torch.Tensor, l: int, qm1: int) -> torch.Tensor:
     four (L, L) terms are large and nearly equal for weak pairs, so they
     are combined in float64, as the JAX package does under x64.
     """
-    j4 = couplings.reshape(l, qm1, l, qm1)
+    j4 = couplings.reshape(-1, qm1, l, qm1)
     n = qm1
     sq = (j4 * j4).sum(dim=(1, 3))  # (L, L)
     rs = j4.sum(dim=3)  # (L, n, L): row sums of block (i, j)
@@ -105,7 +106,11 @@ def frobenius_norms_from_matrix(
     matrix: :func:`frobenius_norms` over its per-pair blocks, computed with
     block reductions over the matrix itself (``pydca_tpu/score.py:97-106``).
     """
-    fn2 = _fn_matrix_sq(couplings, l, qm1)
+    return fn_from_sq(_fn_matrix_sq(couplings, l, qm1), l)
+
+
+def fn_from_sq(fn2: torch.Tensor, l: int) -> torch.Tensor:
+    """FN scores ``(P,)`` in pair order from the (L, L) squared norms."""
     iu, ju = pair_sites(l, fn2.device)
     return torch.sqrt(torch.clamp_min(fn2[iu, ju], 0.0))
 

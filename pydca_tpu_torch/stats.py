@@ -9,7 +9,7 @@ helpers.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -176,6 +176,8 @@ def corr_mat_from_gram(
     pseudocount: float,
     l: int,
     q: int,
+    sites: Optional[Tuple[int, int]] = None,
+    l_pad: Optional[int] = None,
 ) -> torch.Tensor:
     """Mean-field correlation matrix ``C`` of shape ``(L*(q-1), L*(q-1))``.
 
@@ -185,22 +187,34 @@ def corr_mat_from_gram(
     :func:`weighted_gram`; the gap state (``q-1``, last) of every site is
     dropped.  ``C`` has the Gram's dtype.
 
-    Built in place: one (D, D) allocation receives the gap-free copy of the
+    ``l_pad`` (at least L) pads C to ``l_pad`` sites with an identity
+    block: the padded C is block diagonal, its inverse's real block is
+    C's inverse.  ``sites = (s0, s1)`` builds only the rows of sites
+    ``[s0, s1)`` of the (padded) C, over all its columns: a row slab of
+    the model-sharded solve.
+
+    Built in place: one allocation receives the gap-free copy of the
     Gram, and the regularisation, the zeroed diagonal blocks, ``diag(fr)``
     and the rank-1 term ``- fr fr'`` are applied to it where it lies, where
     the JAX form materialises ``diag(fr)`` and several more (D, D)
     temporaries.
     """
     qm1 = q - 1
-    d = l * qm1
-    c = torch.empty((d, d), dtype=gram.dtype, device=gram.device)
-    c4 = c.view(l, qm1, l, qm1)
-    c4.copy_(gram.reshape(l, q, l, q)[:, :qm1, :, :qm1])
-    c.mul_(1.0 - pseudocount).add_(pseudocount / (q * q))
-    c4.diagonal(dim1=0, dim2=2).zero_()  # the (i, i) blocks
+    lp = l if l_pad is None else int(l_pad)
+    s0, s1 = (0, lp) if sites is None else sites
+    nr = max(min(s1, l) - s0, 0)  # the slab's real sites
+    alloc = torch.empty if lp == l else torch.zeros
+    c = alloc(((s1 - s0) * qm1, lp * qm1), dtype=gram.dtype, device=gram.device)
+    c4 = c.view(s1 - s0, qm1, lp, qm1)[:nr, :, :l]
+    c4.copy_(gram.reshape(l, q, l, q)[s0 : s0 + nr, :qm1, :, :qm1])
+    c4.mul_(1.0 - pseudocount).add_(pseudocount / (q * q))
+    c4[:, :, s0 : s0 + nr].diagonal(dim1=0, dim2=2).zero_()  # the (i, i) blocks
     fr = fi_reg[:, :qm1].reshape(-1).to(gram.dtype)
-    c.diagonal().add_(fr)
-    return c.addr_(fr, fr, alpha=-1)
+    diag = c.diagonal(offset=s0 * qm1)
+    diag[: nr * qm1].add_(fr[s0 * qm1 : (s0 + nr) * qm1])
+    diag[nr * qm1 :].fill_(1.0)  # the pad sites' identity block
+    c[: nr * qm1, : l * qm1].addr_(fr[s0 * qm1 : (s0 + nr) * qm1], fr, alpha=-1)
+    return c
 
 
 def pair_index(i, j, l: int):

@@ -30,14 +30,30 @@ the ``plm`` family as one process (which starts one rank a card itself,
 --nproc_per_node=<cards>`` on the same argv, while the other ranks wait;
 the two files must be equal byte for byte, and it prints both walls.
 
-``--device cpu --small`` runs the same on the CPU under gloo at small
-shapes, to rehearse a launch without a card (the ``cli`` case's one
-process calls ``spawn_cli`` with gloo ranks there).
+A fifth case, ``model``, runs the model-sharded mean-field solve:
+``mfdca_sharded`` on a (1, K) and, for an even K of 4 or more, a (K/2, 2)
+('data', 'model') grid, at 4096 x 1000, q 21 (D = 20000) and 4096 x 2000,
+q 21 (D = 40000, whose Gram is a 7 GB (Lq)^2 buffer on every rank), after
+an untimed run of both grids at small shapes (NCCL sets up a group's
+communicator, and its peer connections for the all-to-all, at their
+first use).  Rank 0 first runs the one-card engine
+(``MeanFieldDCA.compute_couplings``).
+One line a grid and shape: both walls, the stages (the sharded run's
+``gram``, ``corr``, ``cholesky``, ``tri_inv``, ``syrk``, ``score``), every
+rank's peak memory over the run and over the solve (C resident), the
+collectives, the FN-APC rank bar against one card and rank 0's rows of the
+couplings against one card's.
+
+``--cases`` picks the cases (default: all five).  ``--device cpu --small``
+runs the same on the CPU under gloo at small shapes, to rehearse a launch
+without a card (the ``cli`` case's one process calls ``spawn_cli`` with
+gloo ranks there).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -55,8 +71,9 @@ from pydca_tpu_torch.device import set_precision
 from pydca_tpu_torch.io.fasta import MSA
 from pydca_tpu_torch.meanfield import MeanFieldDCA
 from pydca_tpu_torch.ops import cuda_kernels as ck
-from pydca_tpu_torch.parallel import init_distributed, make_mesh
+from pydca_tpu_torch.parallel import init_distributed, make_mesh, mfdca_sharded, shard_msa
 from pydca_tpu_torch.plm import PlmDCA
+from pydca_tpu_torch.profiling import StageTimers
 from pydca_tpu_torch.synthetic import (
     planted_family, spearman, top_k_overlap, write_family_fasta,
 )
@@ -68,6 +85,10 @@ CASES = {  # name: (N, L, q, seed, iterations, seq_block)
 }
 SMALL = {"plm": (1201, 40, 21, 0, 30, None), "mf": (803, 60, 21, 2, None, None),
          "deep": (2001, 50, 21, 12, 2, 256)}
+MODEL = {"model_d20000": (4096, 1000, 21, 2, None, None),
+         "model_d40000": (4096, 2000, 21, 2, None, None)}
+SMALL_MODEL = {"model_d1200": (803, 60, 21, 2, None, None),
+               "model_d4200": (803, 210, 21, 2, None, None)}
 THETA_TOL = (2e-3, 2e-3)  # (rtol, atol) of theta against one card: float32 sums in other orders
 
 
@@ -121,6 +142,89 @@ def run_case(name, shape, msa, dev, mesh):
     timers.update(peak_gib=round(peak_gib(dev), 3), identity_counts=ck.identity_counts.launches,
                   weighted_gram=ck.weighted_gram.launches)
     return wall, timers, weights, params, fn_apc
+
+
+class SolveTimers(StageTimers):
+    """Stage timers that keep the peak device memory from the start of the
+    stage ``first`` to the end of the stage ``last`` (``peak``), and the
+    peak before it (``before``)."""
+
+    def __init__(self, dev, first: str, last: str):
+        super().__init__()
+        self.dev, self.first, self.last, self.peak, self.before = dev, first, last, 0, 0
+
+    @contextlib.contextmanager
+    def stage(self, name):
+        if name == self.first and self.dev.type == "cuda":
+            self.before = peak_gib(self.dev)
+            torch.cuda.reset_peak_memory_stats(self.dev)
+        with StageTimers.stage(self, name):
+            yield
+        if name == self.last:
+            self.peak = peak_gib(self.dev)
+
+
+def grids(world):
+    """The ('data', 'model') grids of the ``model`` case."""
+    out = [(1, world)]
+    if world % 2 == 0 and world >= 4:
+        out.append((world // 2, 2))
+    return out
+
+
+def model_case(name, shape, dev, rank, world, meshes):
+    """The ``model`` case at one shape: rank 0's one-card engine, then
+    ``mfdca_sharded`` on each grid of ``meshes``; rank 0 returns one record
+    a grid.  Rank 0 keeps the one-card couplings on the host, so every
+    rank's peak memory is its sharded run's alone."""
+    n, l, q, _, _, _ = shape
+    msa = draw(shape)
+    one = None
+    if rank == 0:
+        reset(dev)
+        inst = MeanFieldDCA(msa, "protein", device=dev)
+        inst.timers = SolveTimers(dev, "inverse", "inverse")
+        t0 = time.perf_counter()
+        cpl = inst.compute_couplings()
+        sync(dev)
+        wall = time.perf_counter() - t0
+        cpl = cpl.cpu()
+        one = dict(wall=round(wall, 4), peak_gib=round(max(peak_gib(dev), inst.timers.before), 3),
+                   solve_peak_gib=round(inst.timers.peak, 3),
+                   stages={s: round(inst.timers.elapsed(s), 4)
+                           for s in ("weights", "gram", "corr", "inverse", "score")})
+        scores = inst.compute_sorted_FN_APC()
+        del inst
+    dist.barrier()
+    recs = []
+    for (nd, nm), mesh in meshes.items():
+        mesh.collectives.clear()
+        codes, _, valid = shard_msa(mesh, msa.data)
+        reset(dev)
+        timers = SolveTimers(dev, "cholesky", "syrk")
+        t0 = time.perf_counter()
+        fn, apc, rows = mfdca_sharded(codes, biomolecule_q=q, valid=valid, mesh=mesh,
+                                      return_couplings=True, timers=timers)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        mine = dict(wall=round(wall, 4), peak_gib=round(max(peak_gib(dev), timers.before), 3),
+                    solve_peak_gib=round(timers.peak, 3),
+                    stages={s: round(timers.elapsed(s), 4) for s in (
+                        "weights", "gram", "corr", "cholesky", "tri_inv", "syrk", "score")})
+        every = [None] * world
+        dist.all_gather_object(every, mine)
+        if rank == 0:
+            got = score.sorted_scores(apc, l)
+            err = float((rows.rows.cpu() - cpl[rows.start : rows.stop]).abs().max()
+                        / cpl.abs().max())
+            recs.append(dict(
+                case=name, shape=[n, l, q], grid=[nd, nm], one_card=one, ranks=every,
+                collectives={k: [c, e, round(t, 4)] for k, (c, e, t) in mesh.collectives.items()},
+                spearman=round(spearman(scores, got, l), 6), top20=top_k_overlap(scores, got, 20),
+                couplings_rows_rel_err=err))
+        del fn, apc, rows
+        dist.barrier()
+    return recs
 
 
 def clean_env():
@@ -181,8 +285,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--small", action="store_true", help="small shapes (a rehearsal)")
+    ap.add_argument("--cases", default="plm,mf,deep,cli,model",
+                    help="comma-separated cases (default: all)")
     args = ap.parse_args()
-    cases = SMALL if args.small else CASES
+    wanted = set(args.cases.split(","))
+    cases = {k: v for k, v in (SMALL if args.small else CASES).items() if k in wanted}
     local = int(os.environ.get("LOCAL_RANK", "0"))
     if args.device == "cuda":
         if not torch.cuda.is_available():
@@ -205,6 +312,17 @@ def main() -> int:
               f"{torch.cuda.device_count() if dev.type == 'cuda' else 0} visible cards", flush=True)
     for name, shape in SMALL.items():  # the warm-up, untimed
         run_case(name, shape, draw(shape), dev, None)
+    if "model" in wanted:
+        # the grids once, their communicators set up by an untimed run at the small shapes
+        meshes = {g: make_mesh(*g, device=dev) for g in grids(world)}
+        for mesh in meshes.values():
+            mesh.timed = True
+        for name, shape in SMALL_MODEL.items():
+            model_case(name, shape, dev, rank, world, meshes)
+        for name, shape in (SMALL_MODEL if args.small else MODEL).items():
+            for rec in model_case(name, shape, dev, rank, world, meshes):
+                print(json.dumps(rec), flush=True)
+            reset(dev)
     for name, shape in cases.items():
         msa = draw(shape)
         one = run_case(name, shape, msa, dev, None) if rank == 0 else None
@@ -233,8 +351,8 @@ def main() -> int:
         del one, many
     reset(dev)
     ok = True
-    if rank == 0:
-        rec = cli_case(cases["plm"], world, args.device)
+    if rank == 0 and "cli" in wanted:
+        rec = cli_case((SMALL if args.small else CASES)["plm"], world, args.device)
         print(json.dumps(rec), flush=True)
         ok = rec["files_equal"]
     dist.barrier()

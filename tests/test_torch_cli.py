@@ -156,7 +156,7 @@ def test_port_never_imports_jax():
         "tree = ast.parse(open('chip_smoke.py').read())\n"
         "imports = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]\n"
         "exec(compile(ast.Module(body=imports, type_ignores=[]), 'chip_smoke.py', 'exec'), {})\n"
-        "assert len(names) > 30 and 'pydca_tpu_torch.parallel.spawn' in names, names\n"
+        "assert len(names) > 30 and {'pydca_tpu_torch.parallel.spawn', 'pydca_tpu_torch.dryrun'} <= set(names), names\n"
         "assert len(imports) > 20 and 'pydca_tpu_torch.cli.main' in sys.modules\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'pydca_tpu.')) or m == 'pydca_tpu')\n"
         "assert not bad, bad\n"

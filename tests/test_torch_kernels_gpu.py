@@ -371,3 +371,28 @@ def test_template_search_and_mapping_on_card_equal_cpu(cuda, bio):
     kw = dict(alignment_data=list(codes), ref_seq=ref, biomolecule=bio)
     got = SequenceBackmapper(device="cuda", **kw).map_to_reference_sequence()
     assert list(got.items()) == list(SequenceBackmapper(device="cpu", **kw).map_to_reference_sequence().items())
+
+
+@pytest.mark.gpu
+def test_blocked_solve_on_card_matches_torch_linalg(cuda):
+    """The JAX package's solve on one card at D 4200 (above the 4096 where
+    the mesh takes the blocked factor), float32: ``cholesky_blocked``
+    (block 2048) against ``torch.linalg.cholesky``, ``tri_inv_lower``
+    against ``solve_triangular``, ``spd_inverse(chol_block=2048)`` against
+    ``torch.linalg.inv``, at rtol and atol 2e-4 (entries of order 1)."""
+    from pydca_tpu_torch.ops import linalg
+
+    d = 4200
+    a = torch.randn(d, d, generator=torch.Generator().manual_seed(0), dtype=torch.float64)
+    c = ((a @ a.T) / d + torch.eye(d, dtype=torch.float64)).to(torch.float32).to(cuda)
+    tol = dict(rtol=2e-4, atol=2e-4)
+    fac, info = linalg.cholesky_blocked(c, 2048)
+    lower = torch.linalg.cholesky(c)
+    assert int(info) == 0 and bool((torch.triu(fac, 1) == 0).all())
+    torch.testing.assert_close(fac, lower, **tol)
+    eye = torch.eye(d, dtype=c.dtype, device=cuda)
+    torch.testing.assert_close(linalg.tri_inv_lower(lower),
+                               torch.linalg.solve_triangular(lower, eye, upper=False), **tol)
+    inv, info = linalg.spd_inverse(c, chol_block=2048)
+    assert int(info) == 0
+    torch.testing.assert_close(inv, torch.linalg.inv(c), **tol)

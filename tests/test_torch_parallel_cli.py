@@ -110,9 +110,25 @@ def test_rank_card_that_does_not_exist_raises(monkeypatch):
     assert tfit._rank_card(torch.device("cuda:0")) == torch.device("cuda", 0)
 
 
-def test_model_axis_raises():
-    """A model axis above 1 (the model-sharded solve) names its ROADMAP item."""
+@pytest.mark.parametrize("n_data,n_model", [(None, 2), (2, 1), (1, 0), (1, 2)])
+def test_make_mesh_grid_must_fill_the_group(n_data, n_model):
+    """A process without a group is one rank: a (data, model) grid that
+    does not hold exactly one rank raises ``ValueError``."""
     from pydca_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="Queue 1 #16"):
-        make_mesh(n_model=2, device="cpu")
+    with pytest.raises(ValueError):
+        make_mesh(n_data, n_model, device="cpu")
+
+
+def test_make_mesh_one_process():
+    """``make_mesh(n_model=1)`` without a group: one rank, no collectives,
+    the grid's leader."""
+    from pydca_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, 1, device="cpu")
+    assert (mesh.group, mesh.rank, mesh.world_size) == (None, 0, 1)
+    assert (mesh.model_group, mesh.model_rank, mesh.model_size) == (None, 0, 1)
+    assert mesh.leader
+    t = torch.ones(3)
+    assert mesh.sum_(t, "x", axis="model") is t and mesh.gather_rows(t, "x", axis="model") is t
+    assert not mesh.collectives

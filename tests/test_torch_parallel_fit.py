@@ -101,8 +101,66 @@ def _worker(rank: int, world: int, store: str, indir: str, outdir: str, task: st
         sharded = read_msa_distributed(os.path.join(indir, "dups.fa"), "rna")
         out.update(read_data=sharded.local_data, read_valid=sharded.local_valid,
                    read_ids=np.array(sharded.ids), read_n=sharded.global_num_seqs)
+    if task == "grid":
+        out.update(_grid_worker(inp))
     np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
     dist.destroy_process_group()
+
+
+def _grid_worker(inp) -> dict:
+    """The ('data', 'model') grids of 4 ranks: 2 x 2 and 1 x 4."""
+    from pydca_tpu_torch.alphabets import RNA
+    from pydca_tpu_torch.io.fasta import MSA
+    from pydca_tpu_torch.meanfield import MeanFieldDCA
+    from pydca_tpu_torch.parallel import fit_plm_sharded, make_mesh, mfdca_sharded, shard_msa
+
+    grids = {"22": make_mesh(2, 2, device="cpu"), "14": make_mesh(1, 4, device="cpu")}
+    out = {}
+
+    def mf_case(name, grid, msa, q, w64=None):
+        if w64 is None:
+            m_codes, _, m_valid = shard_msa(grid, msa)
+            fn, apc, rows = mfdca_sharded(m_codes, biomolecule_q=q, valid=m_valid, mesh=grid,
+                                          return_couplings=True)
+        else:
+            m_codes, w, _ = shard_msa(grid, msa, torch.from_numpy(w64))
+            fn, apc, rows = mfdca_sharded(m_codes, biomolecule_q=q, weights=w, mesh=grid,
+                                          return_couplings=True)
+        out.update({f"{name}_fn": fn.numpy(), f"{name}_apc": apc.numpy(),
+                    f"{name}_rows": rows.rows.numpy(), f"{name}_range": [rows.start, rows.stop]})
+
+    for tag, grid in grids.items():
+        mf_case(f"g{tag}_64", grid, inp["mf"], 5, inp["mf_w64"])
+        mf_case(f"g{tag}_32", grid, inp["mf"], 5)
+        out[f"g{tag}_model_rank"] = grid.model_rank
+    # 15 sites over 4 slabs: C padded to 16 sites
+    mf_case("pad_64", grids["14"], inp["mf15"], 5, inp["mf15_w64"])
+    # D = 4200 > 4096: the blocked Cholesky on the slabs
+    grids["22"].collectives.clear()
+    mf_case("big_64", grids["22"], inp["big"], 21, inp["big_w64"])
+    out["big_chol_bcasts"] = grids["22"].collectives.get("chol_rows_bcast", [0])[0]
+    # plm on the 2 x 2 grid: data-parallel, replicated over the model axis
+    p_codes, _, p_valid = shard_msa(grids["22"], inp["toy"])
+    res = fit_plm_sharded(p_codes, biomolecule_q=TOY_Q, valid=p_valid, mesh=grids["22"],
+                          max_iterations=10)
+    out["grid_plm_x"] = res.x.numpy()
+    # the engine on the 1 x 4 grid: FN-APC from the slabs, the couplings gathered once
+    eng = MeanFieldDCA(MSA(data=inp["mf"].astype(np.int8), alphabet=RNA), "rna", device="cpu",
+                       mesh=grids["14"])
+    out["engine_apc"] = np.array([s for _, s in sorted(eng.compute_sorted_FN_APC())])
+    out["engine_rows"] = eng.coupling_rows().rows.numpy()
+    out["engine_couplings"] = eng.compute_couplings().numpy()
+    # a non-SPD C (3 sequences, pseudocount 0): the LU fallback on a grid
+    lu = np.array([[0, 1, 2, 3, 0, 1], [1, 2, 3, 0, 1, 2], [2, 3, 0, 1, 2, 3]], dtype=np.int8)
+    eng = MeanFieldDCA(MSA(data=lu, alphabet=RNA), "rna", pseudocount=0.0, device="cpu",
+                       mesh=grids["22"])
+    out["lu_engine_fn"] = np.array([s for _, s in sorted(eng.compute_sorted_FN())])
+    out["lu_engine_flag"] = eng.lu_fallback
+    l_codes, _, l_valid = shard_msa(grids["14"], lu)
+    fn, _ = mfdca_sharded(l_codes, biomolecule_q=5, valid=l_valid, pseudocount=0.0,
+                          mesh=grids["14"])
+    out["lu_fn"] = fn.numpy()
+    return out
 
 
 if __name__ == "__main__":
@@ -166,13 +224,19 @@ def inputs(tmp_path_factory):
     mf, _ = planted_family(203, 16, 5, seed=5, n_pairs=4)
     mf_w64 = np.asarray(tstats.sequence_weights(torch.tensor(mf), 0.8, 5), np.float64)
     family, _ = planted_family(301, 24, 5, seed=7, n_pairs=6, n_ancestors=16)
-    np.savez(os.path.join(tmp, "inputs.npz"), toy=_toy(), mf=mf, mf_w64=mf_w64, family=family)
+    mf15, _ = planted_family(203, 15, 5, seed=6, n_pairs=4)
+    mf15_w64 = np.asarray(tstats.sequence_weights(torch.tensor(mf15), 0.8, 5), np.float64)
+    big = _toy(n=96, l=210, q=21, seed=2)
+    big_w64 = np.asarray(tstats.sequence_weights(torch.tensor(big), 0.8, 21), np.float64)
+    np.savez(os.path.join(tmp, "inputs.npz"), toy=_toy(), mf=mf, mf_w64=mf_w64, family=family,
+             mf15=mf15, mf15_w64=mf15_w64, big=big, big_w64=big_w64)
     rng = np.random.default_rng(11)
     base = rng.integers(0, 5, size=(6, 20))
     dups = base[rng.integers(0, 6, size=121)]
     dups = np.where(rng.random(dups.shape) < 0.1, rng.integers(0, 5, size=dups.shape), dups)
     _write_fasta(os.path.join(tmp, "dups.fa"), dups)
-    return tmp, dict(mf=mf, mf_w64=mf_w64, family=family)
+    return tmp, dict(mf=mf, mf_w64=mf_w64, family=family, mf15=mf15, mf15_w64=mf15_w64,
+                     big=big, big_w64=big_w64)
 
 
 @pytest.fixture(scope="module")
@@ -185,6 +249,13 @@ def three_ranks(inputs, tmp_path_factory):
     tmp = str(tmp_path_factory.mktemp("torch_mp3"))
     os.symlink(os.path.join(inputs[0], "inputs.npz"), os.path.join(tmp, "inputs.npz"))
     return spawn(tmp, 3, "weights")[0]
+
+
+@pytest.fixture(scope="module")
+def grid_ranks(inputs, tmp_path_factory):
+    tmp = str(tmp_path_factory.mktemp("torch_grid"))
+    os.symlink(os.path.join(inputs[0], "inputs.npz"), os.path.join(tmp, "inputs.npz"))
+    return spawn(tmp, 4, "grid")[0]
 
 
 def gathered(ranks, key):
@@ -412,3 +483,116 @@ def test_reader_over_gloo_matches_jax_simulation(two_ranks, inputs):
         np.testing.assert_array_equal(r["read_valid"], w.local_valid)
         assert list(r["read_ids"]) == w.ids
         assert int(r["read_n"]) == w.global_num_seqs
+
+
+# ------------------------------------------------------------------ the model axis
+GRIDS = {"22": (2, 2), "14": (1, 4)}
+F32_TOL = dict(rtol=1e-4, atol=1e-6)  # tests/test_parallel_fit.py:67
+
+
+def _jax_grid(msa, q, grid, w64=None):
+    """JAX's ``mfdca_sharded`` on a (data, model) mesh of the 8 virtual devices."""
+    kw = {} if w64 is None else dict(weights=jnp.asarray(w64))
+    fn, apc, cpl = j_mfdca_sharded(msa, biomolecule_q=q, mesh=j_make_mesh(*GRIDS[grid]),
+                                   return_couplings=True, **kw)
+    return np.asarray(fn), np.asarray(apc), np.asarray(cpl)
+
+
+def _rows_in_model_order(ranks, name, grid):
+    """The slabs of the ranks of data index 0, stacked in model order."""
+    n_model = GRIDS[grid][1]
+    return np.concatenate([r[f"{name}_rows"] for r in ranks[:n_model]])
+
+
+@pytest.mark.parametrize("grid", list(GRIDS))
+def test_grid_meanfield_f64_matches_jax(grid_ranks, inputs, grid):
+    """Float64 weights on a 2 x 2 and a 1 x 4 grid against JAX's
+    ``mfdca_sharded`` on the same mesh: FN, FN-APC and the couplings' rows
+    to rtol 1e-8, the same on every rank; each rank's rows are its model
+    index's slab, whole sites."""
+    fn, apc, cpl = _jax_grid(inputs[1]["mf"], 5, grid, inputs[1]["mf_w64"])
+    name = f"g{grid}_64"
+    d = cpl.shape[0]
+    for r in grid_ranks:
+        np.testing.assert_allclose(r[f"{name}_fn"], fn, rtol=1e-8, atol=1e-12)
+        np.testing.assert_allclose(r[f"{name}_apc"], apc, rtol=1e-8, atol=1e-12)
+        start, stop = (int(x) for x in r[f"{name}_range"])
+        per = d // GRIDS[grid][1]
+        assert (start, stop) == (int(r[f"g{grid}_model_rank"]) * per,
+                                 (int(r[f"g{grid}_model_rank"]) + 1) * per)
+        assert r[f"{name}_rows"].dtype == np.float64
+        np.testing.assert_allclose(r[f"{name}_rows"], cpl[start:stop], rtol=1e-8, atol=1e-12)
+
+
+@pytest.mark.parametrize("grid", list(GRIDS))
+def test_grid_meanfield_f32_matches_jax(grid_ranks, inputs, grid):
+    """Float32 weights computed over the data axis, on each grid, against
+    JAX's float32 ``mfdca_sharded`` on the same mesh: FN and FN-APC at
+    rtol 1e-4, atol 1e-6; bitwise equal on every rank."""
+    fn, apc, _ = _jax_grid(inputs[1]["mf"], 5, grid)
+    r0 = grid_ranks[0]
+    for r in grid_ranks:
+        np.testing.assert_array_equal(r[f"g{grid}_32_apc"], r0[f"g{grid}_32_apc"])
+    np.testing.assert_allclose(r0[f"g{grid}_32_fn"], fn, **F32_TOL)
+    np.testing.assert_allclose(r0[f"g{grid}_32_apc"], apc, **F32_TOL)
+
+
+def test_grid_pads_a_cut_site(grid_ranks, inputs):
+    """15 sites over a model axis of 4: C is padded to 16 sites (an
+    identity block), and FN, FN-APC and the real rows still match JAX's
+    1 x 4 mesh to rtol 1e-8; the last rank holds 3 real sites."""
+    fn, apc, cpl = _jax_grid(inputs[1]["mf15"], 5, "14", inputs[1]["mf15_w64"])
+    np.testing.assert_allclose(grid_ranks[0]["pad_64_fn"], fn, rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(grid_ranks[0]["pad_64_apc"], apc, rtol=1e-8, atol=1e-12)
+    rows = _rows_in_model_order(grid_ranks, "pad_64", "14")
+    assert rows.shape == cpl.shape and grid_ranks[3]["pad_64_rows"].shape[0] == 3 * 4
+    np.testing.assert_allclose(rows, cpl, rtol=1e-8, atol=1e-12)
+
+
+def test_grid_blocked_cholesky_above_4096(grid_ranks, inputs):
+    """L 210, q 21 (D 4200 > 4096) on the 2 x 2 grid, float64 weights: the
+    blocked Cholesky runs on the slabs (its row broadcasts counted), as
+    JAX's does on its mesh; FN and FN-APC at rtol 1e-8.  (In float32 JAX's
+    own FN here is 4.1e-4 off its float64 FN, the port's 1.1e-4: the
+    comparison is made in float64.)"""
+    fn, apc, _ = _jax_grid(inputs[1]["big"], 21, "22", inputs[1]["big_w64"])
+    r0 = grid_ranks[0]
+    assert int(r0["big_chol_bcasts"]) > 0
+    np.testing.assert_allclose(r0["big_64_fn"], fn, rtol=1e-8, atol=1e-12)
+    np.testing.assert_allclose(r0["big_64_apc"], apc, rtol=1e-8, atol=1e-12)
+
+
+def test_grid_plm_fit_bitwise_across_model_replicas(grid_ranks, two_ranks):
+    """10 iterations on the 2 x 2 grid: theta bitwise equal on all four
+    ranks and to the 2-rank data mesh's (the same stripes, the same sums)."""
+    want = two_ranks[0][0]["fused_x"]
+    for r in grid_ranks:
+        np.testing.assert_array_equal(r["grid_plm_x"], want)
+
+
+def test_grid_engine_gathers_couplings_once(grid_ranks):
+    """``MeanFieldDCA(mesh=1 x 4 grid)``: its FN-APC equals
+    ``mfdca_sharded``'s on the same grid, its rows are that run's slab,
+    and ``compute_couplings`` gathers the slabs whole."""
+    for r in grid_ranks:
+        np.testing.assert_allclose(r["engine_apc"], r["g14_32_apc"], rtol=1e-6)
+        np.testing.assert_allclose(r["engine_rows"], r["g14_32_rows"], rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(np.concatenate([r["engine_rows"] for r in grid_ranks]),
+                                  grid_ranks[0]["engine_couplings"])
+
+
+def test_grid_lu_fallback(grid_ranks):
+    """A non-SPD C (3 sequences, pseudocount 0) on a grid: every rank
+    takes the LU fallback, as the one-device engine does, with its FN."""
+    data = np.array([[0, 1, 2, 3, 0, 1], [1, 2, 3, 0, 1, 2], [2, 3, 0, 1, 2, 3]], dtype=np.int8)
+    from pydca_tpu_torch.alphabets import RNA
+    from pydca_tpu_torch.io.fasta import MSA
+    from pydca_tpu_torch.meanfield import MeanFieldDCA
+
+    one = MeanFieldDCA(MSA(data=data, alphabet=RNA), "rna", pseudocount=0.0, device="cpu")
+    want = np.array([s for _, s in sorted(one.compute_sorted_FN())])
+    assert one.lu_fallback
+    for r in grid_ranks:
+        assert bool(r["lu_engine_flag"])
+        np.testing.assert_allclose(r["lu_engine_fn"], want, rtol=1e-5, equal_nan=True)
+        np.testing.assert_allclose(r["lu_fn"], r["lu_engine_fn"], rtol=1e-5, equal_nan=True)

@@ -52,11 +52,14 @@ def _tiny_problem(n=64, l=12, q=5, seed=0):
     return np.where(mut, rng.integers(0, q, size=(n, l)), msa).astype(np.int32)
 
 
-def entry(device="cpu"):
+def entry(device="cuda"):
     """``(fn, example_args)``: one plmDCA loss and gradient at N 256, L 32,
-    q 5 (``__graft_entry__.entry``)."""
+    q 5 (``__graft_entry__.entry``), on ``device`` (a card unless the
+    caller asks for the CPU; ``"cuda"`` without one raises)."""
+    from .device import resolve_device
     from .plm import plm_loss_and_grad
 
+    device = resolve_device(device)
     n, l, q = 256, 32, 5
     msa = torch.from_numpy(_tiny_problem(n=n, l=l, q=q)).to(device)
     p = l * (l - 1) // 2
@@ -94,7 +97,7 @@ def _check_cards(world: int, device: str) -> None:
                            f"{want} card(s); {count} are visible")
 
 
-def dryrun_multichip(n_devices: int, device: str = "cpu") -> Optional[str]:
+def dryrun_multichip(n_devices: int, device: str = "cuda") -> Optional[str]:
     """One sharded training step and the model-sharded mean-field pipeline
     on an ``n_devices``-rank grid (``__graft_entry__.dryrun_multichip``).
 
@@ -102,9 +105,10 @@ def dryrun_multichip(n_devices: int, device: str = "cpu") -> Optional[str]:
     the data axis takes the rest.  In a process group of ``n_devices``
     ranks this runs this rank's part and returns the report line (rank 0
     prints it); without one, ``n_devices`` ranks are started on
-    ``device`` (see the module) and this returns ``None`` once they
-    succeed, raising when one fails.  Raises ``AssertionError`` when a
-    check fails.
+    ``device`` (see the module; the cards unless the caller asks for the
+    CPU) and this returns ``None`` once they succeed, raising when one
+    fails.  Raises ``RuntimeError`` when ``device`` asks for cards that are
+    not visible, and ``AssertionError`` when a check fails.
     """
     from .parallel.fit import launch_mesh
     from .parallel.mesh import torchrun_world

@@ -19,7 +19,7 @@ package) the weights' identity counts are split over the ranks by tiles
 and the Gram by rows (:mod:`pydca_tpu_torch.parallel`).  On a mesh whose
 model axis is 1, C, the inverse and the scores are then computed on every
 rank; above 1, each rank of the model axis builds its row slab of C and
-the solve runs on the slabs (:func:`_grid_couplings`).
+the solve runs on the slabs (:func:`_grid_solve`).
 """
 
 from __future__ import annotations
@@ -340,9 +340,10 @@ class MeanFieldDCA:
         """This rank's rows of the couplings on a model axis above 1 (the
         whole matrix as one slab otherwise), without a gather."""
         self._pipeline()
-        if self.__coupling_rows is None:
+        if not self._grid():
             return CouplingRows(self.__couplings, 0, self.__couplings.shape[0])
-        return _real_rows(self.__coupling_rows, self.msa.seqs_len, self.msa.q, self.mesh)
+        return _real_rows(self.__coupling_rows, self.__couplings, self.msa.seqs_len, self.msa.q,
+                          self.mesh)
 
     def _run_fused_pipeline(self) -> None:
         """Populate the weights/fi/couplings/FN caches: the steps of the JAX
@@ -397,24 +398,16 @@ class MeanFieldDCA:
 
     def _run_grid_solve(self, c: torch.Tensor) -> None:
         """The solve and score stages on the mesh's model axis, from this
-        rank's row slab of C (:func:`_grid_couplings`; the stages
+        rank's row slab of C (:func:`_grid_solve`; the stages
         ``cholesky``, ``tri_inv``, ``syrk`` and ``score`` in place of
         ``inverse`` and ``score``)."""
-        l, q = self.msa.seqs_len, self.msa.q
-        couplings, fn_raw, _, host = _grid_couplings(c, l, q, self.mesh, self.timers)
-        p = fn_raw.shape[0]
-        if host[0]:
-            self.lu_fallback = True
-            del couplings
-            with self.timers.stage("inverse"):
-                self.__couplings = _grid_lu_couplings(c, l, q, self.mesh)
-                sync(self.device)
-            self.__fn_raw = None
-            self.__fn_apc = None
-            return
-        self.__coupling_rows = couplings
-        self.__fn_raw = host[1 : 1 + p]
-        self.__fn_apc = host[1 + p :]
+        solve = _grid_solve(c, self.msa.seqs_len, self.msa.q, self.mesh, self.timers)
+        p = solve.fn.shape[0]
+        self.lu_fallback = solve.full is not None
+        self.__coupling_rows = solve.slab
+        self.__couplings = solve.full
+        self.__fn_raw = solve.host[:p]
+        self.__fn_apc = solve.host[p:]
 
     @staticmethod
     def _cholesky_couplings(c: torch.Tensor):
@@ -612,49 +605,69 @@ def _corr_rows(gram: torch.Tensor, fi: torch.Tensor, l: int, q: int, pseudocount
                                     l, q, sites=sites, l_pad=l_pad)
 
 
-def _grid_couplings(c: torch.Tensor, l: int, q: int, mesh, timers=None):
-    """``(couplings, fn, fn_apc, host)`` from this rank's padded row slab of
-    C over the mesh's model axis: ``-C^{-1}``'s padded row slab, the FN and
-    FN-APC scores (every rank's), and one host copy of ``[failed, fn,
-    fn_apc]`` (``failed`` summed over the model axis, so every rank takes
-    the same branch).  The factor is the blocked Cholesky above D = 4096,
-    as ``pydca_tpu/parallel/fit.py:174`` decides, else the whole C's;
-    the triangular inverse and the SYRK run on the slabs.  ``timers``
-    times ``cholesky``, ``tri_inv``, ``syrk`` and ``score``."""
+class GridSolve(NamedTuple):
+    """The model-sharded solve's result on one rank of the model axis."""
+
+    slab: Optional[torch.Tensor]  # this rank's padded row slab of -C^{-1}; None after LU
+    full: Optional[torch.Tensor]  # the whole (D, D) -C^{-1} after the LU fallback, else None
+    fn: torch.Tensor  # FN and FN-APC, whole on every rank
+    fn_apc: torch.Tensor
+    host: np.ndarray  # ``[fn, fn_apc]`` on the host
+
+
+def _grid_solve(c: torch.Tensor, l: int, q: int, mesh, timers=None) -> GridSolve:
+    """-C^{-1} and the FN scores from this rank's padded row slab of C over
+    the mesh's model axis.
+
+    The factor is the blocked Cholesky above D = 4096, as
+    ``pydca_tpu/parallel/fit.py:174`` decides, else the whole C's; the
+    triangular inverse and the SYRK run on the slabs.  The failed-panel
+    count and a non-finite flag are summed over the model axis and read
+    once with the FN vectors, so every rank takes the same branch: when C
+    is not numerically SPD, C's slabs are gathered whole (one (D, D)
+    buffer a rank) and inverted by LU, as the one-device engine does.
+    ``timers`` times ``cholesky``, ``tri_inv``, ``syrk``, ``score`` and,
+    on the fallback, ``inverse``.
+    """
     qm1 = q - 1
+    d = l * qm1
     l_pad = c.shape[1] // qm1
-    chol_block = 2048 if l * qm1 > 4096 else None
+    chol_block = 2048 if d > 4096 else None
     logger.info("model-sharded solve over %d ranks: D = %d (padded %d), %s factor, "
-                "%d rows a rank", mesh.model_size, l * qm1, l_pad * qm1,
+                "%d rows a rank", mesh.model_size, d, l_pad * qm1,
                 "blocked" if chol_block else "replicated", c.shape[0])
     inv, info = linalg.spd_inverse(c, chol_block=chol_block, mesh=mesh, timers=timers)
-    couplings = inv.neg_()
-    with synced_stage(timers, "score", couplings.device):
-        failed = torch.stack([(info != 0).to(couplings.dtype),
-                              (~torch.isfinite(couplings[0, 0])).to(couplings.dtype)])
+    slab = inv.neg_()
+    with synced_stage(timers, "score", slab.device):
+        failed = torch.stack([(info != 0).to(slab.dtype),
+                              (~torch.isfinite(slab[0, 0])).to(slab.dtype)])
         mesh.sum_(failed, "spd_flag_allreduce", axis="model")
-        fn2 = score_mod._fn_matrix_sq(couplings, l_pad, qm1)
+        fn2 = score_mod._fn_matrix_sq(slab, l_pad, qm1)
         fn2 = mesh.gather_rows(fn2, "fn_allgather", axis="model")[:l, :l]
         fn = score_mod.fn_from_sq(fn2, l)
         fn_apc = score_mod.apc(fn, l)
         host = torch.cat([failed.sum().reshape(1), fn, fn_apc]).cpu().numpy()
-    return couplings, fn, fn_apc, host
+    if not host[0]:
+        return GridSolve(slab, None, fn, fn_apc, host[1:])
+    del slab, inv
+    with synced_stage(timers, "inverse", c.device):
+        full = MeanFieldDCA._lu_couplings(mesh.gather_rows(c, "lu_gather", axis="model")[:d, :d])
+    fn = score_mod.frobenius_norms_from_matrix(full, l, qm1)
+    fn_apc = score_mod.apc(fn, l)
+    return GridSolve(None, full, fn, fn_apc, torch.cat([fn, fn_apc]).cpu().numpy())
 
 
-def _grid_lu_couplings(c: torch.Tensor, l: int, q: int, mesh) -> torch.Tensor:
-    """The LU fallback on a model axis: C's slabs gathered whole (one D^2
-    buffer a rank), then the one-device LU inverse."""
-    d = l * (q - 1)
-    full = mesh.gather_rows(c, "lu_gather", axis="model")[:d, :d]
-    return MeanFieldDCA._lu_couplings(full)
-
-
-def _real_rows(couplings: torch.Tensor, l: int, q: int, mesh) -> CouplingRows:
-    """The real (unpadded) part of this rank's padded row slab."""
+def _real_rows(slab: Optional[torch.Tensor], full: Optional[torch.Tensor], l: int, q: int,
+               mesh) -> CouplingRows:
+    """This rank's real (unpadded) rows of the couplings: a view of its
+    padded row slab, or, without one, a copy of its rows of the whole
+    matrix (the LU fallback's)."""
     qm1 = q - 1
     _, (s0, s1) = _model_sites(mesh, l)
     start, stop = min(s0, l) * qm1, min(s1, l) * qm1
-    return CouplingRows(couplings[: stop - start, : l * qm1], start, stop)
+    if slab is None:
+        return CouplingRows(full[start:stop].clone(), start, stop)
+    return CouplingRows(slab[: stop - start, : l * qm1], start, stop)
 
 
 def _gram_fi(gram: torch.Tensor, l: int, q: int) -> torch.Tensor:

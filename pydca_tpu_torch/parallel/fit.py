@@ -240,11 +240,7 @@ def mfdca_sharded(
     ``weights``, ``gram``, ``corr``, and on a model axis ``cholesky``,
     ``tri_inv``, ``syrk`` and ``score``, each ended by a device synchronise.
     """
-    from .. import score as score_mod
-    from ..meanfield import (
-        CouplingRows, _corr_rows, _gram_fi, _grid_couplings, _grid_lu_couplings, _mf_couplings,
-        _real_rows,
-    )
+    from ..meanfield import _corr_rows, _gram_fi, _grid_solve, _mf_couplings, _real_rows
 
     mesh = _mesh_or_default(mesh, msa.device)
     l = msa.shape[1]
@@ -259,16 +255,11 @@ def mfdca_sharded(
         with synced_stage(timers, "corr", msa.device):
             c = _corr_rows(gram, _gram_fi(gram, l, q), l, q, pseudocount, mesh)
             del gram
-        couplings, fn, fn_apc, host = _grid_couplings(c, l, q, mesh, timers)
-        rows = _real_rows(couplings, l, q, mesh)
-        if host[0]:  # C is not numerically SPD: the LU fallback, on the whole C
-            del couplings
-            full = _grid_lu_couplings(c, l, q, mesh)
-            fn = score_mod.frobenius_norms_from_matrix(full, l, q - 1)
-            fn_apc = score_mod.apc(fn, l)
-            rows = CouplingRows(full[rows.start : rows.stop].clone(), rows.start, rows.stop)
-        couplings = rows
+        solve = _grid_solve(c, l, q, mesh, timers)
         del c
+        fn, fn_apc = solve.fn, solve.fn_apc
+        couplings = _real_rows(solve.slab, solve.full, l, q, mesh)
+        del solve
     if return_all:
         return {"fn": fn, "fn_apc": fn_apc, "couplings": couplings, "weights": w}
     if return_couplings:

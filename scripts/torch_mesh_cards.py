@@ -44,8 +44,7 @@ rank's peak memory over the run and over the solve (C resident), the
 collectives, the FN-APC rank bar against one card and rank 0's rows of the
 couplings against one card's.
 
-``--cases`` picks the cases (default: all five).  ``--device cpu --small``
-runs the same on the CPU under gloo at small shapes, to rehearse a launch
+``--device cpu --small`` runs the same on the CPU under gloo at small shapes, to rehearse a launch
 without a card (the ``cli`` case's one process calls ``spawn_cli`` with
 gloo ranks there).
 """
@@ -285,11 +284,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--small", action="store_true", help="small shapes (a rehearsal)")
-    ap.add_argument("--cases", default="plm,mf,deep,cli,model",
-                    help="comma-separated cases (default: all)")
     args = ap.parse_args()
-    wanted = set(args.cases.split(","))
-    cases = {k: v for k, v in (SMALL if args.small else CASES).items() if k in wanted}
+    cases = SMALL if args.small else CASES
     local = int(os.environ.get("LOCAL_RANK", "0"))
     if args.device == "cuda":
         if not torch.cuda.is_available():
@@ -312,17 +308,16 @@ def main() -> int:
               f"{torch.cuda.device_count() if dev.type == 'cuda' else 0} visible cards", flush=True)
     for name, shape in SMALL.items():  # the warm-up, untimed
         run_case(name, shape, draw(shape), dev, None)
-    if "model" in wanted:
-        # the grids once, their communicators set up by an untimed run at the small shapes
-        meshes = {g: make_mesh(*g, device=dev) for g in grids(world)}
-        for mesh in meshes.values():
-            mesh.timed = True
-        for name, shape in SMALL_MODEL.items():
-            model_case(name, shape, dev, rank, world, meshes)
-        for name, shape in (SMALL_MODEL if args.small else MODEL).items():
-            for rec in model_case(name, shape, dev, rank, world, meshes):
-                print(json.dumps(rec), flush=True)
-            reset(dev)
+    # the grids once, their communicators set up by an untimed run at the small shapes
+    meshes = {g: make_mesh(*g, device=dev) for g in grids(world)}
+    for mesh in meshes.values():
+        mesh.timed = True
+    for name, shape in SMALL_MODEL.items():
+        model_case(name, shape, dev, rank, world, meshes)
+    for name, shape in (SMALL_MODEL if args.small else MODEL).items():
+        for rec in model_case(name, shape, dev, rank, world, meshes):
+            print(json.dumps(rec), flush=True)
+        reset(dev)
     for name, shape in cases.items():
         msa = draw(shape)
         one = run_case(name, shape, msa, dev, None) if rank == 0 else None
@@ -351,7 +346,7 @@ def main() -> int:
         del one, many
     reset(dev)
     ok = True
-    if rank == 0 and "cli" in wanted:
+    if rank == 0:
         rec = cli_case((SMALL if args.small else CASES)["plm"], world, args.device)
         print(json.dumps(rec), flush=True)
         ok = rec["files_equal"]

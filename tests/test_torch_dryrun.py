@@ -24,7 +24,7 @@ def test_entry_matches_jax():
     largest entry."""
     jfn, jargs = jentry.entry()
     jloss, jgrad = jax.jit(jfn)(*jargs)
-    fn, args = dryrun.entry()
+    fn, args = dryrun.entry("cpu")
     np.testing.assert_array_equal(args[0].numpy(), np.asarray(jargs[0]))
     np.testing.assert_array_equal(args[1].numpy(), np.asarray(jargs[1]))
     loss, grad = fn(*args)
@@ -65,6 +65,10 @@ def test_dryrun_on_cards_that_are_not_there_raises():
     raises, in the function and through the command."""
     with pytest.raises(RuntimeError, match="card"):
         dryrun.dryrun_multichip(2, "cuda")
+    with pytest.raises(RuntimeError, match="card"):
+        dryrun.dryrun_multichip(4)  # the cards by default
+    with pytest.raises(RuntimeError, match="cuda"):
+        dryrun.entry()
     with pytest.raises(RuntimeError, match="card"):
         dryrun.dryrun_multichip(1, "cuda:3")
     proc = subprocess.run(

@@ -33,7 +33,12 @@ Builds the port's CUDA kernels from ``pydca_tpu_torch/csrc`` with nvcc
   compute_fn_batch --apc`` on the JAX package's 32-family RNA sweep, on the
   card and on the CPU, and on 12 planted protein families at Pfam widths
   on the card, each family launching the kernels once, after both kernels
-  are held against their plain versions on every family's codes (phase 14);
+  are held against their plain versions on every family's codes; on the
+  RNA sweep the plm fits also run as one ``--no_bucket`` lock-step batch,
+  the largest bucket's lock-step fit under ``torch.profiler`` beside one
+  family's, and on both sweeps the sequential per-family loop, every
+  family's lock-step scores at the rank bar against its sequential ones
+  (phase 14);
 - reference sequences: ``plmdca compute_fn --apc --refseq_file`` at phase
   3's shape with the card's mapping held to a CPU backmapper's (a),
   ``mfdca compute_fn --apc --refseq_file`` at phase 7's on the card and the
@@ -952,7 +957,8 @@ def write_sweep(tmp, name, codes_list, alphabet):
 def run_batch(tmp, cli, biomolecule, files, device, flags):
     """One ``compute_fn_batch --apc`` run: its BatchRun, wall, launches,
     peak memory and the score lists of its files in input order."""
-    out = os.path.join(tmp, f"{cli}_{biomolecule}_{device}")
+    out = os.path.join(tmp, f"{cli}_{biomolecule}_{device}" + "".join(
+        f.strip("-") for f in flags if f.startswith("--no")))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
@@ -968,36 +974,98 @@ def run_batch(tmp, cli, biomolecule, files, device, flags):
 
 
 def fits_text(run, wall):
-    """The fit side of a plm batch: walls, iterations, family-iterations/s
-    and per-family ms/iteration."""
-    fit_s = sum(f.seconds for f in run.fits)
+    """The fit side of a plm batch: walls, family-iterations/s, host syncs
+    a family-iteration, lane-iterations run against useful ones and each
+    lock-step batch's lanes, (N, L), seconds and host syncs."""
+    fit_s = sum(b.seconds for b in run.batches)
     iters = sum(f.num_iters for f in run.fits)
-    per = sorted(1e3 * f.seconds / max(f.num_iters, 1) for f in run.fits)
-    return (f"CLI wall {wall:.3f} s, fit wall {fit_s:.3f} s, {iters} iterations "
-            f"({sum(f.n_evals for f in run.fits)} evaluations, "
-            f"{sum(f.host_syncs for f in run.fits) / iters:.2f} host syncs/iteration), "
-            f"{iters / fit_s:.1f} family-iterations/s, ms/iteration per family min "
-            f"{per[0]:.2f} median {float(np.median(per)):.2f} max {per[-1]:.2f}")
+    per = "; ".join(f"{b.lanes} x {b.shape} {b.seconds:.3f} s {b.host_syncs} syncs"
+                    for b in run.batches)
+    return (f"CLI wall {wall:.3f} s, fit wall {fit_s:.3f} s, {iters} family-iterations "
+            f"({sum(f.n_evals for f in run.fits)} evaluations), {iters / fit_s:.1f} "
+            f"family-iterations/s, {sum(b.host_syncs for b in run.batches) / iters:.2f} host "
+            f"syncs/family-iteration, lane-iterations run "
+            f"{sum(b.lane_iterations for b in run.batches)} against {iters} useful, "
+            f"{len(run.batches)} lock-step batches ({per})")
+
+
+def sequential_fits(msas, dev, iters):
+    """The per-family reference loop, ``family._fit_one`` on each family
+    one after another (weights first, as the lock-step route has them):
+    the score lists and a text with the fit wall (each fit ending in a
+    synchronise), family-iterations/s, host syncs a family-iteration and
+    peak memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    scores, fit_s, k, syncs = [], 0.0, 0, 0
+    for msa in msas:
+        l, q = msa.seqs_len, msa.q
+        codes = torch.from_numpy(msa.data.astype(np.int8)).to(dev)
+        w = family._weights_of(codes, 0.8, q)
+        lam = float(np.float32(0.2 * (l - 1)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = family._fit_one(codes, w, lam, lam, l, q, max_iterations=iters)
+        torch.cuda.synchronize()
+        fit_s += time.perf_counter() - t0
+        k, syncs = k + st.k, syncs + st.host_syncs
+        scores.append(family._own_scores(st.x, l, q, True))
+        del st, codes, w
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    return scores, (f"fit wall {fit_s:.3f} s, {k} family-iterations, {k / fit_s:.1f} "
+                    f"family-iterations/s, {syncs / k:.2f} host syncs/family-iteration, "
+                    f"peak {peak:.2f} GiB")
+
+
+def busy_text(fit, what):
+    """``fit()`` under ``torch.profiler`` (CUDA only): host wall ms, device
+    ms and the busy share."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    device = sum(e.device_time_total for e in prof.key_averages()) / 1e3
+    return f"{what} under torch.profiler: wall {wall:.1f} ms, device {device:.1f} ms, busy " \
+           f"{100 * device / wall:.1f}%"
 
 
 def family_busy(msas, dev):
-    """The largest family's 20-iteration fit again under ``torch.profiler``:
-    host wall ms, device ms and the busy share."""
+    """The largest family's 20-iteration sequential fit under
+    ``torch.profiler``."""
     msa = max(msas, key=lambda m: m.num_seqs * m.seqs_len)
     l, q = msa.seqs_len, msa.q
     codes = torch.from_numpy(msa.data).to(dev)
     w = family._weights_of(codes, 0.8, q)
     lam = float(np.float32(0.2 * (l - 1)))
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        st = family._fit_one(codes, w, lam, lam, l, q, max_iterations=20)
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    device = sum(e.device_time_total for e in prof.key_averages()) / 1e3
-    return (f"the largest family ({msa.num_seqs} x {l}, {st.k} iterations) under "
-            f"torch.profiler: wall {wall:.1f} ms, device {device:.1f} ms, busy "
-            f"{100 * device / wall:.1f}%")
+    return busy_text(lambda: family._fit_one(codes, w, lam, lam, l, q, max_iterations=20),
+                     f"the largest family's sequential fit ({msa.num_seqs} x {l}, 20 "
+                     f"iterations)")
+
+
+def lockstep_busy(msas, dev):
+    """The lock-step fit of the bucket with the most padded work (lanes x
+    Nb x (Lb q)^2), 20 iterations, under ``torch.profiler``."""
+    groups = family.bucket_families(msas)
+    idxs = max(groups.values(), key=lambda ix: len(ix) * max(msas[i].num_seqs for i in ix)
+               * max(msas[i].seqs_len for i in ix) ** 2)
+    q = msas[idxs[0]].q
+    codes = [torch.from_numpy(msas[i].data.astype(np.int8)).to(dev) for i in idxs]
+    ws = [family._weights_of(c, 0.8, q) for c in codes]
+    lam = np.asarray([0.2 * (msas[i].seqs_len - 1) for i in idxs], np.float32)
+    out = {}
+
+    def fit():
+        out["states"], out["run"] = family._fit_lockstep(codes, ws, lam, lam, q,
+                                                         max_iterations=20)
+
+    text = busy_text(fit, f"the largest bucket's lock-step fit ({len(idxs)} lanes at "
+                          f"{(max(c.shape[0] for c in codes), max(c.shape[1] for c in codes))}, "
+                          f"20 iterations)")
+    run = out["run"]
+    return f"{text}, {run.host_syncs} host syncs for {sum(s.k for s in out['states'])} " \
+           f"family-iterations"
 
 
 def family_kernel_checks(msas, dev, what):
@@ -1031,9 +1099,24 @@ def family_kernel_checks(msas, dev, what):
     return ident_err, gram_err
 
 
-def phase_families(tmp, dev):
+def rank_against(runs, reference, msas, what):
+    """Every family's scores of each run at the rank bar against the
+    reference's; returns the worst Spearman and top-20 overlap."""
+    worst = (1.0, 1.0)
+    for name, scores in runs.items():
+        for k, (m, a, b) in enumerate(zip(msas, scores, reference)):
+            rho, top = spearman(a, b, m.seqs_len), top_k_overlap(a, b, 20)
+            check(rho >= 0.98 and top >= 0.9, f"{what} {name} family {k}: spearman "
+                  f"{rho:.4f}, top-20 overlap {top:.2f}")
+            worst = (min(worst[0], rho), min(worst[1], top))
+    return worst
+
+
+def phase_families(tmp, dev, smi):
     """``compute_fn_batch --apc`` through both CLIs: the JAX package's RNA
-    sweep on the card and on the CPU, then planted protein families."""
+    sweep on the card and on the CPU, bucketed and (plm) ``--no_bucket``,
+    against the sequential per-family loop; then planted protein
+    families."""
     files = write_sweep(tmp, "rna_sweep", rna_family_sweep(), alphabets.RNA)
     nf = len(files)
     batch = family.FamilyBatch([plm.read_msa(f, "rna") for f in files])
@@ -1044,8 +1127,13 @@ def phase_families(tmp, dev):
                         for cli, flags in (("plmdca", ["--max_iterations", "20"]),
                                            ("mfdca", []))}
     plm_gpu, mf_gpu = runs["cuda"]["plmdca"], runs["cuda"]["mfdca"]
-    check(plm_gpu[2] == {"identity_counts": nf, "weighted_gram": 0},
-          f"RNA plm batch launches {plm_gpu[2]}, expected identity_counts {nf}")
+    flat_gpu = run_batch(tmp, "plmdca", "rna", files, "cuda",
+                         ["--max_iterations", "20", "--no_bucket"])
+    for name, run in (("RNA plm batch", plm_gpu), ("RNA plm --no_bucket batch", flat_gpu)):
+        check(run[2] == {"identity_counts": nf, "weighted_gram": 0},
+              f"{name} launches {run[2]}, expected identity_counts {nf}")
+    check(len(flat_gpu[0].batches) == 1 and flat_gpu[0].batches[0].lanes == nf,
+          f"RNA --no_bucket ran {len(flat_gpu[0].batches)} lock-step batches, expected one of {nf}")
     check(mf_gpu[2] == {"identity_counts": nf, "weighted_gram": nf},
           f"RNA mean-field batch launches {mf_gpu[2]}, expected {nf} of each")
     check(torch.equal(family.family_sequence_weights(batch, device=dev).cpu(),
@@ -1053,28 +1141,33 @@ def phase_families(tmp, dev):
           "RNA sweep: family weights differ between the card and the CPU")
     worst = {}
     for cli in ("plmdca", "mfdca"):
-        pairs = zip(batch.msas, runs["cpu"][cli][4], runs["cuda"][cli][4])
-        stats_f = [(spearman(a, b, m.seqs_len), top_k_overlap(a, b, 20)) for m, a, b in pairs]
-        worst[cli] = (min(r for r, _ in stats_f), min(t for _, t in stats_f))
-        check(worst[cli][0] >= 0.98 and worst[cli][1] >= 0.9,
-              f"RNA {cli} batch cpu vs cuda: worst family spearman {worst[cli][0]:.4f}, "
-              f"top-20 overlap {worst[cli][1]:.2f}")
+        worst[cli] = rank_against({"cpu vs cuda": runs["cpu"][cli][4]}, runs["cuda"][cli][4],
+                                  batch.msas, f"RNA {cli} batch")
+    seq_scores, seq_text = sequential_fits(batch.msas, dev, 20)
+    worst["seq"] = rank_against({"bucketed": plm_gpu[4], "--no_bucket": flat_gpu[4]},
+                                seq_scores, batch.msas, "RNA lock-step against sequential")
     busy = family_busy(batch.msas, dev)
-    print(f"phase 14 (a) RNA sweep, {nf} families q 5: on every family identity_counts equal "
-          f"to plain, weighted_gram within (rtol, atol) {GRAM_TOL[torch.float32]} of plain "
+    lbusy = lockstep_busy(batch.msas, dev)
+    print(f"phase 14 (a) [{smi}] RNA sweep, {nf} families q 5: on every family identity_counts "
+          f"equal to plain, weighted_gram within (rtol, atol) {GRAM_TOL[torch.float32]} of plain "
           f"(max abs err {errs[0][1]:.3e}); weights equal on the card and the CPU; "
-          f"plm cuda: {fits_text(plm_gpu[0], plm_gpu[1])}, peak {plm_gpu[3]:.2f} GiB; plm cpu: "
+          f"plm cuda bucketed: {fits_text(plm_gpu[0], plm_gpu[1])}, peak {plm_gpu[3]:.2f} GiB; "
+          f"plm cuda --no_bucket: {fits_text(flat_gpu[0], flat_gpu[1])}, peak "
+          f"{flat_gpu[3]:.2f} GiB; plm cuda sequential (family._fit_one): {seq_text}; every "
+          f"family's lock-step scores (bucketed and --no_bucket) against its sequential ones: "
+          f"worst spearman {worst['seq'][0]:.4f} top-20 {worst['seq'][1]:.2f}; plm cpu bucketed: "
           f"{fits_text(runs['cpu']['plmdca'][0], runs['cpu']['plmdca'][1])}; worst family cpu vs "
           f"cuda plm spearman {worst['plmdca'][0]:.4f} top-20 {worst['plmdca'][1]:.2f}, mean-field "
           f"{worst['mfdca'][0]:.4f} / {worst['mfdca'][1]:.2f}; mean-field CLI wall cuda "
-          f"{mf_gpu[1]:.3f} s cpu {runs['cpu']['mfdca'][1]:.3f} s; {busy}; kernel launches plm "
-          f"{plm_gpu[2]}, mean-field {mf_gpu[2]}", flush=True)
+          f"{mf_gpu[1]:.3f} s cpu {runs['cpu']['mfdca'][1]:.3f} s; {busy}; {lbusy}; kernel "
+          f"launches plm {plm_gpu[2]}, --no_bucket {flat_gpu[2]}, mean-field {mf_gpu[2]}",
+          flush=True)
 
     sweep = protein_family_sweep()
     files = write_sweep(tmp, "protein_sweep", [c for c, _ in sweep], alphabets.PROTEIN)
     nf = len(files)
-    errs.append(family_kernel_checks([plm.read_msa(f, "protein") for f in files], dev,
-                                     "protein sweep"))
+    prot = [plm.read_msa(f, "protein") for f in files]
+    errs.append(family_kernel_checks(prot, dev, "protein sweep"))
     torch.cuda.empty_cache()
     plm_run = run_batch(tmp, "plmdca", "protein", files, "cuda", [])
     mf_run = run_batch(tmp, "mfdca", "protein", files, "cuda", [])
@@ -1086,16 +1179,26 @@ def phase_families(tmp, dev):
     for cli, run in (("plm", plm_run), ("mean-field", mf_run)):
         shares[cli] = [check_ranked(sc, c.shape[1], pairs, f"protein {cli} family {k}")
                        for k, (sc, (c, pairs)) in enumerate(zip(run[4], sweep))]
+    seq_scores, seq_text = sequential_fits(prot, dev, 100)
+    worst_p = rank_against({"bucketed": plm_run[4]}, seq_scores, prot,
+                           "protein lock-step against sequential")
     shapes = [c.shape for c, _ in sweep]
-    print(f"phase 14 (b) protein sweep, {nf} planted families q 21, N {min(n for n, _ in shapes)}-"
-          f"{max(n for n, _ in shapes)}, L {min(l for _, l in shapes)}-{max(l for _, l in shapes)}: "
-          f"on every family identity_counts equal to plain, weighted_gram within GRAM_TOL "
-          f"(max abs err {errs[1][1]:.3e}); planted recovery min plm {min(shares['plm']):.2f} mean-field "
-          f"{min(shares['mean-field']):.2f} (top {PLANTED_TOP}); plm: "
-          f"{fits_text(plm_run[0], plm_run[1])}, peak {plm_run[3]:.2f} GiB; mean-field CLI wall "
-          f"{mf_run[1]:.3f} s, peak {mf_run[3]:.2f} GiB; kernel launches plm {plm_run[2]}, "
-          f"mean-field {mf_run[2]}", flush=True)
-    ident = sum(r[2]["identity_counts"] for r in (plm_gpu, mf_gpu, plm_run, mf_run))
+    big = max(plm_run[0].batches, key=lambda b: b.lanes * b.shape[0] * b.shape[1] ** 2)
+    est = big.lanes * family.lockstep_lane_bytes(*big.shape, 21) / 2**30
+    print(f"phase 14 (b) [{smi}] protein sweep, {nf} planted families q 21, N "
+          f"{min(n for n, _ in shapes)}-{max(n for n, _ in shapes)}, L "
+          f"{min(l for _, l in shapes)}-{max(l for _, l in shapes)}: on every family "
+          f"identity_counts equal to plain, weighted_gram within GRAM_TOL (max abs err "
+          f"{errs[1][1]:.3e}); planted recovery min plm {min(shares['plm']):.2f} mean-field "
+          f"{min(shares['mean-field']):.2f} (top {PLANTED_TOP}); plm bucketed: "
+          f"{fits_text(plm_run[0], plm_run[1])}, peak {plm_run[3]:.2f} GiB (the largest batch, "
+          f"{big.lanes} x {big.shape}, counts {est:.2f} GiB against LOCKSTEP_MAX_BYTES "
+          f"{family.LOCKSTEP_MAX_BYTES / 2**30:.0f} GiB); plm sequential (family._fit_one): "
+          f"{seq_text}; every family's lock-step scores against its sequential ones: worst "
+          f"spearman {worst_p[0]:.4f} top-20 {worst_p[1]:.2f}; mean-field CLI wall {mf_run[1]:.3f} s, "
+          f"peak {mf_run[3]:.2f} GiB; kernel launches plm {plm_run[2]}, mean-field {mf_run[2]}",
+          flush=True)
+    ident = sum(r[2]["identity_counts"] for r in (plm_gpu, flat_gpu, mf_gpu, plm_run, mf_run))
     gram = sum(r[2]["weighted_gram"] for r in (mf_gpu, mf_run))
     return ident, gram, max(e[0] for e in errs), max(e[1] for e in errs)
 
@@ -2438,7 +2541,7 @@ def main() -> int:
         ckpt_launches = phase_checkpoint(tmp, dev, inst_main, stream_inst)
         del stream_inst
         clock.lap("13")
-        fam_ident, fam_gram, fam_ident_err, fam_gram_err = phase_families(tmp, dev)
+        fam_ident, fam_gram, fam_ident_err, fam_gram_err = phase_families(tmp, dev, smi)
         clock.lap("14")
 
         # ---- phase 15: reference sequences (backmapping, search, trimming, evaluator)

@@ -287,7 +287,7 @@ def execute_batch(
 ):
     """N families -> per-family mean-field scores -> per-family files
     (``pydca_tpu/cli/mfdca_main.py:280-332``).  Returns a
-    :class:`~pydca_tpu_torch.family.BatchRun` (no fits)."""
+    :class:`~pydca_tpu_torch.family.BatchRun` (no fits, no batches)."""
     if verbose:
         configure_logging()
     timers = StageTimers()
@@ -315,7 +315,7 @@ def execute_batch(
             output_dir, msa_files, msas, scores_per_family, prefix, score_type
         )
     logger.info("mfDCA family batch of %d MSAs:\n%s", len(msas), timers.summary())
-    return BatchRun(paths, [], timers)
+    return BatchRun(paths, [], [], timers)
 
 
 def run_warmup(args) -> float:

@@ -15,7 +15,8 @@ the same device), ``--seq_block`` (the streamed loss; past 1 GiB of
 logits the engine streams by itself), ``--checkpoint`` (resume and
 bounded retry), ``--precision bfloat16`` (bfloat16 operands for the
 logits products) and ``--param_space w2`` (L-BFGS over the full symmetric
-coupling matrix); ``compute_fn_batch`` over many families on one device
+coupling matrix); ``compute_fn_batch`` over many families on one device,
+fitted in lock-step per (N, L) bucket or, with ``--no_bucket``, all at once
 (:mod:`pydca_tpu_torch.family`); ``warmup``, which builds the kernels a
 run at the MSA's shapes loads (:mod:`pydca_tpu_torch.warmup`).  The
 kernels are cached where
@@ -37,7 +38,15 @@ import sys
 
 from ..backmap import SequenceBackmapper
 from ..config_log import configure_logging
-from ..family import BatchRun, FamilyFit, family_plm_fit_bucketed
+from ..family import (
+    BatchRun,
+    FamilyBatch,
+    FamilyFit,
+    family_plm_fit,
+    family_plm_fit_bucketed,
+    family_plm_scores,
+    padded_flop_stats,
+)
 from ..io import output as dca_utilities
 from ..io.fasta import read_msa
 from ..parallel.fit import launch_mesh
@@ -140,7 +149,7 @@ def build_parser() -> argparse.ArgumentParser:
     sw.add_argument("--verbose", action="store_true")
     sb = subparsers.add_parser(
         "compute_fn_batch",
-        help="FN scores for many MSA families, fitted one after another",
+        help="FN scores for many MSA families, fitted in lock-step per (N, L) bucket",
     )
     sb.add_argument("biomolecule", choices=["protein", "PROTEIN", "rna", "RNA"])
     sb.add_argument("msa_files", nargs="+", help="one FASTA file per family")
@@ -151,8 +160,8 @@ def build_parser() -> argparse.ArgumentParser:
     sb.add_argument("--apc", action="store_true")
     sb.add_argument(
         "--no_bucket", action="store_true",
-        help="accepted for the JAX CLI's flags; changes nothing, since every "
-        "family is fitted at its own size",
+        help="fit every family in one lock-step batch at the batch maxima "
+        "instead of one batch per (N, L) power-of-two bucket",
     )
     sb.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
@@ -298,13 +307,12 @@ def execute_batch(
     bucket=True,
     device="cuda",
 ):
-    """N families -> per-family fits -> per-family ranked score files
-    (``pydca_tpu/cli/plmdca_main.py:268-344``) through
-    ``family_plm_fit_bucketed``: each family is fitted at its own size and
-    scored as soon as its fit ends.  ``bucket=False`` (``--no_bucket``)
-    changes nothing, since the port never pads; it is accepted for the JAX
-    CLI's flags and logged.  Returns a
-    :class:`~pydca_tpu_torch.family.BatchRun`."""
+    """N families -> lock-step fits -> per-family ranked score files
+    (``pydca_tpu/cli/plmdca_main.py:268-344``): one lock-step batch per
+    (N, L) bucket through ``family_plm_fit_bucketed``, or, with
+    ``bucket=False`` (``--no_bucket``), every family in one batch through
+    ``family_plm_fit`` and ``family_plm_scores``, as the JAX CLI does.
+    Returns a :class:`~pydca_tpu_torch.family.BatchRun`."""
     if verbose:
         configure_logging()
     timers = StageTimers()
@@ -313,25 +321,40 @@ def execute_batch(
     seqid_v = 0.8 if seqid is None else float(seqid)
     iters = 100 if max_iterations is None else int(max_iterations)
     fits = [None] * len(msas)
+    batches = []
 
-    def record(f, st, seconds):
-        fits[f] = FamilyFit(st.k, st.n_evals, st.host_syncs, seconds)
-        logger.info("family %d (N=%d, L=%d): %d iterations, %d evaluations, %.3f s",
-                    f, msas[f].num_seqs, msas[f].seqs_len, st.k, st.n_evals, seconds)
+    def record(f, st, batch):
+        if not batches or batches[-1] is not batch:
+            batches.append(batch)
+        fits[f] = FamilyFit(st.k, st.n_evals, len(batches) - 1)
+        logger.info("family %d (N=%d, L=%d): %d iterations, %d evaluations, lock-step batch %d",
+                    f, msas[f].num_seqs, msas[f].seqs_len, st.k, st.n_evals, len(batches) - 1)
 
-    if not bucket:
-        logger.info("--no_bucket changes nothing here: every family is fitted unpadded")
     with timers.stage("compute"):
-        scores_per_family, stats_d = family_plm_fit_bucketed(
-            msas, seqid=seqid_v, max_iterations=iters, apc=apc, device=device,
-            progress_fn=record,
-        )
-    # the padded-FLOP figures describe the JAX package's vmap, not this run
-    logger.info("family batch: %d families, each fitted at its own size (%d iterations, "
-                "%.3f s of fits); a padded vmap would do %.2fx the useful FLOPs in %d "
-                "buckets, %.2fx in one block", len(msas), sum(f.num_iters for f in fits),
-                sum(f.seconds for f in fits), stats_d["bucketed_waste"],
-                stats_d["num_buckets"], stats_d["single_block_waste"])
+        if bucket:
+            scores_per_family, stats_d = family_plm_fit_bucketed(
+                msas, seqid=seqid_v, max_iterations=iters, apc=apc, device=device,
+                progress_fn=record,
+            )
+            waste = stats_d["bucketed_waste"]
+            what = f"{stats_d['num_buckets']} buckets"
+        else:
+            batch = FamilyBatch(msas)
+            thetas, _ = family_plm_fit(batch, seqid=seqid_v, max_iterations=iters,
+                                       device=device, progress_fn=record)
+            scores_per_family = family_plm_scores(batch, thetas, apc=apc)
+            del thetas
+            waste = padded_flop_stats(msas)["single_block_waste"]
+            what = "one block (--no_bucket)"
+    iterations = sum(f.num_iters for f in fits)
+    syncs = sum(b.host_syncs for b in batches)
+    logger.info("family batch: %d families in %s, %d lock-step batches at (N, L) %s: %d "
+                "iterations, %d evaluations, %.3f s of fits, %d host syncs (%.2f a "
+                "family-iteration), %d lane-iterations run; padded products %.2fx the "
+                "useful FLOPs", len(msas), what, len(batches),
+                ", ".join(f"{b.lanes} x {b.shape}" for b in batches), iterations,
+                sum(f.n_evals for f in fits), sum(b.seconds for b in batches), syncs,
+                syncs / max(iterations, 1), sum(b.lane_iterations for b in batches), waste)
     if not output_dir:
         output_dir = "PLMDCA_batch_output"
     dca_utilities.create_directories(output_dir)
@@ -345,7 +368,7 @@ def execute_batch(
         paths = dca_utilities.write_batch_scores(
             output_dir, msa_files, msas, scores_per_family, prefix, score_type
         )
-    return BatchRun(paths, fits, timers)
+    return BatchRun(paths, fits, batches, timers)
 
 
 def run_warmup(args) -> float:

@@ -195,10 +195,12 @@ def _expand_full(j_flat: torch.Tensor, l: int, q: int) -> torch.Tensor:
     ``J_full[i, j] = J_pair(i,j)`` for i < j, its transpose for i > j, zeros
     on the diagonal — the symmetric-variant storage the reference uses
     (``plmdca_numerics.cpp:501-517``).  Differentiable (autograd turns the
-    gather into a scatter-add).
+    gather into a scatter-add).  Leading axes of ``j_flat`` are lanes, each
+    expanded on its own.
     """
     plan = _pair_plan(l, j_flat.device)
-    jg = j_flat.reshape(-1, q * q)[plan.pidx].reshape(l, l, q, q)
+    lead = j_flat.shape[:-1]
+    jg = j_flat.reshape(*lead, -1, q * q)[..., plan.pidx, :].reshape(*lead, l, l, q, q)
     jfull = torch.where(plan.lower, jg.transpose(-1, -2), jg)
     return torch.where(plan.diag, torch.zeros((), dtype=jfull.dtype, device=jfull.device), jfull)
 
@@ -207,8 +209,12 @@ def _expand_w4(j_flat: torch.Tensor, l: int, q: int) -> torch.Tensor:
     """Flat pair couplings -> the 2-D ``(L*q, q*L)`` logits operand ``W``
     with ``W[j*q + b, a*L + i] = J_full[i, j, a, b]``, so that
     ``logits[n, a, i] = sum_{j,b} x[n, j*q+b] W[j*q+b, a*L+i] + h[i, a]``
-    (``pydca_tpu/plm.py:283-286``)."""
-    return _expand_full(j_flat, l, q).permute(1, 3, 2, 0).reshape(l * q, q * l)
+    (``pydca_tpu/plm.py:283-286``); one per lane of ``j_flat``'s leading
+    axes."""
+    full = _expand_full(j_flat, l, q)
+    k = full.dim() - 4
+    lead = tuple(range(k))
+    return full.permute(*lead, k + 1, k + 3, k + 2, k).reshape(*full.shape[:k], l * q, q * l)
 
 
 def _pair_pullback_rows(cr: torch.Tensor, l: int, q: int) -> torch.Tensor:

@@ -3,9 +3,11 @@
 
 The batches are ``tests/test_family.py``'s (three small RNA families, and
 six mixed sizes for the buckets), made from numpy seeds.  Weights equal
-JAX's exactly; five iterations of the fits agree with JAX's vmapped padded
-fit at float32 tolerance (relative L2 <= 1e-3 per family, as the k = 0..5
-states of ``tests/test_torch_plm.py``) with every pad entry exactly 0;
+JAX's exactly; five iterations of the lock-step fits agree with JAX's
+vmapped padded fit at float32 tolerance (relative L2 <= 1e-3 per family,
+as the k = 0..5 states of ``tests/test_torch_plm.py``) with every pad
+entry exactly 0, and each lane with its family's own sequential fit
+(``_fit_one``: the same k and evaluations, relative L2 <= 1e-4);
 30-iteration FN-APC meets the JAX package's own family bar (rtol 2e-2,
 atol 2e-3, the same top pair; ``tests/test_family.py:57``) and the ranking
 bar; mean-field scores agree at rtol 1e-3, atol 1e-5
@@ -16,7 +18,6 @@ agree to rtol 1e-5, with an absolute floor of 1e-6 of the largest score.
 """
 
 import os
-import types
 
 import numpy as np
 import pytest
@@ -25,6 +26,7 @@ import jax.numpy as jnp
 
 import pydca_tpu.family as jfam
 import pydca_tpu_torch.family as tfam
+from pydca_tpu_torch.ops.lbfgs import LBFGSState
 from pydca_tpu.alphabets import RNA as JRNA
 from pydca_tpu.cli import mfdca_main as jmf
 from pydca_tpu.cli import plmdca_main as jplm
@@ -33,6 +35,7 @@ from pydca_tpu_torch import alphabets as talph
 from pydca_tpu_torch.cli import mfdca_main as tmf
 from pydca_tpu_torch.cli import plmdca_main as tplm
 from pydca_tpu_torch.io.fasta import MSA as TMSA
+from pydca_tpu_torch.io.fasta import read_msa
 from pydca_tpu_torch.synthetic import spearman, top_k_overlap, write_family_fasta
 from test_torch_cli import read_scores
 
@@ -206,10 +209,17 @@ def test_bucketed_fit_matches_jax():
     sj, dj = jfam.family_plm_fit_bucketed(jm, max_iterations=8, min_n=16, min_l=4)
     st, dt = tfam.family_plm_fit_bucketed(tm, max_iterations=8, min_n=16, min_l=4,
                                           device="cpu",
-                                          progress_fn=lambda i, s, sec: seen.append((i, s.k)))
+                                          progress_fn=lambda i, s, b: seen.append((i, s.k, b)))
     assert dt == dj and dt["num_buckets"] >= 2
-    assert sorted(i for i, _ in seen) == list(range(len(codes)))
-    assert all(k == 8 for _, k in seen)
+    assert sorted(i for i, _, _ in seen) == list(range(len(codes)))
+    assert all(k == 8 for _, k, _ in seen)
+    # one lock-step batch a bucket, each at its own maxima
+    groups = tfam.bucket_families(tm, min_n=16, min_l=4)
+    runs = {id(b): b for _, _, b in seen}
+    assert len(runs) == len(groups)
+    assert sorted((b.lanes, b.shape) for b in runs.values()) == sorted(
+        (len(ix), (max(codes[i].shape[0] for i in ix), max(codes[i].shape[1] for i in ix)))
+        for ix in groups.values())
     for a, b in zip(st, sj):
         da, db = dict(a), dict(b)
         assert set(da) == set(db)
@@ -219,7 +229,7 @@ def test_bucketed_fit_matches_jax():
 
 
 def test_padding_does_not_change_the_port_fit():
-    """The port fits every family at its own shape: padded bounds change
+    """The lock-step fit pads to the batch's own maxima: ``pad_to`` changes
     only where the parameters are placed, not one bit of them."""
     codes = BATCHES["toy"]
     tight = tfam.FamilyBatch([TMSA(data=c, alphabet=talph.RNA) for c in codes])
@@ -232,15 +242,71 @@ def test_padding_does_not_change_the_port_fit():
 
 @pytest.mark.parametrize("name", ["toy", "mixed"])
 def test_bucketed_scores_equal_the_padded_fit(name):
-    """The batch route scores each family from its own parameters; the
-    padded parameters of ``family_plm_fit`` give the same scores, bit for
-    bit, and stay on the host."""
+    """The batch route fits each bucket in lock-step and scores each family
+    from its own parameters; ``family_plm_fit`` of each bucket's families
+    gives the same scores from its padded parameters, bit for bit, and
+    they stay on the host."""
     codes = BATCHES[name]
-    tb = tfam.FamilyBatch([TMSA(data=c, alphabet=talph.RNA) for c in codes])
-    tt, states = tfam.family_plm_fit(tb, max_iterations=6, device="cpu")
-    assert tt.device.type == "cpu" and all(st.x.device.type == "cpu" for st in states)
-    direct, _ = tfam.family_plm_fit_bucketed(tb.msas, max_iterations=6, device="cpu")
-    assert direct == tfam.family_plm_scores(tb, tt)
+    msas = [TMSA(data=c, alphabet=talph.RNA) for c in codes]
+    direct, _ = tfam.family_plm_fit_bucketed(msas, max_iterations=6, device="cpu")
+    groups = tfam.bucket_families(msas)
+    assert len(groups) == (1 if name == "toy" else 4)
+    for idxs in groups.values():
+        tb = tfam.FamilyBatch([msas[i] for i in idxs])
+        tt, states = tfam.family_plm_fit(tb, max_iterations=6, device="cpu")
+        assert tt.device.type == "cpu" and all(st.x.device.type == "cpu" for st in states)
+        assert [direct[i] for i in idxs] == tfam.family_plm_scores(tb, tt)
+
+
+@pytest.mark.parametrize("name", ["toy", "mixed"])
+def test_lockstep_lanes_equal_fit_one(name):
+    """Each lane of one lock-step batch against its family's own sequential
+    fit at its own shape (``_fit_one``), five iterations: the same
+    iterations and evaluations, parameters at relative L2 <= 1e-4 (the
+    lane's products run at the batch's padded shape, summed in another
+    order)."""
+    tb = tfam.FamilyBatch([TMSA(data=c, alphabet=talph.RNA) for c in BATCHES[name]])
+    runs = []
+    _, states = tfam.family_plm_fit(tb, max_iterations=5, device="cpu",
+                                    progress_fn=lambda f, st, b: runs.append(b))
+    assert len({id(b) for b in runs}) == 1 and runs[0].lanes == tb.num_families
+    assert runs[0].shape == (int(tb.nseqs.max()), int(tb.lengths.max()))
+    w = tfam.family_sequence_weights(tb, 0.8, device="cpu")
+    seq_syncs = 0
+    for f, st in enumerate(states):
+        n, l = int(tb.nseqs[f]), int(tb.lengths[f])
+        lam = np.float32(0.2 * (l - 1))
+        one = tfam._fit_one(tfam._family_codes(tb, f, "cpu"), w[f, :n], lam, lam, l, tb.q,
+                            max_iterations=5)
+        assert (st.k, st.n_evals, st.done, st.converged) == (
+            one.k, one.n_evals, one.done, one.converged)
+        assert st.x.shape == one.x.shape and rel_l2(st.x, one.x) <= 1e-4
+        seq_syncs += one.host_syncs
+    # one read a round serves every lane
+    assert runs[0].host_syncs == states[0].host_syncs < seq_syncs
+    assert runs[0].lane_iterations == sum(st.k for st in states)
+
+
+def test_lockstep_budget_splits_a_batch(monkeypatch):
+    """A byte budget below the whole batch's lanes splits it into
+    consecutive lock-step sub-batches, each within the budget; the scores
+    equal the unsplit batch's (relative L2 <= 1e-5 a family: the
+    sub-batches pad to their own maxima)."""
+    tb = tfam.FamilyBatch([TMSA(data=c, alphabet=talph.RNA) for c in BATCHES["mixed"]])
+    whole, _ = tfam.family_plm_fit(tb, max_iterations=5, device="cpu")
+    budget = 2 * tfam.lockstep_lane_bytes(tb.nmax, tb.lmax, tb.q)
+    monkeypatch.setattr(tfam, "LOCKSTEP_MAX_BYTES", budget)
+    runs = []
+    split, _ = tfam.family_plm_fit(tb, max_iterations=5, device="cpu",
+                                   progress_fn=lambda f, st, b: runs.append((f, b)))
+    batches = list({id(b): b for _, b in runs}.values())
+    assert len(batches) >= 3
+    assert [f for f, _ in runs] == list(range(tb.num_families))
+    for b in batches:
+        assert b.lanes == 1 or b.lanes * tfam.lockstep_lane_bytes(*b.shape, tb.q) <= budget
+    for a, b in zip(tfam.family_plm_scores(tb, split), tfam.family_plm_scores(tb, whole)):
+        assert [k for k, _ in sorted(a)] == [k for k, _ in sorted(b)]
+        assert rel_l2([v for _, v in sorted(a)], [v for _, v in sorted(b)]) <= 1e-5
 
 
 def write_batch(tmp_path, codes_list):
@@ -286,12 +352,18 @@ def patch_plm_fits(monkeypatch, thetas, codes_list):
                 for m in batch.msas]
         return jnp.asarray(np.stack(rows)), None
 
-    def port_fit(codes, weights, lambda_h, lambda_j, l, q, **kwargs):
-        x = torch.tensor(by_len[l])
-        return types.SimpleNamespace(x=x, k=0, n_evals=1, host_syncs=0)
+    def port_fit(codes, weights, lambda_h, lambda_j, q, **kwargs):
+        states = []
+        for c in codes:
+            x = torch.tensor(by_len[c.shape[1]])
+            states.append(LBFGSState(x=x, f=np.float32(0.0), g=torch.zeros_like(x),
+                                     z=torch.zeros((10, x.numel())), rho=torch.zeros(5), k=0,
+                                     done=True, converged=True, ls_failed=False, n_evals=1))
+        shape = (max(c.shape[0] for c in codes), max(c.shape[1] for c in codes))
+        return states, tfam.LockstepBatch(len(codes), shape, 0.0, 1, 0)
 
     monkeypatch.setattr(jfam, "family_plm_fit", jax_fit)
-    monkeypatch.setattr(tfam, "_fit_one", port_fit)
+    monkeypatch.setattr(tfam, "_fit_lockstep", port_fit)
 
 
 def run_plm_batch(tmp_path, files, flags):
@@ -335,8 +407,9 @@ def test_plm_batch_cli_same_scores_byte_identical(tmp_path, monkeypatch):
     stats_d = dict(tfam.padded_flop_stats(tb.msas), num_buckets=2)
 
     def port_batch(msas, progress_fn, **kwargs):
+        run = tfam.LockstepBatch(len(states), (tb.nmax, tb.lmax), 1.0, 1, 5 * len(states))
         for f, st in enumerate(states):
-            progress_fn(f, st, 1.0)
+            progress_fn(f, st, run)
         return scores, stats_d
 
     monkeypatch.setattr(jfam, "family_plm_fit_bucketed", lambda msas, **kw: (scores, stats_d))
@@ -388,8 +461,8 @@ def test_plm_batch_cli_fits_match_jax(tmp_path):
     files = write_batch(tmp_path, codes)
     out_j, out_t, run = run_plm_batch(tmp_path, files, ["--apc", "--max_iterations", "30"])
     assert len(run.fits) == 3
-    assert all(0 < f.num_iters <= 30 and f.n_evals > f.num_iters and f.seconds > 0
-               for f in run.fits)
+    assert all(0 < f.num_iters <= 30 and f.n_evals > f.num_iters
+               and run.batches[f.batch].seconds > 0 for f in run.fits)
     for c, name in zip(codes, sorted(os.listdir(out_j))):
         l = c.shape[1]
         hj, sj = read_scores(os.path.join(out_j, name))
@@ -404,18 +477,62 @@ def test_plm_batch_cli_fits_match_jax(tmp_path):
 
 
 def test_plm_batch_cli_no_bucket_changes_nothing(tmp_path, caplog):
-    """``--no_bucket`` writes the same bytes (the port never pads) and
-    says so in the log."""
-    files = write_batch(tmp_path, BATCHES["mixed"])
-    outs = []
+    """``--no_bucket`` changes the batching, not the result: one lock-step
+    batch at the batch maxima instead of one a bucket, as the log says; the
+    same files and headers, the scores at the JAX package's family bar
+    (rtol 2e-2, atol 2e-3) with the same top pair (the products run at
+    other padded shapes, summed in another order)."""
+    codes = BATCHES["mixed"]
+    files = write_batch(tmp_path, codes)
+    outs, runs = [], []
     for flags in ([], ["--no_bucket"]):
         outs.append(str(tmp_path / f"out{len(outs)}"))
+        caplog.clear()
         with caplog.at_level("INFO", logger="pydca_tpu_torch.cli.plmdca_main"):
-            tplm.run_plm_dca(["compute_fn_batch", "rna"] + files + [
+            runs.append(tplm.run_plm_dca(["compute_fn_batch", "rna"] + files + [
                 "--apc", "--max_iterations", "4", "--device", "cpu", "--output_dir", outs[-1]]
-                + flags)
-    assert read_bytes(outs[0]) == read_bytes(outs[1])
-    assert "--no_bucket changes nothing" in caplog.text
+                + flags))
+        if flags:
+            assert "6 families in one block (--no_bucket), 1 lock-step batches" in caplog.text
+        else:
+            assert "6 families in 4 buckets, 4 lock-step batches" in caplog.text
+    assert [len(r.batches) for r in runs] == [4, 1]
+    read = [read_msa(f, "rna") for f in files]
+    assert runs[1].batches[0].shape == (max(m.num_seqs for m in read), 24)
+    assert runs[1].batches[0].lanes == 6
+    assert sorted(os.listdir(outs[0])) == sorted(os.listdir(outs[1]))
+    for name in os.listdir(outs[0]):
+        h0, s0 = read_scores(os.path.join(outs[0], name))
+        h1, s1 = read_scores(os.path.join(outs[1], name))
+        assert h1 == h0
+        d0, d1 = dict(s0), dict(s1)
+        keys = sorted(d0)
+        np.testing.assert_allclose([d1[k] for k in keys], [d0[k] for k in keys],
+                                   rtol=2e-2, atol=2e-3)
+        assert s1[0][0] == s0[0][0]
+
+
+@pytest.mark.parametrize("name,iters", [("toy", 30), ("mixed", 8)])
+def test_plm_batch_cli_no_bucket_fits_match_jax(tmp_path, name, iters):
+    """Unpatched ``--no_bucket`` fits through both CLIs (one padded block
+    in each): the JAX package's family bar and the same top pair on every
+    family, at the iterations of the bucketed CLI test (toy) and of
+    ``test_bucketed_fit_matches_jax`` (mixed)."""
+    codes = BATCHES[name]
+    files = write_batch(tmp_path, codes)
+    out_j, out_t, run = run_plm_batch(tmp_path, files, [
+        "--apc", "--no_bucket", "--max_iterations", str(iters)])
+    assert len(run.batches) == 1 and run.batches[0].lanes == len(codes)
+    assert all(f.batch == 0 and 0 < f.num_iters <= iters for f in run.fits)
+    for name_ in os.listdir(out_j):
+        hj, sj = read_scores(os.path.join(out_j, name_))
+        ht, st = read_scores(os.path.join(out_t, name_))
+        assert ht == hj
+        dj, dt = dict(sj), dict(st)
+        keys = sorted(dj)
+        np.testing.assert_allclose([dt[k] for k in keys], [dj[k] for k in keys],
+                                   rtol=2e-2, atol=2e-3)
+        assert st[0][0] == sj[0][0]
 
 
 @pytest.mark.parametrize("cli,folder", [("plmdca", "PLMDCA_batch_output"),

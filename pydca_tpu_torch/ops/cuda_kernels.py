@@ -12,7 +12,10 @@
 A wrapper takes the plain version only because its tensor lies on the CPU;
 for a CUDA tensor it launches the kernel or raises.  Each wrapper counts
 its kernel launches in a plain integer attribute (``.launches``) so a run
-can show that its main path went through the kernel.
+can show that its main path went through the kernel, and opens the span
+``pydca/<wrapper>`` (:func:`~pydca_tpu_torch.profiling.span`) around the
+launch alone, or around the plain version on the CPU, so that a trace
+gives the kernel's device time as its own.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..profiling import span
 from . import _build
 
 __all__ = [
@@ -219,7 +223,8 @@ def identity_counts(
             f"{tuple(valid.shape)} on {valid.device}"
         )
     if codes.device.type == "cpu":
-        return identity_counts_reference(codes, thr, q, valid=valid, block=block, tiles=tiles)
+        with span("identity_counts"):
+            return identity_counts_reference(codes, thr, q, valid=valid, block=block, tiles=tiles)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
 
@@ -243,7 +248,7 @@ def identity_counts(
         lib.identity_counts_scratch_bytes(n, l), dtype=torch.uint8, device=codes.device
     )
     out = torch.zeros(n, dtype=torch.int32, device=codes.device)
-    with torch.cuda.device(codes.device):
+    with torch.cuda.device(codes.device), span("identity_counts"):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = lib.identity_counts_launch(
             c8.data_ptr(),
@@ -368,7 +373,8 @@ def weighted_gram(codes: torch.Tensor, weights: torch.Tensor, q: int) -> torch.T
         raise TypeError(f"weights must be float32 or float64, got {weights.dtype}")
     if codes.device.type == "cpu":
         _check_code_range(codes, q)
-        return weighted_gram_reference(codes, weights, q)
+        with span("weighted_gram"):
+            return weighted_gram_reference(codes, weights, q)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
 
@@ -394,7 +400,7 @@ def weighted_gram(codes: torch.Tensor, weights: torch.Tensor, q: int) -> torch.T
     # the launch goes to the current device (entering a context costs more
     # than the check at small K)
     same = dev.index == torch.cuda.current_device()
-    with contextlib.nullcontext() if same else torch.cuda.device(dev):
+    with contextlib.nullcontext() if same else torch.cuda.device(dev), span("weighted_gram"):
         err = launch(
             c8.data_ptr(), w.data_ptr(), out.data_ptr(), base,
             base + wpk_off if itemsize == 4 else None,

@@ -41,6 +41,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..profiling import span
+
 __all__ = [
     "LBFGSBatch",
     "LBFGSResult",
@@ -72,8 +74,10 @@ class LBFGSResult(NamedTuple):
 
 
 def _read_f32(*vals: torch.Tensor):
-    """One device-to-host read of several tensors' values, as float32."""
-    return [_F32(v) for v in torch.cat([v.reshape(-1) for v in vals]).tolist()]
+    """One device-to-host read of several tensors' values, as float32: the
+    span ``lbfgs/read`` (the host's wait for the device and the copy)."""
+    with span("lbfgs/read"):
+        return [_F32(v) for v in torch.cat([v.reshape(-1) for v in vals]).tolist()]
 
 
 def fetch_f32(st, *vals: torch.Tensor):

@@ -80,7 +80,7 @@ from .ops.lbfgs import (
     wolfe_scalar,
 )
 from .parallel.mesh import resolve_mesh, shard_msa
-from .profiling import StageTimers
+from .profiling import StageTimers, span
 
 logger = logging.getLogger(__name__)
 
@@ -252,14 +252,15 @@ def _mm(a: torch.Tensor, b: torch.Tensor, mm_bf16: bool,
     (``aten::mm.dtype`` / ``aten::addmm.dtype``); the CPU has no kernel for
     those, so it multiplies the rounded operands in float32, where the
     product of two bfloat16 values is exact."""
-    if mm_bf16:
-        a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
-        if a.device.type == "cuda":
-            if out is None:
-                return torch.mm(a, b, out_dtype=torch.float32)
-            return torch.addmm(out, a, b, out_dtype=torch.float32, out=out)
-        a, b = a.float(), b.float()
-    return torch.mm(a, b) if out is None else out.addmm_(a, b)
+    with span("plm/mm"):
+        if mm_bf16:
+            a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+            if a.device.type == "cuda":
+                if out is None:
+                    return torch.mm(a, b, out_dtype=torch.float32)
+                return torch.addmm(out, a, b, out_dtype=torch.float32, out=out)
+            a, b = a.float(), b.float()
+        return torch.mm(a, b) if out is None else out.addmm_(a, b)
 
 
 class _LogitsMM(torch.autograd.Function):
@@ -555,15 +556,16 @@ def _grad_at(logits, x1h, maskq, weights, theta, lambda_h, lambda_j,
     the data gradient (this rank's rows) is summed over the ranks in one
     flat buffer of D floats before ``2 lambda theta`` is added."""
     lq = l * q
-    ct, gh = _ct_gh(logits, maskq, weights)
-    g = torch.empty_like(theta)
-    g[:lq] = gh.T.reshape(-1)
-    g[lq:] = _w4_cot_to_compact(_mm_b(x1h, ct, mm_bf16=mm_bf16), l, q)
-    del ct
-    if mesh is not None:
-        mesh.sum_(g, "grad_allreduce")
-    g[:lq] += (2.0 * lambda_h * theta[:lq]).reshape(-1)
-    g[lq:] += 2.0 * lambda_j * theta[lq:]
+    with span("plm/gradient"):
+        ct, gh = _ct_gh(logits, maskq, weights)
+        g = torch.empty_like(theta)
+        g[:lq] = gh.T.reshape(-1)
+        g[lq:] = _w4_cot_to_compact(_mm_b(x1h, ct, mm_bf16=mm_bf16), l, q)
+        del ct
+        if mesh is not None:
+            mesh.sum_(g, "grad_allreduce")
+        g[:lq] += (2.0 * lambda_h * theta[:lq]).reshape(-1)
+        g[lq:] += 2.0 * lambda_j * theta[lq:]
     return g
 
 
@@ -641,29 +643,30 @@ def _plm_fused_state0(
     this rank's rows.  ``hist_bf16``: the history rows are bfloat16
     (``pydca_tpu/plm.py:958``)."""
     lh, lj = _F32(lambda_h), _F32(lambda_j)
-    x1h, maskq = _prep_msa(msa, l, q, _x_dtype(mm_bf16))
     n = msa.shape[0]
     lq = l * q
     dim = lq + l * (l - 1) // 2 * q * q
-    theta = init_params(msa, weights, l, q, mesh=mesh)
-    h0 = theta[:lq].reshape(l, q)
-    # J0 = 0 exactly: the logits are the broadcast fields
-    logits = h0.T[None].expand(n, q, l).contiguous()
-    picked = _picked(logits, maskq)
-    g = _grad_at(logits, x1h, maskq, weights, theta, float(lh), float(lj), l, q, mesh,
-                 mm_bf16)
-    st = PlmFusedState(
-        x=theta, f=_F32(0), g=g,
-        z=torch.zeros((2 * m, dim), dtype=torch.bfloat16 if hist_bf16 else torch.float32,
-                      device=msa.device),
-        zzt=torch.zeros((2 * m, 2 * m), dtype=torch.float32),
-        zg=torch.zeros((2 * m,), dtype=torch.float32),
-        gg=_F32(0), xx=_F32(0), rh=_F32(0), rj=_F32(0),
-        logits=logits, picked=picked,
-        k=0, done=False, converged=False, ls_failed=False, n_evals=1,
-    )
-    nll, rh, gg = fetch_f32(st, _data_sum(mesh, _nll_at(logits, picked, weights)),
-                            torch.dot(theta[:lq], theta[:lq]), torch.dot(g, g))
+    with span("plm/init"):
+        x1h, maskq = _prep_msa(msa, l, q, _x_dtype(mm_bf16))
+        theta = init_params(msa, weights, l, q, mesh=mesh)
+        h0 = theta[:lq].reshape(l, q)
+        # J0 = 0 exactly: the logits are the broadcast fields
+        logits = h0.T[None].expand(n, q, l).contiguous()
+        picked = _picked(logits, maskq)
+        g = _grad_at(logits, x1h, maskq, weights, theta, float(lh), float(lj), l, q, mesh,
+                     mm_bf16)
+        st = PlmFusedState(
+            x=theta, f=_F32(0), g=g,
+            z=torch.zeros((2 * m, dim), dtype=torch.bfloat16 if hist_bf16 else torch.float32,
+                          device=msa.device),
+            zzt=torch.zeros((2 * m, 2 * m), dtype=torch.float32),
+            zg=torch.zeros((2 * m,), dtype=torch.float32),
+            gg=_F32(0), xx=_F32(0), rh=_F32(0), rj=_F32(0),
+            logits=logits, picked=picked,
+            k=0, done=False, converged=False, ls_failed=False, n_evals=1,
+        )
+        nll, rh, gg = fetch_f32(st, _data_sum(mesh, _nll_at(logits, picked, weights)),
+                                torch.dot(theta[:lq], theta[:lq]), torch.dot(g, g))
     st.f = _F32(nll + lh * rh)
     st.rh, st.xx, st.gg = rh, rh, gg
     st.converged = st.done = gradient_converged(gg, rh, epsilon)
@@ -697,31 +700,34 @@ def _plm_fused_step(
     mm_bf16: bool = False,
 ) -> None:
     """One fused L-BFGS iteration, updating ``st`` in place
-    (``pydca_tpu/plm.py:996-1137``)."""
+    (``pydca_tpu/plm.py:996-1137``); its parts are the spans
+    ``plm/direction``, ``plm/linesearch`` (one ``plm/trial`` a trial),
+    ``plm/update``, ``plm/gradient`` and ``plm/history``."""
     lq = l * q
     m = st.z.shape[0] // 2
     hist_bf16 = st.z.dtype == torch.bfloat16
-    gamma, cfull, _, _ = direction_coeffs(
-        st.zg, st.zzt, torch.tensor(st.gg), st.k, m
-    )
-    d = _hist_combine(cfull, st.z)  # Z^T c
-    d.add_(st.g, alpha=float(gamma)).neg_()  # d = -(gamma*g + Z^T c)
-    # exact dots over (d, g, x): the estimates from direction_coeffs can
-    # lose low bits to cancellation
-    dg0, dh2, dj2, hd, jd = fetch_f32(
-        st, torch.dot(st.g, d), torch.dot(d[:lq], d[:lq]),
-        torch.dot(d[lq:], d[lq:]), torch.dot(st.x[:lq], d[:lq]),
-        torch.dot(st.x[lq:], d[lq:]),
-    )
-    # steepest-descent fallback on the EXACT dg0 (pydca_tpu/plm.py:1012-1026)
-    bad_dir = dg0 >= 0
-    if bad_dir:
-        d = -st.g
-        dg0 = -st.gg
-        dh2, dj2, hd, jd = fetch_f32(
-            st, torch.dot(d[:lq], d[:lq]), torch.dot(d[lq:], d[lq:]),
-            torch.dot(st.x[:lq], d[:lq]), torch.dot(st.x[lq:], d[lq:]),
+    with span("plm/direction"):
+        gamma, cfull, _, _ = direction_coeffs(
+            st.zg, st.zzt, torch.tensor(st.gg), st.k, m
         )
+        d = _hist_combine(cfull, st.z)  # Z^T c
+        d.add_(st.g, alpha=float(gamma)).neg_()  # d = -(gamma*g + Z^T c)
+        # exact dots over (d, g, x): the estimates from direction_coeffs can
+        # lose low bits to cancellation
+        dg0, dh2, dj2, hd, jd = fetch_f32(
+            st, torch.dot(st.g, d), torch.dot(d[:lq], d[:lq]),
+            torch.dot(d[lq:], d[lq:]), torch.dot(st.x[:lq], d[:lq]),
+            torch.dot(st.x[lq:], d[lq:]),
+        )
+        # steepest-descent fallback on the EXACT dg0 (pydca_tpu/plm.py:1012-1026)
+        bad_dir = dg0 >= 0
+        if bad_dir:
+            d = -st.g
+            dg0 = -st.gg
+            dh2, dj2, hd, jd = fetch_f32(
+                st, torch.dot(d[:lq], d[:lq]), torch.dot(d[lq:], d[lq:]),
+                torch.dot(st.x[:lq], d[:lq]), torch.dot(st.x[lq:], d[lq:]),
+            )
     dnorm2 = max(_F32(dh2 + dj2), _F32(1e-30))
     c1 = _F32(2.0) * (lh * hd + lj * jd)
     c2 = lh * dh2 + lj * dj2
@@ -730,19 +736,21 @@ def _plm_fused_step(
     u, upicked = _prep_u(x1h, maskq, d, l, q, mm_bf16)
 
     def phi(alpha):
-        nll, dnll = fetch_f32(
-            st, _data_sum(mesh, *_phi_dphi(st.logits, st.picked, u, upicked, weights,
-                                           float(alpha)))
-        )
+        with span("plm/trial"):
+            nll, dnll = fetch_f32(
+                st, _data_sum(mesh, *_phi_dphi(st.logits, st.picked, u, upicked, weights,
+                                               float(alpha)))
+            )
         return (
             nll + reg0 + c1 * alpha + c2 * alpha * alpha,
             dnll + c1 + _F32(2.0) * c2 * alpha,
         )
 
     step0 = _F32(1.0) / np.sqrt(dnorm2) if st.k == 0 else _F32(1.0)
-    alpha, f_new, took, rounding, trials = wolfe_scalar(
-        phi, st.f, dg0, step0, ftol, wolfe, max_linesearch
-    )
+    with span("plm/linesearch"):
+        alpha, f_new, took, rounding, trials = wolfe_scalar(
+            phi, st.f, dg0, step0, ftol, wolfe, max_linesearch
+        )
     st.n_evals += trials
     if not took:
         # no step: the iterate, gradient and history stay as they are
@@ -752,58 +760,60 @@ def _plm_fused_step(
         return
 
     a = float(alpha)
-    st.x.add_(d, alpha=a)
-    # in place: logits/picked are the largest tensors of the fit, and the
-    # update saves a full (N, q, L) copy (pydca_tpu/plm.py:1057)
-    st.logits.add_(u, alpha=a)
-    st.picked.add_(upicked, alpha=a)
+    with span("plm/update"):
+        st.x.add_(d, alpha=a)
+        # in place: logits/picked are the largest tensors of the fit, and the
+        # update saves a full (N, q, L) copy (pydca_tpu/plm.py:1057)
+        st.logits.add_(u, alpha=a)
+        st.picked.add_(upicked, alpha=a)
     del u, upicked
     g_new = _grad_at(st.logits, x1h, maskq, weights, st.x, float(lh), float(lj), l, q, mesh,
                      mm_bf16)
-    zg_old_rows = _hist_dot(st.z, g_new)  # Z @ g' with the rows before the write
-    rows_dots = []
-    if hist_bf16:
-        # the new rows as they will be stored, and their dots with g'
-        # (the JAX package reads Z @ g' from the rounded rows)
-        s_row = (d * a).to(torch.bfloat16)
-        y_row = (g_new - st.g).to(torch.bfloat16)
-        rows_dots = [torch.dot(s_row.float(), g_new), torch.dot(y_row.float(), g_new)]
-    vals = fetch_f32(st, zg_old_rows, torch.dot(g_new, g_new),
-                     torch.dot(st.g, g_new), torch.dot(d, g_new), *rows_dots)
-    zg_new = torch.tensor(vals[: 2 * m], dtype=torch.float32)
-    gg_new, gog, dgn = vals[2 * m : 2 * m + 3]
-
-    xd = hd + jd
-    xx_new = max(st.xx + _F32(2.0) * alpha * xd + alpha * alpha * dnorm2, _F32(0.0))
-    rh_new = st.rh + _F32(2.0) * alpha * hd + alpha * alpha * dh2
-    rj_new = st.rj + _F32(2.0) * alpha * jd + alpha * alpha * dj2
-
-    # history: one in-place row write per S and Y slot; the Gram is
-    # bordered by scalar algebra on the host (pydca_tpu/plm.py:1110-1124)
-    sy = alpha * (dgn - dg0)
-    slot = st.k % m
-    if sy > _F32(1e-10):
+    with span("plm/history"):
+        zg_old_rows = _hist_dot(st.z, g_new)  # Z @ g' with the rows before the write
+        rows_dots = []
         if hist_bf16:
-            st.z[slot].copy_(s_row)
-            st.z[slot + m].copy_(y_row)
-            zg_new[slot], zg_new[slot + m] = float(vals[-2]), float(vals[-1])
-        else:
-            torch.mul(d, a, out=st.z[slot])  # s = alpha * d
-            torch.sub(g_new, st.g, out=st.z[slot + m])  # y = g' - g
-            zg_new[slot] = float(alpha * dgn)  # s . g'
-            zg_new[slot + m] = float(gg_new - gog)  # y . g'
-        # Z@s = alpha * Z@d = -alpha*(gamma*Zg + ZZt@c);  Z@y = Z@g' - Z@g
-        zd = -st.zg if bad_dir else -(gamma * st.zg + st.zzt @ cfull)
-        zs_vec = zd * a
-        zs_vec[slot] = float(alpha * alpha * dnorm2)
-        zs_vec[slot + m] = float(sy)
-        zy_vec = zg_new - st.zg
-        zy_vec[slot] = float(sy)
-        zy_vec[slot + m] = float(gg_new - _F32(2.0) * gog + st.gg)
-        st.zzt[slot, :] = zs_vec
-        st.zzt[:, slot] = zs_vec
-        st.zzt[slot + m, :] = zy_vec
-        st.zzt[:, slot + m] = zy_vec
+            # the new rows as they will be stored, and their dots with g'
+            # (the JAX package reads Z @ g' from the rounded rows)
+            s_row = (d * a).to(torch.bfloat16)
+            y_row = (g_new - st.g).to(torch.bfloat16)
+            rows_dots = [torch.dot(s_row.float(), g_new), torch.dot(y_row.float(), g_new)]
+        vals = fetch_f32(st, zg_old_rows, torch.dot(g_new, g_new),
+                         torch.dot(st.g, g_new), torch.dot(d, g_new), *rows_dots)
+        zg_new = torch.tensor(vals[: 2 * m], dtype=torch.float32)
+        gg_new, gog, dgn = vals[2 * m : 2 * m + 3]
+
+        xd = hd + jd
+        xx_new = max(st.xx + _F32(2.0) * alpha * xd + alpha * alpha * dnorm2, _F32(0.0))
+        rh_new = st.rh + _F32(2.0) * alpha * hd + alpha * alpha * dh2
+        rj_new = st.rj + _F32(2.0) * alpha * jd + alpha * alpha * dj2
+
+        # history: one in-place row write per S and Y slot; the Gram is
+        # bordered by scalar algebra on the host (pydca_tpu/plm.py:1110-1124)
+        sy = alpha * (dgn - dg0)
+        slot = st.k % m
+        if sy > _F32(1e-10):
+            if hist_bf16:
+                st.z[slot].copy_(s_row)
+                st.z[slot + m].copy_(y_row)
+                zg_new[slot], zg_new[slot + m] = float(vals[-2]), float(vals[-1])
+            else:
+                torch.mul(d, a, out=st.z[slot])  # s = alpha * d
+                torch.sub(g_new, st.g, out=st.z[slot + m])  # y = g' - g
+                zg_new[slot] = float(alpha * dgn)  # s . g'
+                zg_new[slot + m] = float(gg_new - gog)  # y . g'
+            # Z@s = alpha * Z@d = -alpha*(gamma*Zg + ZZt@c);  Z@y = Z@g' - Z@g
+            zd = -st.zg if bad_dir else -(gamma * st.zg + st.zzt @ cfull)
+            zs_vec = zd * a
+            zs_vec[slot] = float(alpha * alpha * dnorm2)
+            zs_vec[slot + m] = float(sy)
+            zy_vec = zg_new - st.zg
+            zy_vec[slot] = float(sy)
+            zy_vec[slot + m] = float(gg_new - _F32(2.0) * gog + st.gg)
+            st.zzt[slot, :] = zs_vec
+            st.zzt[:, slot] = zs_vec
+            st.zzt[slot + m, :] = zy_vec
+            st.zzt[:, slot + m] = zy_vec
 
     st.f = _F32(f_new)
     st.g = g_new
@@ -820,12 +830,13 @@ def _plm_fused_steps(
     max_linesearch: int = 10, mesh=None, mm_bf16: bool = False,
 ) -> PlmFusedState:
     """Advance the fused optimizer by up to ``num_steps`` iterations (in
-    place; returns ``st``)."""
+    place; returns ``st``), each the span ``plm/iteration``."""
     lh, lj = _F32(lambda_h), _F32(lambda_j)
     k_end = st.k + num_steps
     while not st.done and st.k < k_end:
-        _plm_fused_step(st, x1h, maskq, weights, lh, lj, l, q,
-                        epsilon, ftol, wolfe, max_linesearch, mesh, mm_bf16)
+        with span("plm/iteration"):
+            _plm_fused_step(st, x1h, maskq, weights, lh, lj, l, q,
+                            epsilon, ftol, wolfe, max_linesearch, mesh, mm_bf16)
     return st
 
 

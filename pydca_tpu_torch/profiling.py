@@ -1,4 +1,4 @@
-"""Per-stage wall-clock timers and device profiling.
+"""Per-stage wall-clock timers, spans and device profiling.
 
 Port of ``pydca_tpu/profiling.py``: :class:`StageTimers`, :func:`sync` and
 :func:`device_trace` (over ``torch.profiler`` in place of
@@ -6,15 +6,25 @@ Port of ``pydca_tpu/profiling.py``: :class:`StageTimers`, :func:`sync` and
 before the device has finished, so a host clock without a synchronise
 measures the enqueue.
 
+:func:`span` marks a region of the program on the profiler's clock, the
+clock the profiler stamps the card's kernels with: a host range named
+``pydca/<name>`` while a profiler runs, and a shared null context (one flag
+check) otherwise.  Every :meth:`StageTimers.stage` is also a span, so a
+trace shows the engines' stages beside the spans inside the fit and the
+kernel wrappers.
+
 Usage::
 
     timers = StageTimers()
-    with timers.stage("weights"):
+    with timers.stage("weights"):       # also the span pydca/weights
         w = sync(stats.sequence_weights(...))
     logger.info("%s", timers.summary())
 
+    with span("plm/linesearch"):        # costs nothing without a profiler
+        ...
+
     with device_trace("dca-trace"):   # no-op when the path is falsy
-        fit_plm(...)
+        fit_plm(...)                  # the trace holds the pydca/* spans
 """
 
 from __future__ import annotations
@@ -28,7 +38,25 @@ import torch
 
 from . import device as _device
 
-__all__ = ["StageTimers", "device_trace", "synced_stage", "sync"]
+__all__ = ["SPAN_PREFIX", "StageTimers", "device_trace", "span", "synced_stage", "sync"]
+
+SPAN_PREFIX = "pydca/"
+_NO_SPAN = contextlib.nullcontext()
+_profiling = torch._C._autograd._profiler_enabled
+# a function-scope RecordFunction: ``torch.profiler.record_function`` opens a
+# user-scope one, which the profiler also copies onto the card's timeline as
+# an annotation that reads there as device work; this one stays on the host
+_range = torch._C._profiler._RecordFunctionFast
+
+
+def span(name: str):
+    """A context over a region of the program: while ``torch.profiler``
+    runs, a host ``RecordFunction`` range named ``pydca/<name>``;
+    otherwise a shared null context, so that no ``RecordFunction`` is made
+    and a span costs one flag check."""
+    if _profiling():
+        return _range(SPAN_PREFIX + name)
+    return _NO_SPAN
 
 
 def _tensor_leaves(x):
@@ -56,7 +84,8 @@ class StageTimers:
 
     Re-entering a stage accumulates (so per-chunk optimizer calls sum into
     one row).  ``add_rate`` attaches work counts to stages, and ``summary``
-    renders one line per stage with the derived rate.
+    renders one line per stage with the derived rate.  A stage is also the
+    span ``pydca/<name>`` (:func:`span`).
     """
 
     def __init__(self) -> None:
@@ -68,7 +97,8 @@ class StageTimers:
     def stage(self, name: str) -> Iterator[None]:
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             if name not in self._elapsed:
@@ -119,8 +149,9 @@ def synced_stage(timers: Optional[StageTimers], name: str, device) -> Iterator[N
 def device_trace(log_dir: Optional[str]) -> Iterator[None]:
     """A ``torch.profiler`` context (the CPU, and the card when there is
     one) that writes a Chrome trace, ``trace.<pid>.json``, into ``log_dir``;
-    a no-op when ``log_dir`` is falsy.  A profiler that fails to start
-    raises."""
+    a no-op when ``log_dir`` is falsy.  The trace holds the program's
+    ``pydca/*`` spans (:func:`span`) beside the operations and kernels.  A
+    profiler that fails to start raises."""
     if not log_dir:
         yield
         return

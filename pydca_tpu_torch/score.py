@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .device import sync
+from .profiling import span
 
 __all__ = [
     "gauge_shift",
@@ -358,11 +359,13 @@ def ranked_pairs(sorted_dca_scores, linear_dist: int, num_site_pairs: int):
 
 def sorted_scores(scores, l: int) -> List[Tuple[Tuple[int, int], float]]:
     """Convert per-pair scores ``(P,)`` into the reference's sorted list form
-    ``[((i, j), score), ...]`` in descending score order (0-based sites).
+    ``[((i, j), score), ...]`` in descending score order (0-based sites):
+    the span ``score/sort`` (the fetch to the host and the host sort).
     """
-    if isinstance(scores, torch.Tensor):
-        scores = scores.detach().cpu().numpy()
-    scores = np.asarray(scores)
-    iu, ju = np.triu_indices(l, k=1)
-    order = np.argsort(-scores, kind="stable")
-    return [((int(iu[k]), int(ju[k])), float(scores[k])) for k in order]
+    with span("score/sort"):
+        if isinstance(scores, torch.Tensor):
+            scores = scores.detach().cpu().numpy()
+        scores = np.asarray(scores)
+        iu, ju = np.triu_indices(l, k=1)
+        order = np.argsort(-scores, kind="stable")
+        return [((int(iu[k]), int(ju[k])), float(scores[k])) for k in order]

@@ -7,9 +7,13 @@ Builds the port's CUDA kernels from ``pydca_tpu_torch/csrc`` with nvcc
 
 - plmDCA: checks ``identity_counts`` against its plain PyTorch version on
   the card up to N = 10^5 and times it beside its bound, with a library
-  matmul at the main shape (phase 2), drives ``plmdca compute_fn --apc``
-  at PF02826 width (N = 16384, L = 195, q = 21; phase 3) and compares a CPU
-  and a GPU run of the same RNA-shaped family (phase 4);
+  matmul at the main shape, and the fused step's passes over the logits,
+  ``plm_trial`` and ``plm_update_grad``, against their plain compositions
+  at phase 3's and 4's shapes, timed beside their byte bounds (phase 2),
+  drives ``plmdca compute_fn --apc`` at PF02826 width (N = 16384, L = 195,
+  q = 21; phase 3) and compares a CPU and a GPU run of the same RNA-shaped
+  family (phase 4), each card fit launching the passes once a line-search
+  trial and once a gradient;
 - mean-field: checks ``weighted_gram`` against its plain version and times
   it beside one library matmul and its bound (phase 5), drives ``mfdca
   compute_fn --apc`` at protein scale (N = 4096, L = 1000, q = 21; phase 6)
@@ -155,6 +159,14 @@ REPLACES = {  # the TPU kernel each one replaces (its def line)
     "identity_counts": "pydca_tpu/ops/pallas_kernels.py:79",
     "weighted_gram": "pydca_tpu/ops/pallas_kernels.py:176",
 }
+# the fused plm step's passes over the logits (csrc/plm_passes.cu): no TPU
+# kernel behind them, XLA fuses the composition they stand for
+PLM_PASSES = ("plm_trial", "plm_update_grad")
+STANDS_FOR = {
+    "plm_trial": "pydca_tpu/plm.py:815 (_phi_dphi)",
+    "plm_update_grad": "pydca_tpu/plm.py:841 (_ct_gh), the update of :982",
+}
+LIBRARIES = KERNELS + ("plm_passes",)  # what phase 1 builds
 MAIN_SHAPE = (16384, 195, 21)  # PF02826 width at the depth of a deep family
 RNA_DEEP_SHAPE = (100000, 120, 5)  # the JAX package's deep weights shape (bench.py:284)
 RNA_SHAPE = (2704, 102, 5)  # RF00167 shape
@@ -310,8 +322,116 @@ def identity_sparse_bound(n, l, q):
 
 
 def reset_launches() -> None:
-    for name in KERNELS:
+    for name in KERNELS + PLM_PASSES:
         getattr(ck, name).launches = 0
+
+
+def plm_pass_launches(res, what: str) -> dict:
+    """The passes' launches since the last reset, checked against one fused
+    fit's ``res``: ``plm_trial`` once a line-search trial (``n_evals`` - 1),
+    ``plm_update_grad`` once a gradient (``num_iters`` + 1)."""
+    got = {k: getattr(ck, k).launches for k in PLM_PASSES}
+    want = {"plm_trial": res.n_evals - 1, "plm_update_grad": res.num_iters + 1}
+    check(got == want, f"{what}: the plm passes launched {got}, expected {want}")
+    return got
+
+
+EPS32 = 2.0 ** -23  # a float32 ulp at 1
+
+
+def ulps(got, want, scale) -> float:
+    """Largest |got - want| in float32 ulps of ``scale``."""
+    return float(((got.double() - want.double()).abs() / (EPS32 * scale.double() + 1e-37)).max())
+
+
+def plm_pass_problem(n, l, q, seed, dev):
+    """Carried logits and picks, a direction and weights on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    codes = torch.randint(0, q, (n, l), generator=g, device=dev, dtype=torch.uint8)
+    logits = 2.0 * torch.randn((n, q, l), generator=g, device=dev)
+    picked = logits.gather(1, codes.long()[:, None, :])[:, 0, :].contiguous()
+    return dict(logits=logits, picked=picked,
+                u=0.5 * torch.randn((n, q, l), generator=g, device=dev),
+                dh=0.3 * torch.randn((l, q), generator=g, device=dev), codes=codes,
+                weights=0.05 + 0.95 * torch.rand(n, generator=g, device=dev))
+
+
+def phase_plm_passes(dev):
+    """The fused plm step's two passes against their plain compositions on
+    the same card tensors, at the GPU tests' limits (the trial's sums within
+    1e-6 of their terms' magnitudes; the updated logits and picks within 2
+    float32 ulps, the cotangent within 10 ulps of its terms, its column sums
+    within 1e-6 of theirs), two launches equal to the bit, and their times
+    (CUDA events with the wrapper; device time by torch.profiler) beside the
+    byte bound (each input read once, each output written once) and the
+    plain composition's."""
+    alpha = 0.37
+    worst, timing = {"plm_trial": 0.0, "plm_update_grad": 0.0}, {}
+    for name, (n, l, q) in (("pf02826_deep", MAIN_SHAPE), ("rf00167", RNA_SHAPE)):
+        p = plm_pass_problem(n, l, q, seed=n + l + q, dev=dev)
+        nql = n * q * l
+        args = (p["logits"], p["codes"], p["weights"], p["picked"], p["u"], p["dh"], alpha)
+        got, again = ck.plm_trial(*args), ck.plm_trial(*args)
+        want = ck.plm_trial_reference(*args)
+        d = {k: v.double() if v.is_floating_point() else v for k, v in p.items()}
+        up = d["u"] + d["dh"].T[None]
+        upk = up.gather(1, d["codes"].long()[:, None, :])[:, 0, :]
+        t = d["logits"] + alpha * up
+        w = d["weights"][:, None]
+        sizes = torch.stack(((w * (torch.logsumexp(t, 1) - d["picked"] - alpha * upk)).abs().sum(),
+                             (w * ((torch.softmax(t, 1) * up).sum(1) - upk)).abs().sum()))
+        del d, up, upk, t
+        trial_err = float(((got.double() - want.double()).abs() / sizes).max())
+        check(torch.equal(got, again), f"plm_trial {name}: two launches differ")
+        check(trial_err <= 1e-6, f"plm_trial {name}: sums off by {trial_err:.3g} of their terms")
+        step = (p["u"], p["dh"], alpha)
+        runs = []
+        for _ in range(2):
+            lg, pk = p["logits"].clone(), p["picked"].clone()
+            runs.append((lg, pk, *ck.plm_update_grad(lg, p["codes"], p["weights"], pk, *step)))
+        check(all(torch.equal(a, b) for a, b in zip(*runs)),
+              f"plm_update_grad {name}: two launches differ")
+        lg, pk, ct, gh = runs[0]
+        del runs
+        lg_t, pk_t = p["logits"].clone(), p["picked"].clone()
+        ct_t, gh_t = ck.plm_update_grad_reference(lg_t, p["codes"], p["weights"], pk_t, *step)
+        errs = (ulps(lg, lg_t, lg_t.abs()), ulps(pk, pk_t, pk_t.abs()),
+                ulps(ct, ct_t, ct_t.abs() + p["weights"][:, None, None]))
+        gh_err = float(((gh - gh_t).abs() / ct_t.abs().sum(0)).max())
+        check(errs[0] <= 2 and errs[1] <= 2 and errs[2] <= 10 and gh_err <= 1e-6,
+              f"plm_update_grad {name}: logits {errs[0]:.3g}, picked {errs[1]:.3g}, ct "
+              f"{errs[2]:.3g} ulps, gh off by {gh_err:.3g} of its terms")
+        del lg, pk, ct, gh, lg_t, pk_t, ct_t, gh_t
+        worst["plm_trial"] = max(worst["plm_trial"], trial_err)
+        worst["plm_update_grad"] = max(worst["plm_update_grad"], gh_err)
+        # times; the update moves the logits by 1e-3 of the direction a call
+        small = (p["u"], p["dh"], 1e-3)
+        calls = {
+            "plm_trial": (lambda: ck.plm_trial(*args), lambda: ck.plm_trial_reference(*args),
+                          ("plm_trial",), 4 * (2 * nql + n * l + n + l * q) + n * l + 8),
+            "plm_update_grad": (
+                lambda: ck.plm_update_grad(p["logits"], p["codes"], p["weights"], p["picked"],
+                                           *small),
+                lambda: ck.plm_update_grad_reference(p["logits"], p["codes"], p["weights"],
+                                                     p["picked"], *small),
+                ("plm_update_grad", "plm_gh_reduce"),
+                4 * (4 * nql + 2 * n * l + n + 2 * l * q) + n * l),
+        }
+        for kname, (kernel, plain, names, nbytes) in calls.items():
+            ms = cuda_ms(kernel, 20)
+            dev_ms = device_ms(kernel, names, 20)
+            plain_ms = cuda_ms(plain, 5)
+            bound = bound_of(0.0, nbytes / PEAK["bytes"])
+            timing[(kname, name)] = (ms, plain_ms, None, bound)
+            print(f"phase 2 kernel {kname} {name} N={n} L={l} q={q}: kernel {ms:.4f} ms (device "
+                  f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms by "
+                  f"{bound[1]} ({100 * bound[0] / dev_ms:.1f}% of it); trial sums off by "
+                  f"{trial_err:.3g} of their terms; logits, picked, ct {errs[0]:.2f}, "
+                  f"{errs[1]:.2f}, {errs[2]:.2f} ulps, gh off by {gh_err:.3g}; two launches "
+                  "equal", flush=True)
+        del p, args, calls
+        torch.cuda.empty_cache()
+    return worst, timing
 
 
 def gram_bound(n, l, q, dtype):
@@ -2280,7 +2400,7 @@ def phase_cold_start(tmp, smi, main_fa, mf_fa):
     Returns the launches the runs reported."""
     cases = [
         dict(name="plm", cli="plmdca", stages=["weights", "fit", "score"], fa=main_fa,
-             kernels=["identity_counts"],
+             kernels=["identity_counts", "plm_passes"],
              argv=["compute_fn", "protein", main_fa, "--apc", "--max_iterations", "100",
                    "--device", cli_device("cuda")],
              file="PLMDCA_apc_fn_scores_planted_protein.txt", ref=os.path.join(tmp, "main")),
@@ -2302,7 +2422,7 @@ def phase_cold_start(tmp, smi, main_fa, mf_fa):
             runs["cold"].append(cli_run(case, cold_dir, os.path.join(cold_dir, "out"), "cold"))
             built = sorted(os.listdir(os.path.join(cold_dir, "torch_build")))
             want = sorted([fastacodec.library_path().name] + [
-                _build.library_path(k).name for k in KERNELS if k in case["kernels"]])
+                _build.library_path(k).name for k in case["kernels"]])
             check(built == want, f"phase 17 {case['name']}: the cold run built {built}, "
                   f"expected {want} (the codec with g++, the kernels with nvcc)")
             warm_dir = os.path.join(tmp, f"p17_{case['name']}_warmup{rep}")
@@ -2437,19 +2557,20 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    fresh = [k for k in KERNELS if not _build.library_path(k).exists()]
+    fresh = [k for k in LIBRARIES if not _build.library_path(k).exists()]
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:  # one nvcc per source
-        for fut in [pool.submit(_build.load, k) for k in KERNELS]:
+    with ThreadPoolExecutor(len(LIBRARIES)) as pool:  # one nvcc per source
+        for fut in [pool.submit(_build.load, k) for k in LIBRARIES]:
             fut.result()
     build_s = time.perf_counter() - t0
     print(f"phase 1 torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}; nvcc build of {len(fresh)} "
-          f"of {len(KERNELS)} kernels in parallel {build_s:.2f} s", flush=True)
+          f"of {len(LIBRARIES)} libraries in parallel {build_s:.2f} s", flush=True)
     clock.lap("1")
 
     # ---- phase 2: kernel vs plain version on the card
     max_err, timing = phase_kernel(dev)
+    pass_err, pass_timing = phase_plm_passes(dev)
     clock.lap("2")
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2466,6 +2587,7 @@ def main() -> int:
         launches = ck.identity_counts.launches
         check(launches > 0, "main path never launched the identity_counts kernel")
         res, timers = inst.fit_result, inst.timers
+        pass_launches = plm_pass_launches(res, "phase 3")
         scores_main = scores
         check(len(header) > 0, "output has no # header")
         check(len(scores) == l * (l - 1) // 2,
@@ -2486,7 +2608,7 @@ def main() -> int:
               f"{1e3 * fit_s / max(res.num_iters, 1):.2f} ms/iter; "
               f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
               f"host syncs/iter {res.host_syncs / max(res.num_iters, 1):.2f}; "
-              f"kernel launches {launches}", flush=True)
+              f"kernel launches {launches}, {pass_launches}", flush=True)
         clock.lap("3")
 
         # ---- phase 4: the same RNA-shaped family on the CPU and on the card
@@ -2496,9 +2618,11 @@ def main() -> int:
         write_family_fasta(fa, codes, alphabets.RNA)
         runs = {}
         for device in ("cpu", "cuda"):
+            reset_launches()
             t0 = time.perf_counter()
             inst, (_, sc) = run_cli("rna", fa, os.path.join(tmp, device), device)
             runs[device] = (inst, sc, time.perf_counter() - t0)
+        rna_passes = plm_pass_launches(runs["cuda"][0].fit_result, "phase 4 (cuda)")
         w_cpu = runs["cpu"][0].compute_seqs_weight()
         w_gpu = runs["cuda"][0].compute_seqs_weight().cpu()
         check(torch.equal(w_cpu, w_gpu), "CPU and GPU weights differ")
@@ -2510,7 +2634,8 @@ def main() -> int:
               f"weights equal; spearman {rho:.4f} top-20 overlap {top:.2f}; "
               f"iterations cpu {runs['cpu'][0].fit_result.num_iters} "
               f"cuda {runs['cuda'][0].fit_result.num_iters}; wall cpu "
-              f"{runs['cpu'][2]:.2f} s cuda {runs['cuda'][2]:.2f} s", flush=True)
+              f"{runs['cpu'][2]:.2f} s cuda {runs['cuda'][2]:.2f} s; cuda plm passes "
+              f"{rna_passes}", flush=True)
         clock.lap("4")
 
         plm_fa, plm_runs = fa, runs
@@ -2609,6 +2734,15 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": n_launch, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
             "bound_by": bound[1], "library_ms": lib_ms,
+        })
+    for name in PLM_PASSES:  # launches: phases 3 and 4 (each checked against its fit)
+        ms, plain_ms, lib_ms, bound = pass_timing[(name, "pf02826_deep")]
+        records.append({
+            "name": name, "route": "cuda", "source": "pydca_tpu_torch/csrc/plm_passes.cu",
+            "replaces": None, "stands_for": STANDS_FOR[name],
+            "launches": pass_launches[name] + rna_passes[name], "max_rel_err": pass_err[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": lib_ms,
         })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 // Helpers shared by the sm_90a kernels of this directory
-// (identity_counts.cu, weighted_gram.cu): the upper-triangle tile order,
-// shared-memory addressing and stores, the async-proxy fence, the wgmma
-// descriptor of a K-major operand in the 128-byte swizzle, the register
-// fence of a wgmma accumulator, and the one-time opt-in to more than 48 KB
-// of dynamic shared memory.  ops/_build.py hashes this header with each
-// source, so an edit here rebuilds both libraries.
+// (identity_counts.cu, weighted_gram.cu; plm_passes.cu takes the last): the
+// upper-triangle tile order, shared-memory addressing and stores, the
+// async-proxy fence, the wgmma descriptor of a K-major operand in the
+// 128-byte swizzle, the register fence of a wgmma accumulator, and the
+// one-time opt-in to more than 48 KB of dynamic shared memory.
+// ops/_build.py hashes this header with each source, so an edit here
+// rebuilds every library.
 
 #pragma once
 

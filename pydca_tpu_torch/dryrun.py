@@ -137,7 +137,7 @@ def dryrun_multichip(n_devices: int, device: str = "cuda") -> Optional[str]:
 def _dryrun_rank(n_devices: int, dev: torch.device, where: str) -> str:
     from . import stats
     from .parallel import make_mesh, mfdca_sharded, shard_msa
-    from .plm import _plm_fused_state0, _plm_fused_steps, _prep_msa, fit_plm
+    from .plm import _fused_inputs, _plm_fused_state0, _plm_fused_steps, fit_plm
 
     n_model = 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
     mesh = make_mesh(n_devices // n_model, n_model, device=dev)
@@ -151,9 +151,9 @@ def _dryrun_rank(n_devices: int, dev: torch.device, where: str) -> str:
     lam = 0.2 * (l - 1)
 
     # fused L-BFGS init and two iterations, data-parallel over the sequences
-    x1h, maskq = _prep_msa(codes, l, q)
+    x1h, codes8 = _fused_inputs(codes, l, q)
     state = _plm_fused_state0(codes, w, lam, lam, l, q, 5, mesh=mesh)
-    state = _plm_fused_steps(state, x1h, maskq, w, lam, lam, l, q, 2, mesh=mesh)
+    state = _plm_fused_steps(state, x1h, codes8, w, lam, lam, l, q, 2, mesh=mesh)
     _check(state.k >= 1, "no L-BFGS iteration executed")
 
     # the streamed fit over the mesh (the deep-alignment path)
@@ -177,7 +177,7 @@ def _dryrun_rank(n_devices: int, dev: torch.device, where: str) -> str:
     w_all = mesh.gather_rows(w, "dryrun_gather")[:n]
     _check(torch.equal(w_all, w_one), "sharded weights differ from one process's")
     one = _plm_fused_state0(full, w_one, lam, lam, l, q, 5)
-    one = _plm_fused_steps(one, *_prep_msa(full, l, q), w_one, lam, lam, l, q, 2)
+    one = _plm_fused_steps(one, *_fused_inputs(full, l, q), w_one, lam, lam, l, q, 2)
     diff = (state.x - one.x).abs()
     rtol, atol = THETA_TOL
     _check(state.k == one.k and bool((diff <= atol + rtol * one.x.abs()).all()),

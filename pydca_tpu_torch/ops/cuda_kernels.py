@@ -8,6 +8,11 @@
   ``X^T diag(w) X`` behind the mean-field frequencies and correlation
   matrix; replaces ``pydca_tpu/ops/pallas_kernels.py::weighted_gram``.  The
   kernel is ``csrc/weighted_gram.cu``.
+- :func:`plm_trial` and :func:`plm_update_grad` — the elementwise passes of
+  the fused plmDCA L-BFGS step over the ``(N, q, L)`` logits: one line-search
+  trial's objective and slope, and the step's update with the gradient's
+  softmax cotangent.  They replace no TPU kernel (XLA fuses the same
+  composition there); the kernels are ``csrc/plm_passes.cu``.
 
 A wrapper takes the plain version only because its tensor lies on the CPU;
 for a CUDA tensor it launches the kernel or raises.  Each wrapper counts
@@ -36,6 +41,10 @@ __all__ = [
     "identity_counts",
     "identity_counts_reference",
     "identity_tile_share",
+    "plm_trial",
+    "plm_trial_reference",
+    "plm_update_grad",
+    "plm_update_grad_reference",
     "weighted_gram",
     "weighted_gram_reference",
 ]
@@ -350,6 +359,13 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _launch_on(dev: torch.device):
+    """A context that makes ``dev`` current for a launch: none when it
+    already is (entering a device context costs more than the check)."""
+    same = dev.index == torch.cuda.current_device()
+    return contextlib.nullcontext() if same else torch.cuda.device(dev)
+
+
 def weighted_gram(codes: torch.Tensor, weights: torch.Tensor, q: int) -> torch.Tensor:
     """``G[(i,a),(j,b)] = sum_n w_n [codes[n,i] == a] [codes[n,j] == b]``.
 
@@ -397,10 +413,7 @@ def weighted_gram(codes: torch.Tensor, weights: torch.Tensor, q: int) -> torch.T
     lib = _weighted_gram_lib()
     launch = lib.weighted_gram_f32 if itemsize == 4 else lib.weighted_gram_f64
     base = scratch.data_ptr()
-    # the launch goes to the current device (entering a context costs more
-    # than the check at small K)
-    same = dev.index == torch.cuda.current_device()
-    with contextlib.nullcontext() if same else torch.cuda.device(dev), span("weighted_gram"):
+    with _launch_on(dev), span("weighted_gram"):
         err = launch(
             c8.data_ptr(), w.data_ptr(), out.data_ptr(), base,
             base + wpk_off if itemsize == 4 else None,
@@ -430,4 +443,181 @@ def _weighted_gram_lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
+    return lib
+
+
+# ------------------------------------------- the fused plmDCA step's passes
+_PLM_QS = (5, 21)  # the alphabets' q: csrc/plm_passes.cu is built for these
+
+
+def plm_trial_reference(logits, codes, weights, picked, u, dh, alpha: float) -> torch.Tensor:
+    """Plain version of :func:`plm_trial`: ``u' = u + dh`` and its picked
+    values, then the data term ``phi(alpha)`` and its derivative along the
+    direction, exploiting ``logits(alpha) = logits + alpha*u'``: softmax
+    statistics and the ``ct . u'`` contraction in one composition."""
+    from ..plm import _pick_mask, _picked  # the plm module imports this one
+
+    u = u + dh.T[None]
+    upicked = _picked(u, _pick_mask(codes, logits.shape[1]))
+    t = logits + alpha * u
+    mx = t.amax(dim=1)
+    e = torch.exp(t - mx[:, None, :])
+    se = e.sum(dim=1)  # (N, L)
+    lse = mx + torch.log(se)
+    pk = picked + alpha * upicked
+    nll = (weights[:, None] * (lse - pk)).sum()
+    su = (e * u).sum(dim=1) / se  # E_softmax[u']  (N, L)
+    dnll = (weights[:, None] * (su - upicked)).sum()
+    return torch.stack((nll, dnll))
+
+
+def plm_update_grad_reference(logits, codes, weights, picked=None, u=None, dh=None,
+                              alpha: float = 0.0):
+    """Plain version of :func:`plm_update_grad`: with ``u``, ``logits +=
+    alpha*u'`` and ``picked += alpha*u'[code]`` in place (``u' = u +
+    dh``); then the plm module's ``_ct_gh``."""
+    from ..plm import _ct_gh, _pick_mask, _picked
+
+    maskq = _pick_mask(codes, logits.shape[1])
+    if u is not None:
+        u = u + dh.T[None]
+        logits.add_(u, alpha=alpha)
+        picked.add_(_picked(u, maskq), alpha=alpha)
+    return _ct_gh(logits, maskq, weights)
+
+
+def _check_plm_passes(logits, codes, weights, picked, u, dh) -> None:
+    if logits.dim() != 3:
+        raise ValueError(f"logits must be (N, q, L), got shape {tuple(logits.shape)}")
+    n, q, l = logits.shape
+    want = {"logits": (logits, (n, q, l), torch.float32), "codes": (codes, (n, l), None),
+            "weights": (weights, (n,), torch.float32), "picked": (picked, (n, l), torch.float32),
+            "u": (u, (n, q, l), torch.float32), "dh": (dh, (l, q), torch.float32)}
+    for name, (t, shape, dtype) in want.items():
+        if t is None:
+            continue
+        if tuple(t.shape) != shape or t.device != logits.device:
+            raise ValueError(f"{name} must be {shape} on {logits.device}, got "
+                             f"{tuple(t.shape)} on {t.device}")
+        if dtype is not None and t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if logits.device.type == "cuda" and not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if codes.dtype not in _INT_DTYPES:
+        raise TypeError(f"codes must be an integer tensor, got {codes.dtype}")
+    if logits.device.type == "cuda":
+        if codes.dtype != torch.uint8:
+            raise TypeError(f"codes must be uint8 on the card, got {codes.dtype}")
+        if q not in _PLM_QS:
+            raise ValueError(f"q must be one of {_PLM_QS} on the card, got {q}")
+    elif logits.device.type != "cpu":
+        raise ValueError(f"unsupported device {logits.device}")
+
+
+def plm_trial(logits, codes, weights, picked, u, dh, alpha: float) -> torch.Tensor:
+    """One line-search trial of the fused plmDCA step at ``alpha``: the
+    float32 ``[sum_n,i w_n (lse - pk), sum_n,i w_n (E_softmax[u'] - u'_pk)]``
+    at ``logits + alpha*u'``, ``u' = u + dh``, a ``(2,)`` tensor.
+
+    ``logits``, ``u``: float32 ``(N, q, L)``, ``u`` the direction's
+    couplings image; ``codes``: ``(N, L)`` observed states (uint8 on the
+    card; a code >= q picks none); ``weights``: ``(N,)``; ``picked``:
+    ``(N, L)`` logits of the observed states; ``dh``: the direction's
+    fields ``(L, q)``.  On a CPU tensor this is
+    :func:`plm_trial_reference`; on a CUDA tensor it launches
+    ``csrc/plm_passes.cu`` (one pass over ``logits`` and ``u``) or raises.
+    """
+    _check_plm_passes(logits, codes, weights, picked, u, dh)
+    if logits.device.type == "cpu":
+        with span("plm_trial"):
+            return plm_trial_reference(logits, codes, weights, picked, u, dh, alpha)
+    n, q, l = logits.shape
+    dev = logits.device
+    out = torch.empty(2, dtype=torch.float32, device=dev)
+    if n == 0 or l == 0:
+        return out.zero_()
+    lib = _plm_passes_lib()
+    partial = torch.empty(2 * lib.plm_passes_blocks(n, l), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with _launch_on(dev), span("plm_trial"):
+        err = lib.plm_trial_launch(
+            logits.data_ptr(), picked.data_ptr(), u.data_ptr(), dh.data_ptr(),
+            codes.data_ptr(), weights.data_ptr(), n, q, l, float(alpha), partial.data_ptr(),
+            _plm_ticket(dev.index, stream).data_ptr(), out.data_ptr(), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"plm_trial launch failed: CUDA error {err}")
+    plm_trial.launches += 1
+    return out
+
+
+plm_trial.launches = 0
+
+
+def plm_update_grad(logits, codes, weights, picked=None, u=None, dh=None, alpha: float = 0.0):
+    """The fused plmDCA step's update and the gradient's cotangent:
+    ``(ct, gh)`` with ``ct = w (softmax_q(logits) - onehot)`` float32
+    ``(N, q, L)`` and ``gh = ct.sum(0)`` ``(q, L)``.
+
+    With ``u`` (and ``picked``, ``dh``, ``alpha``), the logits are first
+    moved along the direction in place: ``logits += alpha*u'``, ``picked
+    += alpha*u'_pk``, ``u' = u + dh`` (shapes as in :func:`plm_trial`).
+    On a CPU tensor this is :func:`plm_update_grad_reference`; on a CUDA
+    tensor it launches ``csrc/plm_passes.cu`` (one pass that reads the
+    logits and ``u`` and writes the logits and ``ct``, and a reduction of
+    the per-block column sums) or raises.
+    """
+    if u is not None and (picked is None or dh is None):
+        raise ValueError("an update along u needs picked and dh")
+    _check_plm_passes(logits, codes, weights, picked, u, dh)
+    if logits.device.type == "cpu":
+        with span("plm_update_grad"):
+            return plm_update_grad_reference(logits, codes, weights, picked, u, dh, alpha)
+    n, q, l = logits.shape
+    dev = logits.device
+    ct = torch.empty_like(logits)
+    gh = torch.empty((q, l), dtype=torch.float32, device=dev)
+    if n == 0 or l == 0:
+        return ct, gh.zero_()
+    lib = _plm_passes_lib()
+    gh_part = torch.empty(lib.plm_passes_row_blocks(n) * q * l, dtype=torch.float32,
+                          device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with _launch_on(dev), span("plm_update_grad"):
+        err = lib.plm_update_grad_launch(
+            logits.data_ptr(), ptr(picked), ptr(u), ptr(dh), codes.data_ptr(),
+            weights.data_ptr(), n, q, l, float(alpha), ct.data_ptr(), gh_part.data_ptr(),
+            gh.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"plm_update_grad launch failed: CUDA error {err}")
+    plm_update_grad.launches += 1
+    return ct, gh
+
+
+plm_update_grad.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _plm_ticket(index: int, stream: int) -> torch.Tensor:
+    """The trial kernel's ticket for launches on ``stream`` of card
+    ``index``: 0 between launches.  One a stream, since the launches that
+    share a ticket must run in order."""
+    return torch.zeros(1, dtype=torch.int32, device=torch.device("cuda", index))
+
+
+@functools.lru_cache(maxsize=None)
+def _plm_passes_lib() -> ctypes.CDLL:
+    lib = _build.load("plm_passes")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.plm_trial_launch.argtypes = [p, p, p, p, p, p, i, i, i, f, p, p, p, p]
+    lib.plm_update_grad_launch.argtypes = [p, p, p, p, p, p, i, i, i, f, p, p, p, p]
+    lib.plm_trial_launch.restype = lib.plm_update_grad_launch.restype = ctypes.c_int
+    lib.plm_passes_blocks.argtypes = [i, i]
+    lib.plm_passes_blocks.restype = ctypes.c_longlong
+    lib.plm_passes_row_blocks.argtypes = [i]
+    lib.plm_passes_row_blocks.restype = ctypes.c_int
     return lib

@@ -68,6 +68,7 @@ from . import score as score_mod
 from . import stats
 from .device import resolve_device, set_precision, sync
 from .io.fasta import MSA, read_msa
+from .ops.cuda_kernels import plm_trial, plm_update_grad
 from .ops.lbfgs import (
     LBFGSResult,
     LBFGSState,
@@ -179,14 +180,28 @@ def _pair_plan(l: int, device: torch.device) -> _PairPlan:
     )
 
 
+def _one_hot(msa: torch.Tensor, l: int, q: int, dtype=torch.float32) -> torch.Tensor:
+    """One-hot ``(N, L*q)`` of the codes (column ``j*q + b``)."""
+    return torch.nn.functional.one_hot(msa.long(), q).to(dtype).reshape(msa.shape[0], l * q)
+
+
+def _pick_mask(codes: torch.Tensor, q: int) -> torch.Tensor:
+    """``(N, q, L)`` bool, ``codes[n, i] == a``: the observed state of each
+    site of the ``(N, L)`` codes; a code outside ``[0, q)`` picks none."""
+    return codes.long()[:, None, :] == torch.arange(q, device=codes.device)[None, :, None]
+
+
 def _prep_msa(msa: torch.Tensor, l: int, q: int, dtype=torch.float32):
     """One-hot ``(N, L*q)`` (column ``j*q + b``) and per-state pick mask
     ``(N, q, L)`` for the loss; computed once per fit."""
-    codes = msa.long()
-    x = torch.nn.functional.one_hot(codes, q).to(dtype).reshape(msa.shape[0], l * q)
-    states = torch.arange(q, device=msa.device)
-    maskq = codes[:, None, :] == states[None, :, None]
-    return x, maskq
+    return _one_hot(msa, l, q, dtype), _pick_mask(msa, q)
+
+
+def _fused_inputs(msa: torch.Tensor, l: int, q: int, dtype=torch.float32):
+    """The fused loop's one-hot ``(N, L*q)`` and ``(N, L)`` uint8 codes (the
+    passes over the logits read the codes in place of a pick mask);
+    computed once per fit."""
+    return _one_hot(msa, l, q, dtype), msa.to(torch.uint8).contiguous()
 
 
 def _expand_full(j_flat: torch.Tensor, l: int, q: int) -> torch.Tensor:
@@ -517,25 +532,6 @@ def plm_loss_and_grad_w2_chunked(z, msa, weights, lambda_h, lambda_j,
                              lambda_h, lambda_j, l, q, mesh)
 
 
-def _phi_dphi(logits, picked, u, upicked, weights, alpha: float):
-    """phi(alpha) data term and its derivative: one elementwise pass.
-
-    Exploits logits(alpha) = logits + alpha*u: no matmul, no expansion —
-    softmax statistics and the ct.u contraction fall out of the same pass.
-    Returns two 0-d device tensors.
-    """
-    t = logits + alpha * u
-    mx = t.amax(dim=1)
-    e = torch.exp(t - mx[:, None, :])
-    se = e.sum(dim=1)  # (N, L)
-    lse = mx + torch.log(se)
-    pk = picked + alpha * upicked
-    nll = (weights[:, None] * (lse - pk)).sum()
-    su = (e * u).sum(dim=1) / se  # E_softmax[u]  (N, L)
-    dnll = (weights[:, None] * (su - upicked)).sum()
-    return nll, dnll
-
-
 def _nll_at(logits, picked, weights):
     """Weighted negative log-pseudolikelihood from carried logits/picked."""
     return (weights[:, None] * (_lse_q(logits) - picked)).sum()
@@ -550,14 +546,19 @@ def _ct_gh(logits, maskq, weights):
     return ct, ct.sum(dim=0)
 
 
-def _grad_at(logits, x1h, maskq, weights, theta, lambda_h, lambda_j,
-             l: int, q: int, mesh=None, mm_bf16: bool = False) -> torch.Tensor:
-    """Full flat gradient at the carried logits / parameters.  ``mesh``:
-    the data gradient (this rank's rows) is summed over the ranks in one
-    flat buffer of D floats before ``2 lambda theta`` is added."""
+def _grad_at(logits, x1h, codes, weights, theta, lambda_h, lambda_j,
+             l: int, q: int, mesh=None, mm_bf16: bool = False, picked=None, u=None,
+             dh=None, alpha: float = 0.0) -> torch.Tensor:
+    """Full flat gradient at the carried logits / parameters, the cotangent
+    by :func:`~pydca_tpu_torch.ops.cuda_kernels.plm_update_grad` on the
+    sequences' uint8 ``codes`` (:func:`_fused_inputs`).  With ``u``, the step's
+    update comes first, in the same pass: ``logits`` and ``picked`` move
+    by ``alpha`` along the direction's image ``u`` and fields ``dh``.
+    ``mesh``: the data gradient (this rank's rows) is summed over the ranks
+    in one flat buffer of D floats before ``2 lambda theta`` is added."""
     lq = l * q
     with span("plm/gradient"):
-        ct, gh = _ct_gh(logits, maskq, weights)
+        ct, gh = plm_update_grad(logits, codes, weights, picked, u, dh, alpha)
         g = torch.empty_like(theta)
         g[:lq] = gh.T.reshape(-1)
         g[lq:] = _w4_cot_to_compact(_mm_b(x1h, ct, mm_bf16=mm_bf16), l, q)
@@ -569,21 +570,12 @@ def _grad_at(logits, x1h, maskq, weights, theta, lambda_h, lambda_j,
     return g
 
 
-def _data_sum(mesh, *vals: torch.Tensor) -> torch.Tensor:
-    """0-d data terms (sums over this rank's sequences) stacked and summed
-    over the ranks in one collective."""
-    both = torch.stack(vals)
+def _data_sum(mesh, vals: torch.Tensor) -> torch.Tensor:
+    """1-D data terms (sums over this rank's sequences) summed over the
+    ranks in one collective, in place."""
     if mesh is not None:
-        mesh.sum_(both, "nll_allreduce")
-    return both
-
-
-def _prep_u(x1h, maskq, d, l: int, q: int, mm_bf16: bool = False):
-    """Direction image in logits space: u = x1h @ E(d_J) + d_h (once per
-    direction), plus its picked-state reduction."""
-    u = _logits_mm(x1h, _expand_w4(d[l * q :], l, q), q, l, mm_bf16)
-    u += d[: l * q].reshape(l, q).T[None]
-    return u, _picked(u, maskq)
+        mesh.sum_(vals, "nll_allreduce")
+    return vals
 
 
 # ------------------------------------------------------ fused direction loop
@@ -647,13 +639,13 @@ def _plm_fused_state0(
     lq = l * q
     dim = lq + l * (l - 1) // 2 * q * q
     with span("plm/init"):
-        x1h, maskq = _prep_msa(msa, l, q, _x_dtype(mm_bf16))
+        x1h, codes = _fused_inputs(msa, l, q, _x_dtype(mm_bf16))
         theta = init_params(msa, weights, l, q, mesh=mesh)
         h0 = theta[:lq].reshape(l, q)
         # J0 = 0 exactly: the logits are the broadcast fields
         logits = h0.T[None].expand(n, q, l).contiguous()
-        picked = _picked(logits, maskq)
-        g = _grad_at(logits, x1h, maskq, weights, theta, float(lh), float(lj), l, q, mesh,
+        picked = _picked(logits, _pick_mask(codes, q))
+        g = _grad_at(logits, x1h, codes, weights, theta, float(lh), float(lj), l, q, mesh,
                      mm_bf16)
         st = PlmFusedState(
             x=theta, f=_F32(0), g=g,
@@ -665,7 +657,7 @@ def _plm_fused_state0(
             logits=logits, picked=picked,
             k=0, done=False, converged=False, ls_failed=False, n_evals=1,
         )
-        nll, rh, gg = fetch_f32(st, _data_sum(mesh, _nll_at(logits, picked, weights)),
+        nll, rh, gg = fetch_f32(st, _data_sum(mesh, _nll_at(logits, picked, weights).reshape(1)),
                                 torch.dot(theta[:lq], theta[:lq]), torch.dot(g, g))
     st.f = _F32(nll + lh * rh)
     st.rh, st.xx, st.gg = rh, rh, gg
@@ -695,14 +687,19 @@ def _hist_dot(z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def _plm_fused_step(
-    st: PlmFusedState, x1h, maskq, weights, lh, lj, l: int, q: int,
+    st: PlmFusedState, x1h, codes, weights, lh, lj, l: int, q: int,
     epsilon: float, ftol: float, wolfe: float, max_linesearch: int, mesh=None,
     mm_bf16: bool = False,
 ) -> None:
     """One fused L-BFGS iteration, updating ``st`` in place
-    (``pydca_tpu/plm.py:996-1137``); its parts are the spans
-    ``plm/direction``, ``plm/linesearch`` (one ``plm/trial`` a trial),
-    ``plm/update``, ``plm/gradient`` and ``plm/history``."""
+    (``pydca_tpu/plm.py:996-1137``) on the sequences' uint8 ``codes``
+    (:func:`_fused_inputs`); its parts are the spans ``plm/direction``,
+    ``plm/linesearch`` (one ``plm/trial`` a trial), ``plm/update``,
+    ``plm/gradient`` and ``plm/history``.  The passes over the ``(N, q,
+    L)`` logits are two kernels: one a trial
+    (:func:`~pydca_tpu_torch.ops.cuda_kernels.plm_trial`), and one that
+    moves the logits to the accepted step and builds the gradient's
+    cotangent (:func:`~pydca_tpu_torch.ops.cuda_kernels.plm_update_grad`)."""
     lq = l * q
     m = st.z.shape[0] // 2
     hist_bf16 = st.z.dtype == torch.bfloat16
@@ -733,13 +730,16 @@ def _plm_fused_step(
     c2 = lh * dh2 + lj * dj2
     reg0 = lh * st.rh + lj * st.rj
 
-    u, upicked = _prep_u(x1h, maskq, d, l, q, mm_bf16)
+    # the direction's image in logits space: u' = u + dh, u = x1h @ E(d_J)
+    # (its fields dh are added inside the passes)
+    u = _logits_mm(x1h, _expand_w4(d[lq:], l, q), q, l, mm_bf16)
+    dh = d[:lq].view(l, q)
 
     def phi(alpha):
         with span("plm/trial"):
             nll, dnll = fetch_f32(
-                st, _data_sum(mesh, *_phi_dphi(st.logits, st.picked, u, upicked, weights,
-                                               float(alpha)))
+                st, _data_sum(mesh, plm_trial(st.logits, codes, weights, st.picked, u, dh,
+                                              float(alpha)))
             )
         return (
             nll + reg0 + c1 * alpha + c2 * alpha * alpha,
@@ -762,13 +762,11 @@ def _plm_fused_step(
     a = float(alpha)
     with span("plm/update"):
         st.x.add_(d, alpha=a)
-        # in place: logits/picked are the largest tensors of the fit, and the
-        # update saves a full (N, q, L) copy (pydca_tpu/plm.py:1057)
-        st.logits.add_(u, alpha=a)
-        st.picked.add_(upicked, alpha=a)
-    del u, upicked
-    g_new = _grad_at(st.logits, x1h, maskq, weights, st.x, float(lh), float(lj), l, q, mesh,
-                     mm_bf16)
+    # logits/picked move in place, in the gradient's pass: they are the
+    # largest tensors of the fit (pydca_tpu/plm.py:1057)
+    g_new = _grad_at(st.logits, x1h, codes, weights, st.x, float(lh), float(lj), l, q, mesh,
+                     mm_bf16, st.picked, u, dh, a)
+    del u
     with span("plm/history"):
         zg_old_rows = _hist_dot(st.z, g_new)  # Z @ g' with the rows before the write
         rows_dots = []
@@ -824,18 +822,19 @@ def _plm_fused_step(
 
 
 def _plm_fused_steps(
-    st: PlmFusedState, x1h, maskq, weights, lambda_h, lambda_j,
+    st: PlmFusedState, x1h, codes, weights, lambda_h, lambda_j,
     l: int, q: int, num_steps: int,
     epsilon: float = 1e-3, ftol: float = 1e-4, wolfe: float = 0.9,
     max_linesearch: int = 10, mesh=None, mm_bf16: bool = False,
 ) -> PlmFusedState:
     """Advance the fused optimizer by up to ``num_steps`` iterations (in
-    place; returns ``st``), each the span ``plm/iteration``."""
+    place; returns ``st``), each the span ``plm/iteration``.  ``x1h``,
+    ``codes``: :func:`_fused_inputs`."""
     lh, lj = _F32(lambda_h), _F32(lambda_j)
     k_end = st.k + num_steps
     while not st.done and st.k < k_end:
         with span("plm/iteration"):
-            _plm_fused_step(st, x1h, maskq, weights, lh, lj, l, q,
+            _plm_fused_step(st, x1h, codes, weights, lh, lj, l, q,
                             epsilon, ftol, wolfe, max_linesearch, mesh, mm_bf16)
     return st
 
@@ -969,7 +968,7 @@ def _generic_from_fused(st: PlmFusedState) -> LBFGSState:
     )
 
 
-def _fused_from_generic(gst: LBFGSState, x1h, maskq, weights, lambda_h, lambda_j,
+def _fused_from_generic(gst: LBFGSState, x1h, codes, weights, lambda_h, lambda_j,
                         l: int, q: int, epsilon: float = 1e-3, mesh=None,
                         mm_bf16: bool = False) -> PlmFusedState:
     """Generic -> fused state at the checkpointed iterate
@@ -982,8 +981,8 @@ def _fused_from_generic(gst: LBFGSState, x1h, maskq, weights, lambda_h, lambda_j
     x = gst.x
     logits = _logits_mm(x1h, _expand_w4(x[lq:], l, q), q, l, mm_bf16).add_(
         x[:lq].reshape(l, q).T[None])
-    picked = _picked(logits, maskq)
-    g = _grad_at(logits, x1h, maskq, weights, x, float(lh), float(lj), l, q, mesh, mm_bf16)
+    picked = _picked(logits, _pick_mask(codes, q))
+    g = _grad_at(logits, x1h, codes, weights, x, float(lh), float(lj), l, q, mesh, mm_bf16)
     m2 = gst.z.shape[0]
     st = PlmFusedState(
         x=x, f=_F32(0), g=g, z=gst.z,
@@ -995,9 +994,9 @@ def _fused_from_generic(gst: LBFGSState, x1h, maskq, weights, lambda_h, lambda_j
         host_syncs=gst.host_syncs,
     )
     vals = fetch_f32(
-        st, _data_sum(mesh, _nll_at(logits, picked, weights)), torch.dot(x[:lq], x[:lq]),
-        torch.dot(x[lq:], x[lq:]), torch.dot(g, g), torch.matmul(gst.z, gst.z.T),
-        torch.matmul(gst.z, g),
+        st, _data_sum(mesh, _nll_at(logits, picked, weights).reshape(1)),
+        torch.dot(x[:lq], x[:lq]), torch.dot(x[lq:], x[lq:]), torch.dot(g, g),
+        torch.matmul(gst.z, gst.z.T), torch.matmul(gst.z, g),
     )
     nll, st.rh, st.rj, st.gg = vals[:4]
     st.zzt = torch.tensor(vals[4 : 4 + m2 * m2], dtype=torch.float32).reshape(m2, m2)
@@ -1229,9 +1228,9 @@ def fit_plm(
     prepped = []
 
     def fused_inputs():
-        """The fused loop's one-hot and pick mask, built once per fit."""
+        """The fused loop's one-hot and codes, built once per fit."""
         if not prepped:
-            prepped.extend(_prep_msa(msa, l, q, _x_dtype(mm_bf16)))
+            prepped.extend(_fused_inputs(msa, l, q, _x_dtype(mm_bf16)))
         return prepped
 
     def restore():

@@ -8,7 +8,8 @@ with ``nvcc`` at first use into the cache directory of
 :func:`pydca_tpu_torch.runtime.enable_compilation_cache`.  So a warmup
 builds, through :func:`pydca_tpu_torch.ops._build.build`, every library
 the run on a card would load: ``identity_counts`` (the weights of both
-engines) and, for mean-field, ``weighted_gram``.  The libraries do not
+engines), for plmDCA ``plm_passes`` (the fused step's passes over the
+logits) and, for mean-field, ``weighted_gram``.  The libraries do not
 depend on the shapes or the options; (N, L, q) and the flags decide only
 the route a plm run takes (fused or streamed, the products' precision,
 the parameter space: :func:`pydca_tpu_torch.plm.streaming_block`,
@@ -95,8 +96,8 @@ def warmup_plm(
     hist_bf16: Optional[bool] = None,
     device="cuda",
 ) -> float:
-    """Build the library a ``plmdca`` run at (N, L, q) on ``device`` loads
-    (``identity_counts``); returns seconds spent.  Resolves the route as
+    """Build the libraries a ``plmdca`` run at (N, L, q) on ``device`` loads
+    (``identity_counts``, ``plm_passes``); returns seconds spent.  Resolves the route as
     ``fit_plm`` does (``pydca_tpu/warmup.py:188-195``) and logs it: fused
     or streamed (``seq_block``, else the engine's own
     :func:`~pydca_tpu_torch.plm.streaming_block`), the products' operands
@@ -114,7 +115,7 @@ def warmup_plm(
         route = f"streamed over blocks of {block}"
     else:
         route = "generic loop" if w2space else "fused"
-    dt = _build_all(("identity_counts",), device)
+    dt = _build_all(("identity_counts", "plm_passes"), device)
     logger.info(
         "plmDCA warmup (N=%d, L=%d, q=%d, seqid %s, %d iterations in chunks of %s, %s, "
         "%s products, %s history rows, %s parameter space, mesh %s, device %s): "

@@ -77,8 +77,8 @@ def port_state(problem, seq_block, steps=3):
     tm, tw = torch.tensor(msa), torch.tensor(w)
     if seq_block is None:
         st = tplm._plm_fused_state0(tm, tw, float(lam), float(lam), L, Q, M)
-        x1h, maskq = tplm._prep_msa(tm, L, Q)
-        return tplm._plm_fused_steps(st, x1h, maskq, tw, float(lam), float(lam), L, Q, steps)
+        x1h, codes = tplm._fused_inputs(tm, L, Q)
+        return tplm._plm_fused_steps(st, x1h, codes, tw, float(lam), float(lam), L, Q, steps)
     st = tplm._plm_lbfgs_state0(tm, tw, float(lam), float(lam), L, Q, M, seq_block)
     return tplm._plm_lbfgs_steps(st, tm, tw, float(lam), float(lam), L, Q, steps, seq_block)
 
@@ -200,9 +200,9 @@ def test_fused_from_generic_matches_jax(problem, jax_fused_k3):
     want = jax.device_get(jplm._fused_from_generic_jit(
         gj, x1h, maskq, jnp.asarray(w), jnp.float32(lam), jnp.float32(lam), L, Q, False))
     tm = torch.tensor(msa)
-    tx, tmask = tplm._prep_msa(tm, L, Q)
+    tx, tcodes = tplm._fused_inputs(tm, L, Q)
     got = tplm._fused_from_generic(tplm.lbfgs_state_from_numpy(jax.device_get(gj)._asdict(), "cpu"),
-                                   tx, tmask, torch.tensor(w), float(lam), float(lam), L, Q)
+                                   tx, tcodes, torch.tensor(w), float(lam), float(lam), L, Q)
     np.testing.assert_allclose(got.f, float(want.f), rtol=1e-6)
     for name in ("gg", "xx", "rh", "rj"):
         np.testing.assert_allclose(getattr(got, name), float(getattr(want, name)), rtol=1e-5)

@@ -396,3 +396,188 @@ def test_blocked_solve_on_card_matches_torch_linalg(cuda):
     inv, info = linalg.spd_inverse(c, chol_block=2048)
     assert int(info) == 0
     torch.testing.assert_close(inv, torch.linalg.inv(c), **tol)
+
+
+# the fused plmDCA step's passes (csrc/plm_passes.cu) against their plain
+# composition on the card: the updated logits and picks within 2 float32
+# ulps (the same operations), the cotangent within 10 ulps at 1 of the terms
+# it is made of (the softmax sum of q <= 21 positive terms taken in another
+# order: at most q - 1 roundings of half an ulp apart), the sums within 1e-6
+# of the sum of their terms' magnitudes (float32 sums in another order: a
+# tree of a few dozen levels against the library's)
+EPS32 = 2.0 ** -23  # a float32 ulp at 1
+
+
+def _assert_ulps(got, want, scale, k=4):
+    err = (got.double() - want.double()).abs()
+    bound = k * EPS32 * scale.double() + 1e-37
+    assert bool((err <= bound).all()), f"{float((err / bound).max()):.3g} x {k} ulps"
+
+
+def _plm_problem(n, l, q, seed, device):
+    from pydca_tpu_torch import plm
+
+    codes = torch.tensor(planted_family(n, l, q, seed=seed, n_pairs=4)[0], device=device)
+    _, codes = plm._fused_inputs(codes, l, q)
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape, scale):
+        return torch.tensor(rng.normal(scale=scale, size=shape), dtype=torch.float32,
+                            device=device)
+
+    logits = f32(n, q, l, scale=2.0)
+    return dict(logits=logits, picked=plm._picked(logits, plm._pick_mask(codes, q)),
+                u=f32(n, q, l, scale=0.5), dh=f32(l, q, scale=0.3), codes=codes,
+                weights=torch.tensor(rng.uniform(0.05, 1.0, n), dtype=torch.float32,
+                                     device=device))
+
+
+def _trial_term_sizes(p, alpha):
+    """sum |w (lse - pk)| and sum |w (E[u'] - u'_pk)| in float64."""
+    d = {k: v.double() if v.is_floating_point() else v for k, v in p.items()}
+    up = d["u"] + d["dh"].T[None]
+    from pydca_tpu_torch import plm
+
+    mask = plm._pick_mask(d["codes"], up.shape[1])
+    upk = torch.where(mask, up, 0.0).sum(1)
+    t = d["logits"] + alpha * up
+    lse = torch.logsumexp(t, 1)
+    su = (torch.softmax(t, 1) * up).sum(1)
+    w = d["weights"][:, None]
+    return ((w * (lse - d["picked"] - alpha * upk)).abs().sum(),
+            (w * (su - upk)).abs().sum())
+
+
+# the two alphabets' q; past L = 256 a row takes several column blocks (the
+# trial's sums over them, the update's direct path)
+PLM_SHAPES = [(1000, 195, 21), (4097, 195, 21), (1000, 117, 21), (4097, 117, 5),
+              (1000, 195, 5), (4097, 195, 5), (1000, 117, 5), (4097, 117, 21),
+              (1000, 300, 21), (1000, 257, 5), (1000, 513, 21)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("alpha", [0.0, 0.37])
+@pytest.mark.parametrize("n,l,q", PLM_SHAPES)
+def test_plm_trial_kernel_equals_plain(cuda, n, l, q, alpha):
+    p = _plm_problem(n, l, q, seed=n + l + q, device=cuda)
+    args = (p["logits"], p["codes"], p["weights"], p["picked"], p["u"], p["dh"], alpha)
+    before = ck.plm_trial.launches
+    got = ck.plm_trial(*args)
+    assert ck.plm_trial.launches == before + 1
+    want = ck.plm_trial_reference(*args)
+    sizes = torch.stack(_trial_term_sizes(p, alpha)).float()
+    assert bool(((got - want).abs() <= 1e-6 * sizes).all()), (got, want, sizes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("step", ["no_u", "alpha_0", "alpha"])
+@pytest.mark.parametrize("n,l,q", PLM_SHAPES)
+def test_plm_update_grad_kernel_equals_plain(cuda, n, l, q, step):
+    p = _plm_problem(n, l, q, seed=2 * n + l + q, device=cuda)
+    alpha = 0.61 if step == "alpha" else 0.0
+    extra = () if step == "no_u" else (p["u"], p["dh"], alpha)
+    lg, pk = p["logits"].clone(), p["picked"].clone()
+    before = ck.plm_update_grad.launches
+    ct, gh = ck.plm_update_grad(lg, p["codes"], p["weights"], pk, *extra)
+    assert ck.plm_update_grad.launches == before + 1
+    lg_t, pk_t = p["logits"].clone(), p["picked"].clone()
+    ct_t, gh_t = ck.plm_update_grad_reference(lg_t, p["codes"], p["weights"], pk_t, *extra)
+    _assert_ulps(lg, lg_t, lg_t.abs(), k=2)
+    _assert_ulps(pk, pk_t, pk_t.abs(), k=2)
+    if step == "no_u":
+        assert torch.equal(lg, p["logits"]) and torch.equal(pk, p["picked"])
+    # ct = w (p - onehot): ulps of the softmax term and the one it loses
+    _assert_ulps(ct, ct_t, ct_t.abs() + p["weights"][:, None, None], k=10)
+    assert bool(((gh - gh_t).abs() <= 1e-6 * ct_t.abs().sum(0)).all())
+
+
+@pytest.mark.gpu
+def test_plm_passes_repeat_to_the_bit(cuda):
+    p = _plm_problem(16384, 195, 21, seed=5, device=cuda)
+    args = (p["codes"], p["weights"], p["picked"], p["u"], p["dh"])
+    t1 = ck.plm_trial(p["logits"], *args, 0.21)
+    t2 = ck.plm_trial(p["logits"], *args, 0.21)
+    assert torch.equal(t1, t2)
+    runs = []
+    for _ in range(2):
+        lg, pk = p["logits"].clone(), p["picked"].clone()
+        ct, gh = ck.plm_update_grad(lg, p["codes"], p["weights"], pk, p["u"], p["dh"], 0.21)
+        runs.append((lg, pk, ct, gh))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
+def test_plm_passes_refuse_wide_alphabets_on_card(cuda):
+    p = _plm_problem(64, 20, 5, seed=1, device=cuda)
+    for q in (9, 33):
+        other = torch.zeros(64, q, 20, device=cuda)
+        with pytest.raises(ValueError, match="q must be one of"):
+            ck.plm_update_grad(other, p["codes"], p["weights"])
+    with pytest.raises(TypeError, match="uint8"):
+        ck.plm_update_grad(p["logits"], p["codes"].long(), p["weights"])
+
+
+@pytest.mark.gpu
+def test_fused_fit_launches_one_pass_a_trial_and_a_gradient(cuda):
+    """One fused fit on the card: ``plm_trial`` once a line-search trial,
+    ``plm_update_grad`` once for the start and once a step; the fit's
+    objective within 1e-4 of the CPU's (two float32 paths part after some
+    twenty iterations, along directions in which the objective is flat)."""
+    res, (trials, grads), cpu = _card_and_cpu_fits(cuda, 1500, 60, 21, 30, seed=11)
+    assert res.num_iters > 5
+    assert trials == res.n_evals - 1
+    assert grads == res.num_iters + 1
+    assert abs(res.fx - cpu.fx) <= 1e-4 * abs(cpu.fx)
+
+
+@pytest.mark.gpu
+def test_plm_trial_on_two_streams(cuda):
+    """Each stream takes its own ticket: trials on a side stream and on the
+    current one give the same sums."""
+    p = _plm_problem(4097, 195, 21, seed=7, device=cuda)
+    args = (p["logits"], p["codes"], p["weights"], p["picked"], p["u"], p["dh"], 0.4)
+    here = ck.plm_trial(*args)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        there = ck.plm_trial(*args)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    assert torch.equal(here, there)
+    assert ck._plm_ticket(cuda.index or 0, side.cuda_stream) is not ck._plm_ticket(
+        cuda.index or 0, torch.cuda.current_stream(cuda).cuda_stream)
+
+
+def _card_and_cpu_fits(cuda, n, l, q, iters, seed, **kw):
+    from pydca_tpu_torch.plm import fit_plm
+
+    codes = torch.tensor(planted_family(n, l, q, seed=seed, n_pairs=8)[0])
+    w = stats.sequence_weights(codes, 0.8, q)
+    lam = 0.2 * (l - 1)
+    before = (ck.plm_trial.launches, ck.plm_update_grad.launches)
+    res = fit_plm(codes.to(cuda), w.to(cuda), lam, lam, l, q, max_iterations=iters, **kw)
+    launches = (ck.plm_trial.launches - before[0], ck.plm_update_grad.launches - before[1])
+    return res, launches, fit_plm(codes, w, lam, lam, l, q, max_iterations=iters, **kw)
+
+
+@pytest.mark.gpu
+def test_fused_fit_past_one_column_block(cuda):
+    """A fused fit at L = 300 (two column blocks a row: the update's direct
+    path) on the card against the CPU: the launches as at L <= 256, the
+    objective within 1e-4 (as at L = 60)."""
+    res, (trials, grads), cpu = _card_and_cpu_fits(cuda, 800, 300, 21, 20, seed=12)
+    assert res.num_iters > 5
+    assert trials == res.n_evals - 1 and grads == res.num_iters + 1
+    assert abs(res.fx - cpu.fx) <= 1e-4 * abs(cpu.fx)
+
+
+@pytest.mark.gpu
+def test_fused_fit_bf16_products_runs_the_passes(cuda):
+    """``--precision bfloat16``'s fused fit on the card: the logits stay
+    float32 and run through the same two passes (once a trial, once a
+    gradient); its objective within 1e-4 of the CPU's bf16 fit after 10
+    iterations, before two float32 paths part."""
+    res, (trials, grads), cpu = _card_and_cpu_fits(cuda, 1500, 60, 21, 10, seed=13,
+                                                   mm_bf16=True)
+    assert res.num_iters > 5
+    assert trials == res.n_evals - 1 and grads == res.num_iters + 1
+    assert abs(res.fx - cpu.fx) <= 1e-4 * abs(cpu.fx)

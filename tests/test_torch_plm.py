@@ -91,7 +91,7 @@ def trajectories():
     x1h, maskq = jplm._prep_msa_jit(jmsa, L, Q)
     js = jplm._plm_fused_state0(jmsa, jw, jlam, jlam, L, Q, M)
     tmsa, tw = torch.tensor(msa), torch.tensor(w)
-    tx, tm = tplm._prep_msa(tmsa, L, Q)
+    tx, tm = tplm._fused_inputs(tmsa, L, Q)
     ts = tplm._plm_fused_state0(tmsa, tw, lam, lam, L, Q, M)
     jax_states, port_states = [jax.device_get(js)], [_snapshot(ts)]
     for _ in range(5):
@@ -134,7 +134,7 @@ def test_one_step_from_converted_jax_state(trajectories):
         jnp.asarray(t["w"]), jnp.float32(t["lam"]), jnp.float32(t["lam"]),
         L, Q, 1,
     )
-    tx, tm = tplm._prep_msa(torch.tensor(t["msa"]), L, Q)
+    tx, tm = tplm._fused_inputs(torch.tensor(t["msa"]), L, Q)
     tplm._plm_fused_steps(ts, tx, tm, torch.tensor(t["w"]), t["lam"], t["lam"], L, Q, 1)
     assert ts.k == int(j4.k) == 4
     assert ts.n_evals == int(j4.n_evals)

@@ -155,13 +155,13 @@ def test_fused_steps_match_jax(mm_bf16, hist_bf16):
     x1h, maskq = jplm._prep_msa_jit(jm, L, Q)
     js = jplm._plm_fused_state0(jm, jw, jl, jl, L, Q, M, mm_bf16, hist_bf16)
     tm, tw = torch.tensor(msa), torch.tensor(w)
-    tx, tmask = tplm._prep_msa(tm, L, Q, tplm._x_dtype(mm_bf16))
+    tx, tcodes = tplm._fused_inputs(tm, L, Q, tplm._x_dtype(mm_bf16))
     ts = tplm._plm_fused_state0(tm, tw, lam, lam, L, Q, M, mm_bf16=mm_bf16, hist_bf16=hist_bf16)
     assert ts.z.dtype == (torch.bfloat16 if hist_bf16 else torch.float32)
     assert str(js.z[0][0].dtype) == ("bfloat16" if hist_bf16 else "float32")
     for k in range(1, 6):
         js = jplm._plm_fused_steps(js, x1h, maskq, jw, jl, jl, L, Q, 1, mm_bf16)
-        tplm._plm_fused_steps(ts, tx, tmask, tw, lam, lam, L, Q, 1, mm_bf16=mm_bf16)
+        tplm._plm_fused_steps(ts, tx, tcodes, tw, lam, lam, L, Q, 1, mm_bf16=mm_bf16)
         assert ts.k == int(js.k) == k and ts.n_evals == int(js.n_evals)
         np.testing.assert_allclose(float(ts.f), float(js.f), rtol=1e-5)
         theta_j = np.concatenate([np.asarray(js.x[0]), np.asarray(js.x[1])])
@@ -188,8 +188,8 @@ def test_one_step_from_converted_bf16_state():
     assert ts.z.dtype == torch.bfloat16
     np.testing.assert_array_equal(ts.z.float().numpy(), rows_of(js))
     js = jplm._plm_fused_steps(js, x1h, maskq, jw, jl, jl, L, Q, 1)
-    tx, tmask = tplm._prep_msa(torch.tensor(msa), L, Q)
-    tplm._plm_fused_steps(ts, tx, tmask, torch.tensor(w), lam, lam, L, Q, 1)
+    tx, tcodes = tplm._fused_inputs(torch.tensor(msa), L, Q)
+    tplm._plm_fused_steps(ts, tx, tcodes, torch.tensor(w), lam, lam, L, Q, 1)
     assert ts.k == int(js.k) == 4
     np.testing.assert_allclose(float(ts.f), float(js.f), rtol=1e-5)
     assert rel_l2(ts.x.numpy(), np.concatenate([np.asarray(js.x[0]), np.asarray(js.x[1])])) <= 1e-4

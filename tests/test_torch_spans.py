@@ -74,6 +74,8 @@ NESTING = {  # span -> the spans it may open directly under
     "plm/gradient": {"plm/init", "plm/iteration"},
     "plm/history": {"plm/iteration"},
     "plm/mm": {"plm/gradient", "plm/iteration"},
+    "plm_trial": {"plm/trial"},
+    "plm_update_grad": {"plm/gradient"},
     "lbfgs/read": {"plm/init", "plm/direction", "plm/trial", "plm/history"},
     "score": {None},
     "score/sort": {"score"},
@@ -97,7 +99,8 @@ def test_every_span_is_named_in_the_nesting(traced):
 # or two in the direction (two after the steepest-descent fallback), one a
 # trial and one in the history; n_evals counts the start's evaluation and
 # every trial; the products are the start's backward one, then a forward
-# (the direction's image) and a backward (the gradient) a step
+# (the direction's image) and a backward (the gradient) a step; the passes
+# over the logits are one a trial and one a gradient
 COUNTS = {
     "plm/iteration": lambda r: r.num_iters,
     "plm/linesearch": lambda r: r.num_iters,
@@ -107,6 +110,8 @@ COUNTS = {
     "plm/trial": lambda r: r.n_evals - 1,
     "plm/gradient": lambda r: 1 + r.num_iters,
     "plm/mm": lambda r: 1 + 2 * r.num_iters,
+    "plm_trial": lambda r: r.n_evals - 1,
+    "plm_update_grad": lambda r: 1 + r.num_iters,
     "plm/init": lambda r: 1,
     "identity_counts": lambda r: 1,
 }

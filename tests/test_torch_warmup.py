@@ -74,7 +74,7 @@ def test_warmup_on_cpu_prints_the_jax_line(cli, family_file, capsys, built):
     assert built == []  # the CPU builds nothing
 
 
-@pytest.mark.parametrize("cli,want", [("plmdca", ["identity_counts"]),
+@pytest.mark.parametrize("cli,want", [("plmdca", ["identity_counts", "plm_passes"]),
                                       ("mfdca", ["identity_counts", "weighted_gram"])])
 def test_warmup_on_a_card_builds_what_the_run_loads(cli, want, family_file, capsys, built,
                                                     tmp_path, monkeypatch):

@@ -1806,9 +1806,15 @@ def collective_text(collectives, per: int, what: str) -> str:
     """Each collective's count and milliseconds (timed by the mesh) per
     ``what``, with its size, and the seconds of all of them."""
     each = ", ".join(f"{name} {c / per:.2f}x {1e3 * t / per:.2f} ms ({numel / max(c, 1):.3g} "
-                     f"elements)" for name, (c, numel, t) in sorted(collectives.items()))
-    total = sum(t for _, _, t in collectives.values())
+                     f"elements)" for name, (c, numel, t, _) in sorted(collectives.items()))
+    total = sum(rec[2] for rec in collectives.values())
     return f"{each} per {what} (collectives {total:.3f} s in all)"
+
+
+def collective_list(collectives) -> str:
+    """Each collective's calls, elements and seconds in all."""
+    return ", ".join(f"{name} {c}x {numel:.3g} elements {t:.3f} s"
+                     for name, (c, numel, t, _) in sorted(collectives.items()))
 
 
 def phase_mesh_one_rank(dev, tmp, main_fa, inst_main, mf_ref):
@@ -1994,7 +2000,7 @@ def check_cli_ranks(reps, name, out_dir, ref_weights, ref_scores, l):
              f"top-20 {top:.2f} against one process"]
     for rep in reps:
         rec = rep[name]
-        coll_s = sum(t for _, _, t in rec["collectives"].values())
+        coll_s = sum(c[2] for c in rec["collectives"].values())
         if name.startswith("plm"):
             it = max(rec["iters"], 1)
             fit = rec["timers"]["fit"]
@@ -2265,8 +2271,7 @@ def phase_grid_two_ranks(tmp, smi, mf_ref, one_card_peak):
         check(rep["solve_peak"] < one_card_peak,
               f"phase 20 (b) rank {r}: solve peak {rep['solve_peak'] / 2**30:.2f} GiB, not below "
               f"the one-card solve's {one_card_peak / 2**30:.2f} GiB")
-        coll = ", ".join(f"{k} {c}x {e:.3g} elements {t:.3f} s"
-                         for k, (c, e, t) in sorted(rep["collectives"].items()))
+        coll = collective_list(rep["collectives"])
         parts.append(
             f"rank {r} (model rank {rep['model_rank']}, rows {rep['rows'][0]}-{rep['rows'][1]}): "
             f"spearman {rep['spearman']:.4f} top-20 {rep['top20']:.2f} against phase 6, "

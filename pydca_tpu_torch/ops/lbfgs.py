@@ -17,7 +17,9 @@ Port of ``pydca_tpu/ops/lbfgs.py``:
   runs.  The state's D-vectors stay on the device; the history is one
   ``(2m, D)`` tensor whose rows are written in place (S rows 0..m-1, Y rows
   m..2m-1), and every scalar decision is taken on the host in float32 from
-  one counted device-to-host read (``host_syncs``).
+  one counted device-to-host read (``host_syncs``).  Its spans: a step's
+  ``lbfgs/direction`` and ``lbfgs/linesearch``, and ``lbfgs/evaluation``
+  around each call of ``fun`` (``n_evals`` of them a fit).
 - The lock-step loop over F independent lanes (:class:`LBFGSBatch`,
   ``lbfgs_init_batch``, ``lbfgs_steps_batch``), the port of the JAX
   package's ``vmap`` of ``lbfgs_init`` / ``lbfgs_steps``, which the family
@@ -418,7 +420,8 @@ def _wolfe_linesearch(fun, x, f0, g0, direction, dg0, step0, ftol, wolfe,
     def phi(alpha):
         trial[:] = (None, None, None)  # free the last trial unless it is the best
         xnew = torch.add(x, direction, alpha=float(alpha))
-        fnew, gnew = fun(xnew)
+        with span("lbfgs/evaluation"):
+            fnew, gnew = fun(xnew)
         fv, dg = fetch(fnew, torch.dot(gnew, direction))
         trial[:] = (xnew, fv, gnew)
         return fv, dg
@@ -442,7 +445,8 @@ def lbfgs_init(
     """Evaluate ``fun`` at ``x0`` and build the initial state (with the
     convergence check libLBFGS makes before iterating).  ``x0`` becomes the
     state's ``x``; :func:`lbfgs_steps` reuses its buffer."""
-    f0, g0 = fun(x0)
+    with span("lbfgs/evaluation"):
+        f0, g0 = fun(x0)
     st = LBFGSState(
         x=x0, f=_F32(0.0), g=g0,
         z=torch.zeros((2 * m, x0.shape[0]), dtype=x0.dtype, device=x0.device),
@@ -460,16 +464,18 @@ def _lbfgs_step(fun, st: LBFGSState, epsilon, ftol, wolfe, max_linesearch) -> No
     (``pydca_tpu/ops/lbfgs.py:595-657``)."""
     m = st.z.shape[0] // 2
     fetch = functools.partial(fetch_f32, st)
-    d = _two_loop(st.g, st.z, st.rho, st.k, fetch)
-    dg0, dd, gg = fetch(torch.dot(st.g, d), torch.dot(d, d), torch.dot(st.g, st.g))
-    if dg0 >= 0:  # not a descent direction: steepest descent
-        d = st.g.neg()
-        dg0, dd = -gg, gg
+    with span("lbfgs/direction"):
+        d = _two_loop(st.g, st.z, st.rho, st.k, fetch)
+        dg0, dd, gg = fetch(torch.dot(st.g, d), torch.dot(d, d), torch.dot(st.g, st.g))
+        if dg0 >= 0:  # not a descent direction: steepest descent
+            d = st.g.neg()
+            dg0, dd = -gg, gg
     step0 = _F32(1.0) / max(np.sqrt(dd), _F32(1e-30)) if st.k == 0 else _F32(1.0)
 
-    x_new, f_new, g_new, took, rounding, trials = _wolfe_linesearch(
-        fun, st.x, st.f, st.g, d, dg0, step0, ftol, wolfe, max_linesearch, fetch
-    )
+    with span("lbfgs/linesearch"):
+        x_new, f_new, g_new, took, rounding, trials = _wolfe_linesearch(
+            fun, st.x, st.f, st.g, d, dg0, step0, ftol, wolfe, max_linesearch, fetch
+        )
     st.n_evals += trials
     if not took:
         # no step: the iterate, gradient and history stay as they are

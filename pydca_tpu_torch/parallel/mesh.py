@@ -37,6 +37,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device, sync
+from ..profiling import span
 
 logger = logging.getLogger(__name__)
 
@@ -59,10 +60,11 @@ class DataMesh:
     that share this rank's model index); ``model_group``, ``model_rank``
     and ``model_size`` the model group's (the ranks that share its data
     index).  A group of one rank is ``None``: its collectives are the
-    identity.  ``collectives`` counts, per name, the calls, elements and
-    (when ``timed``) seconds of every collective the run made; ``timed``
-    synchronises the device around each one so its time is the
-    collective's alone.
+    identity.  ``collectives`` counts, per name, ``[calls, elements,
+    seconds, bytes]`` of every collective the run made (the seconds only
+    when ``timed``, which synchronises the device around each one so its
+    time is the collective's alone).  Each collective is the span
+    ``pydca/mesh/<name>`` (:func:`~pydca_tpu_torch.profiling.span`).
     """
 
     group: Optional[object]
@@ -87,33 +89,38 @@ class DataMesh:
             return self.model_group, self.model_size
         raise ValueError(f"unknown mesh axis {axis!r}; use 'data' or 'model'")
 
-    def _record(self, name: str, numel: int, seconds: float) -> None:
-        rec = self.collectives.setdefault(name, [0, 0, 0.0])
+    def _record(self, name: str, numel: int, nbytes: int, seconds: float) -> None:
+        rec = self.collectives.setdefault(name, [0, 0, 0.0, 0])
         rec[0] += 1
         rec[1] += numel
         rec[2] += seconds
+        rec[3] += nbytes
 
-    def _run(self, name: str, numel: int, fn) -> None:
-        """Run the collective ``fn`` over the group and count it."""
+    def _run(self, name: str, t: torch.Tensor, fn, copies: int = 1) -> None:
+        """Run the collective ``fn`` over the group, as the span
+        ``mesh/<name>``, and count it: ``copies`` times ``t``'s elements."""
         if self.timed:
             sync(self.device)
         t0 = time.perf_counter()
-        fn()
+        with span("mesh/" + name):
+            fn()
         if self.timed:
             sync(self.device)
-        self._record(name, numel, time.perf_counter() - t0 if self.timed else 0.0)
+        numel = t.numel() * copies
+        self._record(name, numel, numel * t.element_size(),
+                     time.perf_counter() - t0 if self.timed else 0.0)
 
     def sum_(self, t: torch.Tensor, name: str, axis: str = "data") -> torch.Tensor:
         """Sum ``t`` over the axis's ranks, in place; returns ``t``."""
         group, _ = self._group(axis)
         if group is not None:
-            self._run(name, t.numel(), lambda: dist.all_reduce(t, group=group))
+            self._run(name, t, lambda: dist.all_reduce(t, group=group))
         return t
 
     def max_(self, t: torch.Tensor, name: str) -> torch.Tensor:
         """Elementwise maximum of ``t`` over the data ranks, in place."""
         if self.group is not None:
-            self._run(name, t.numel(), lambda: dist.all_reduce(
+            self._run(name, t, lambda: dist.all_reduce(
                 t, op=dist.ReduceOp.MAX, group=self.group))
         return t
 
@@ -125,7 +132,7 @@ class DataMesh:
             return t
         parts = [torch.empty_like(t) for _ in range(size)]
         src = t.contiguous()
-        self._run(name, t.numel() * size, lambda: dist.all_gather(parts, src, group=group))
+        self._run(name, t, lambda: dist.all_gather(parts, src, group=group), size)
         return torch.cat(parts)
 
     def broadcast_(self, t: torch.Tensor, src: int, name: str) -> torch.Tensor:
@@ -134,7 +141,7 @@ class DataMesh:
         group = self.model_group
         if group is not None:
             root = dist.get_global_rank(group, src)
-            self._run(name, t.numel(), lambda: dist.broadcast(t, src=root, group=group))
+            self._run(name, t, lambda: dist.broadcast(t, src=root, group=group))
         return t
 
     def reduce_scatter_rows(self, t: torch.Tensor, name: str) -> torch.Tensor:
@@ -146,7 +153,7 @@ class DataMesh:
         out = torch.empty((t.shape[0] // self.model_size,) + tuple(t.shape[1:]),
                           dtype=t.dtype, device=t.device)
         src = t.contiguous()
-        self._run(name, t.numel(), lambda: _reduce_scatter(out, src, self.model_group))
+        self._run(name, t, lambda: _reduce_scatter(out, src, self.model_group))
         return out
 
     def all_to_all_rows(self, t: torch.Tensor, name: str) -> torch.Tensor:
@@ -157,8 +164,7 @@ class DataMesh:
             return t
         src = t.contiguous()
         out = torch.empty_like(src)
-        self._run(name, t.numel(),
-                  lambda: dist.all_to_all_single(out, src, group=self.model_group))
+        self._run(name, t, lambda: dist.all_to_all_single(out, src, group=self.model_group))
         return out
 
     def barrier(self) -> None:

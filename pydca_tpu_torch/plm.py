@@ -366,10 +366,12 @@ def init_params(msa, weights, l: int, q: int, block: Optional[int] = None,
 
 def _blocks(msa, weights, block: int, l: int, q: int, dtype):
     """``(x, maskq, weights)`` of each block of ``block`` sequences, built
-    as it is reached; the last block may be short."""
+    as it is reached; the last block may be short.  Each block is the span
+    ``plm/block``, from its one-hot to the caller's request for the next."""
     for start in range(0, msa.shape[0], block):
-        x, maskq = _prep_msa(msa[start : start + block], l, q, dtype)
-        yield x, maskq, weights[start : start + block]
+        with span("plm/block"):
+            x, maskq = _prep_msa(msa[start : start + block], l, q, dtype)
+            yield x, maskq, weights[start : start + block]
 
 
 def _data_term(h, w, batches, l: int, q: int, mm_bf16: bool = False, gw=None):

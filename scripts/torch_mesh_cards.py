@@ -218,7 +218,8 @@ def model_case(name, shape, dev, rank, world, meshes):
                         / cpl.abs().max())
             recs.append(dict(
                 case=name, shape=[n, l, q], grid=[nd, nm], one_card=one, ranks=every,
-                collectives={k: [c, e, round(t, 4)] for k, (c, e, t) in mesh.collectives.items()},
+                collectives={k: [c, e, round(t, 4), b]
+                             for k, (c, e, t, b) in mesh.collectives.items()},
                 spearman=round(spearman(scores, got, l), 6), top20=top_k_overlap(scores, got, 20),
                 couplings_rows_rel_err=err))
         del fn, apc, rows
@@ -333,7 +334,8 @@ def main() -> int:
         n, l = shape[0], shape[1]
         rec = dict(case=name, shape=shape[:3], ranks=world, one_card_wall=round(wall1, 4),
                    sharded_wall=round(wallk, 4), one_card=t1, sharded=tk,
-                   collectives={k: [c, e, round(s, 4)] for k, (c, e, s) in mesh.collectives.items()},
+                   collectives={k: [c, e, round(s, 4), b]
+                                for k, (c, e, s, b) in mesh.collectives.items()},
                    weights_equal=bool(torch.equal(w1, wk)),
                    spearman=round(spearman(s1, sk, l), 6), top20=top_k_overlap(s1, sk, 20))
         if name == "mf":

@@ -12,7 +12,7 @@ over one rank per card with the sequences sharded
 (:mod:`pydca_tpu_torch.parallel.spawn`).  With ``--refseq_file`` (scores
 and parameters mapped onto a reference sequence, its template search on
 the same device), ``--seq_block`` (the streamed loss; past 1 GiB of
-logits the engine streams by itself), ``--checkpoint`` (resume and
+logits a card the engine streams by itself), ``--checkpoint`` (resume and
 bounded retry), ``--precision bfloat16`` (bfloat16 operands for the
 logits products) and ``--param_space w2`` (L-BFGS over the full symmetric
 coupling matrix); ``compute_fn_batch`` over many families on one device,

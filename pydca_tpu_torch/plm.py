@@ -90,6 +90,7 @@ __all__ = [
     "PlmDCAException",
     "PlmFusedState",
     "fit_plm",
+    "fit_seq_block",
     "fused_state_from_numpy",
     "init_params",
     "lbfgs_state_from_numpy",
@@ -118,6 +119,18 @@ def streaming_block(n: int, l: int, q: int) -> Optional[int]:
     if 4 * n * l * q <= STREAMING_LOGITS_BYTES:
         return None
     return max(1024, int(STREAMING_LOGITS_BYTES / (4 * l * q)))
+
+
+def fit_seq_block(n: int, l: int, q: int, mesh=None) -> Optional[int]:
+    """The sequence block the engine's fit of an N-row alignment streams
+    with by itself: :func:`streaming_block` of the rows one card holds.
+    That is N on one device, and under a mesh the stripe
+    ``ceil(N / data axis)`` (pads included), the same on every rank, so
+    the ranks take one route and their collectives match."""
+    if mesh is not None:
+        _, start, stop = mesh.stripe_rows(n)
+        n = stop - start
+    return streaming_block(n, l, q)
 
 
 class PlmDCAException(Exception):
@@ -1272,6 +1285,10 @@ def fit_plm(
     else:
         state = _plm_lbfgs_state0(msa, weights, lambda_h, lambda_j, l, q, m, block, mesh,
                                   mm_bf16, w2space)
+    logger.info("plmDCA fit on %d rows a card: %s", msa.shape[0],
+                "fused loop" if use_fused else
+                f"generic loop, {'w2' if w2space else 'compact'} space" +
+                (f", streamed over blocks of {block}" if chunked else ""))
     opts = {}  # the options that are set, as keywords: the one-device f32 call is unchanged
     if mesh is not None:
         opts["mesh"] = mesh
@@ -1335,7 +1352,9 @@ class PlmDCA:
     ``device``: ``"cuda"`` or ``"cpu"`` (explicit; no fallback).
     ``seq_block``: fit with the loss streamed over blocks of this many
     sequences; ``None`` streams by itself past ``STREAMING_LOGITS_BYTES``
-    of logits (:func:`streaming_block`), as the JAX engine does.
+    of logits on the rows one card holds (:func:`fit_seq_block`: N on one
+    device, as the JAX engine does; a rank's stripe under a mesh), while
+    the whole-alignment statistics decide on N (:func:`streaming_block`).
     ``checkpoint_path``: save the optimizer state there and resume from it
     (:func:`fit_plm`), on either fit route.
     ``precision``: ``None``/``"auto"``/``"float32"`` or ``"bfloat16"``, the
@@ -1388,10 +1407,14 @@ class PlmDCA:
             raise PlmDCAException("lambda_h and lambda_J must be non-negative")
         self.__max_iterations = 100 if max_iterations is None else int(max_iterations)
         if seq_block is None:
-            seq_block = streaming_block(self.msa.num_seqs, l, self.msa.q)
+            # the whole-alignment statistics on this device stream on the
+            # global N; the fit on the rows one card holds
+            self.__seq_block = streaming_block(self.msa.num_seqs, l, self.msa.q)
+            self.__fit_block = fit_seq_block(self.msa.num_seqs, l, self.msa.q, self.mesh)
         elif int(seq_block) < 1:
             raise PlmDCAException(f"invalid seq_block {seq_block}; must be >= 1")
-        self.__seq_block = None if seq_block is None else int(seq_block)
+        else:
+            self.__seq_block = self.__fit_block = int(seq_block)
         self.__mm_bf16 = resolve_precision(precision)
         if param_space not in ("auto", "w2", "compact"):
             raise PlmDCAException(
@@ -1458,9 +1481,17 @@ class PlmDCA:
 
     @property
     def seq_block(self) -> Optional[int]:
-        """Sequences per block of the streamed loss; ``None`` on the fused
-        full-batch route."""
+        """Sequences per block of the whole-alignment statistics on this
+        device (``fi``), decided on the global N; ``None``: in one pass.
+        On one device the fit takes the same block (:attr:`fit_block`)."""
         return self.__seq_block
+
+    @property
+    def fit_block(self) -> Optional[int]:
+        """Sequences per block of the fit's streamed loss on this card,
+        decided on the rows the card holds (:func:`fit_seq_block`);
+        ``None``: the card's rows whole, the fused loop in compact space."""
+        return self.__fit_block
 
     # -------------------------------------------------------------- pipeline
     def _msa_tensor(self) -> torch.Tensor:
@@ -1500,7 +1531,7 @@ class PlmDCA:
                 max_iterations=self.__max_iterations,
                 progress_fn=_progress if self.__verbose else None,
                 checkpoint_path=self.__checkpoint_path,
-                seq_block=self.__seq_block,
+                seq_block=self.__fit_block,
                 mm_bf16=self.__mm_bf16,
                 param_space=self.__param_space,
             )

@@ -10,7 +10,12 @@ a warm-up job, then one job untraced and the same job under
 data mesh over the ranks).  For each rank, in rank order, it prints the
 idle seconds by program span (``dcabench.program_spans.idle_line``) on
 standard error and one JSON line on standard output: the rank, the fit's
-counts, the job's wall traced and not, the collectives ``DataMesh``
+route (``fit_block``, the engine's block on this card by
+``plm.fit_seq_block``, ``None`` for the fused loop, and ``route``, read
+from the traced job's spans: ``fused`` where ``plm/iteration`` ran,
+``streamed`` where ``plm/block`` did), the fit's counts, the job's wall
+traced and not, the untraced job's peak device memory above what the
+rank held at its start (``peak_bytes``), the collectives ``DataMesh``
 counted (``[calls, elements, seconds, bytes]`` a name), the NCCL kernels'
 device seconds, in all and launched under a ``pydca/mesh/*`` span, and the
 span table (``dcabench.program_spans.table`` over
@@ -77,6 +82,8 @@ def trace_rank(rank: int, world: int, args, port: int) -> dict:
     import torch
     import torch.distributed as dist
 
+    from pydca_tpu_torch.parallel.mesh import make_mesh
+    from pydca_tpu_torch.plm import fit_seq_block
     from pydca_tpu_torch.runtime import enable_compilation_cache
 
     torch.set_num_threads(1)
@@ -110,8 +117,14 @@ def trace_rank(rank: int, world: int, args, port: int) -> dict:
             rec, _ = job(1)
         spans, ops = program_spans.records(prof)
         rows = program_spans.table(spans, ops)
-        return {"rank": rank, "workload": cell.name, "seed": args.seed, "fit": rec.fit,
+        n, l = pool[1 % len(pool)].shape
+        block = fit_seq_block(n, l, cell.config["q"], make_mesh(device=dev))
+        route = ("fused" if program_spans.PREFIX + "plm/iteration" in rows else
+                 "streamed" if program_spans.PREFIX + "plm/block" in rows else "none")
+        return {"rank": rank, "workload": cell.name, "seed": args.seed, "fit_block": block,
+                "route": route, "fit": rec.fit,
                 "wall_s": rec.wall, "untraced_wall_s": plain.wall,
+                "peak_bytes": plain.peak_bytes,
                 "collectives": rec.collectives, "nccl_kernels": nccl_kernels(prof, spans),
                 "idle_line": program_spans.idle_line(rows), "program": rows}
     finally:

@@ -1,13 +1,18 @@
-"""The port's sharded streamed plmDCA route on two gloo ranks, against the
-benchmark's plain float64 reference (``dcabench/reference``), and its spans.
+"""The port's two sharded plmDCA routes on two gloo ranks, against the
+benchmark's plain float64 reference (``dcabench/reference``), and their
+spans.
 
-This is the route ``plmdca compute_fn --apc --mesh auto`` takes for a deep
-family: ``PlmDCA`` decides to stream on the global N, and each rank's stripe
-of the rows is one block of the streamed objective under the generic L-BFGS
-loop, with the loss and its gradient summed over the ranks once an
-evaluation.  Here ``STREAMING_LOGITS_BYTES`` is lowered in the workers so
-that a 512 x 12 family (q 21) streams by itself with one block a rank, as
-100000 x 195 does on four cards.
+``plmdca compute_fn --apc --mesh auto`` decides on the rows a rank holds
+whether its fit streams (``plm.fit_seq_block``).  A family deeper than K x
+65,552 rows on K ranks streams: each rank's stripe is one block (or more)
+of the streamed objective under the generic L-BFGS loop, with the loss and
+its gradient summed over the ranks once an evaluation.  A family whose
+global N passes the bound while a stripe does not, as 100000 x 195 on four
+cards, takes the fused loop on each stripe, with each trial's two sums and
+each gradient summed over the ranks.  Here ``STREAMING_LOGITS_BYTES`` is
+lowered in the workers: to one row's logits under a stripe, so that a
+512 x 12 family (q 21) streams by itself with one block a rank, and to a
+stripe's logits, so that the global N streams and the stripe does not.
 
 The module spawns itself as the worker (``python test_torch_mesh_stream.py
 worker <rank> <world> <store> <indir> <outdir>``), as
@@ -28,6 +33,7 @@ import torch
 # (above the test imports: a worker process imports torch and the port only)
 TIMEOUT_S = 120  # each spawn's communicate(); the group's collectives time out at 60 s
 N, L, Q, ITERS = 512, 12, 21, 5
+STRIPE_BYTES = 4 * (N // 2) * L * Q  # a rank's logits, float32
 LAM = 0.2 * (L - 1)
 SMALL_BLOCK = 100  # three blocks of a rank's 256 rows, for the block span's count
 PREFIX = "pydca/"
@@ -80,23 +86,24 @@ def _worker(rank: int, world: int, store: str, indir: str, outdir: str) -> None:
                      timeout=timedelta(seconds=60))
     mesh = make_mesh(device="cpu")
     codes = np.load(os.path.join(indir, "inputs.npz"))["codes"]
-    # streams on the global N (4 N L q bytes of logits over the bound), and
-    # the block, at least 1024 rows, holds a rank's stripe whole
-    tplm.STREAMING_LOGITS_BYTES = 4 * (N // 2) * L * Q
     out = {}
 
-    def run(tag, **kw):
+    def run(tag, bound, **kw):
+        # the rows a rank holds stream past ``bound`` bytes of logits; the
+        # block, at least 1024 rows, holds a rank's stripe whole
+        tplm.STREAMING_LOGITS_BYTES = bound
         eng, w, ranked, res, spans, coll = _job(codes, mesh, **kw)
         stripe, w_s, _ = shard_msa(mesh, codes, w)
         theta = res.x
         f, g = tplm.plm_loss_and_grad_chunked(theta, stripe, w_s, LAM, LAM, L, Q,
-                                              eng.seq_block, mesh=mesh)
+                                              eng.fit_block or N // 2, mesh=mesh)
         out.update({
             f"{tag}_theta": theta.numpy(), f"{tag}_weights": w.numpy(),
             f"{tag}_pairs": np.array([p for p, _ in ranked]),
             f"{tag}_scores": np.array([s for _, s in ranked]),
             f"{tag}_counts": np.array([res.num_iters, res.n_evals, res.host_syncs]),
             f"{tag}_seq_block": eng.seq_block,
+            f"{tag}_fit_block": -1 if eng.fit_block is None else eng.fit_block,
             f"{tag}_f": f.item(), f"{tag}_g": g.numpy(),
             f"{tag}_span_names": np.array([s[0] for s in spans]),
             f"{tag}_span_parents": np.array([s[1] for s in spans]),
@@ -104,11 +111,14 @@ def _worker(rank: int, world: int, store: str, indir: str, outdir: str) -> None:
             f"{tag}_coll": np.array([coll[k] for k in sorted(coll)]),
         })
 
-    run("sound")
-    run("blocks", seq_block=SMALL_BLOCK)
+    streams = STRIPE_BYTES - 4 * L * Q  # one row's logits under a stripe
+    run("sound", streams)
+    run("blocks", streams, seq_block=SMALL_BLOCK)
+    run("fused", STRIPE_BYTES)
     mm = tplm._mm
     tplm._mm = lambda a, b, mm_bf16, out=None: mm(_tf32(a), _tf32(b), mm_bf16, out)
-    run("tf32")
+    run("tf32", streams)
+    run("fused_tf32", STRIPE_BYTES)
     tplm._mm = mm
     np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
     dist.destroy_process_group()
@@ -220,14 +230,29 @@ LIMITS = {"loss": LOSS_RTOL, "grad": GRAD_RTOL, "objective_gap": OBJECTIVE_GAP,
 
 def test_engine_streams_with_one_block_a_rank(ranks):
     r = ranks[0]
-    assert int(r["sound_seq_block"]) >= N // 2  # a rank's 256 rows in one block
+    assert int(r["sound_fit_block"]) >= N // 2  # a rank's 256 rows in one block
+    assert int(r["sound_seq_block"]) == int(r["sound_fit_block"])
     assert int(r["sound_counts"][0]) == ITERS
-    assert int(r["blocks_seq_block"]) == SMALL_BLOCK
+    assert int(r["blocks_seq_block"]) == int(r["blocks_fit_block"]) == SMALL_BLOCK
+
+
+def test_engine_fuses_a_stripe_under_the_bound(ranks):
+    """The global N streams (the whole-alignment statistics' block), each
+    rank's stripe does not: the fit takes the fused loop."""
+    for r in ranks:
+        assert int(r["fused_fit_block"]) == -1
+        assert int(r["fused_seq_block"]) >= N // 2
+        assert int(r["fused_counts"][0]) == ITERS
 
 
 @pytest.mark.parametrize("name", sorted(LIMITS))
 def test_sound_route_against_the_reference(ranks, reference, name):
     assert _readings(ranks[0], "sound", reference)[name] <= LIMITS[name]
+
+
+@pytest.mark.parametrize("name", sorted(LIMITS))
+def test_fused_route_against_the_reference(ranks, reference, name):
+    assert _readings(ranks[0], "fused", reference)[name] <= LIMITS[name]
 
 
 def test_weights_equal_the_reference_exactly(ranks, reference):
@@ -248,7 +273,12 @@ def test_tf32_products_fail_a_tolerance(ranks, reference):
     assert any(got[k] > LIMITS[k] for k in LIMITS), got
 
 
-@pytest.mark.parametrize("tag", ["sound", "blocks", "tf32"])
+def test_fused_tf32_products_fail_a_tolerance(ranks, reference):
+    got = _readings(ranks[0], "fused_tf32", reference)
+    assert any(got[k] > LIMITS[k] for k in LIMITS), got
+
+
+@pytest.mark.parametrize("tag", ["sound", "blocks", "tf32", "fused", "fused_tf32"])
 def test_ranks_bitwise_equal(ranks, tag):
     a, b = ranks
     for key in ("theta", "weights", "pairs", "scores", "counts", "f", "g"):
@@ -260,7 +290,7 @@ def _spans(r, tag):
     return list(zip(r[f"{tag}_span_names"].tolist(), r[f"{tag}_span_parents"].tolist()))
 
 
-@pytest.mark.parametrize("tag", ["sound", "blocks"])
+@pytest.mark.parametrize("tag", ["sound", "blocks", "fused"])
 def test_one_mesh_span_a_collective(ranks, tag):
     for r in ranks:
         calls = Counter(n for n, _ in _spans(r, tag) if n.startswith("mesh/"))
@@ -322,6 +352,20 @@ STREAM_NESTING = {  # the generic loop's spans -> the spans they open directly u
 def test_stream_span_nesting(ranks, name):
     parents = {p for n, p in _spans(ranks[0], "sound") if n == name}
     assert parents and parents <= STREAM_NESTING[name], (name, parents)
+
+
+def test_fused_route_on_the_stripes(ranks):
+    """Each rank runs the fused loop: ``plm/iteration`` and no streamed
+    block; one sum of the loss a line-search trial (and the first), one of
+    the gradient a step (and the first)."""
+    for r in ranks:
+        iters, evals, _ = (int(v) for v in r["fused_counts"])
+        calls = Counter(n for n, _ in _spans(r, "fused"))
+        assert calls["plm/iteration"] >= iters and calls["plm/init"] == 1
+        assert not {n for n in calls if n.startswith(("plm/block", "lbfgs/evaluation",
+                                                      "lbfgs/direction", "lbfgs/linesearch"))}
+        assert calls["mesh/nll_allreduce"] == evals
+        assert calls["mesh/grad_allreduce"] == iters + 1
 
 
 def test_stream_route_opens_none_of_the_fused_spans(ranks):

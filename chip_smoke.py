@@ -61,8 +61,7 @@ Builds the port's CUDA kernels from ``pydca_tpu_torch/csrc`` with nvcc
   the deep streamed fit of phase 12 over the same two ranks (c); on a
   machine with two cards or more, (b) under NCCL on two cards (d)
   (phase 16); (b)'s ranks also run ``plmdca`` with ``--precision
-  bfloat16`` and with ``--param_space w2``, each held to its one-process
-  run of phase 19 at the rank bar.  The ranks are worker processes of
+  bfloat16``, held to its one-process run of phase 19 at the rank bar.  The ranks are worker processes of
   this script (``chip_smoke.py --phase16-worker <spec> <rank>``) that
   meet at a ``FileStore`` in the temporary directory.  Phase 16 (e) runs (b)'s
   ``plmdca`` argv through ``spawn_cli``, the CLIs' own launch of one rank
@@ -76,17 +75,16 @@ Builds the port's CUDA kernels from ``pydca_tpu_torch/csrc`` with nvcc
   phase's byte for byte (phase 17); ``read_msa`` through the native codec
   against its Python path on phase 3's file and on phase 12's codes as a
   10^5 x 1000 FASTA, arrays and ids equal (phase 18);
-- bfloat16 products and the w2 space (run after phase 15, before phase 16,
-  which holds its two-rank runs to these): ``plmdca compute_fn --apc
-  --precision bfloat16`` on phase 3's file against phase 3's float32 file
-  at the rank bar, with ms per iteration, host syncs, peak memory and both
-  logits products in float32 and bfloat16 at phase 3's theta (CUDA
-  events; their kernels under ``torch.profiler``) (a); ``--param_space w2`` on the same file, with its
-  evaluations, s per evaluation, peak memory and optimizer bytes against
-  ``W2SPACE_MAX_BYTES`` (b); ``PlmDCA(precision="bfloat16")`` streamed on
-  phase 12's codes for two iterations beside phase 12's float32 s per
-  evaluation (c); one bfloat16 and one w2 evaluation on the card against
-  the port's CPU route at the CPU tests' tolerances (d) (phase 19);
+- bfloat16 products (run after phase 15, before phase 16, which holds
+  its two-rank run to (a)): ``plmdca compute_fn --apc --precision
+  bfloat16`` on phase 3's file against phase 3's float32 file at the rank
+  bar, with ms per iteration, host syncs, peak memory and both logits
+  products in float32 and bfloat16 at phase 3's theta (CUDA events; their
+  kernels under ``torch.profiler``) (a); ``PlmDCA(precision="bfloat16")``
+  streamed on phase 12's codes for two iterations beside phase 12's
+  float32 s per evaluation (c); one bfloat16 evaluation on the card
+  against the port's CPU route at the CPU tests' tolerances (d) (phase
+  19);
 - the model-sharded mean-field solve: ``cholesky_blocked``,
   ``tri_inv_lower`` and ``spd_inverse(chol_block=2048)`` on phase 6's C
   (D = 20000) in one process against ``cholesky_ex``, ``solve_triangular``
@@ -1618,9 +1616,8 @@ def phase_eval(tmp, rf, dca_file, ref, planted, smi):
 
 
 # ------------------------------------------------------------- phase 19
-# the CPU tests' tolerances (tests/test_torch_plm_bf16.py, tests/test_torch_plm_w2.py)
+# the CPU tests' tolerances (tests/test_torch_plm_bf16.py)
 BF16_LOSS_RTOL, BF16_GRAD_REL_L2 = 1e-5, 1e-4
-W2_LOSS_RTOL, W2_GRAD_MAX_REL = 1e-6, 1e-6
 CARD_VS_CPU_ROWS = 512  # phase 3's first rows for (d): the CPU evaluates at the real width
 
 
@@ -1708,27 +1705,6 @@ def phase_bf16_cli(tmp, smi, main_fa, inst_main, scores_main):
     return scores
 
 
-def phase_w2_cli(tmp, smi, main_fa, inst_main, scores_main):
-    """(b) ``plmdca compute_fn --apc --param_space w2`` on phase 3's file."""
-    l, q = inst_main.sequences_len, inst_main.num_site_states
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    inst, (_, scores) = run_cli("protein", main_fa, os.path.join(tmp, "p19b"), "cuda",
-                                ["--param_space", "w2"])
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    bar = rank_bar(scores, scores_main, l, "phase 19 (b) w2 against phase 3")
-    res, fit_s = inst.fit_result, inst.timers.elapsed("fit")
-    vec = 4 * (l * q + (l * q) ** 2)
-    vectors = vec * (2 * 5 + 4)
-    check(plm._resolve_param_space("w2", l, q, 5, False), "(b): w2 resolves to compact here")
-    print(f"phase 19 (b) [{smi}] plmdca compute_fn --apc --param_space w2 N={inst.num_sequences} "
-          f"L={l} q={q}: FN-APC against phase 3's float32 file {bar}; {fit_text(res, fit_s)}; "
-          f"peak memory {peak:.2f} GiB; a vector {vec / 2**20:.1f} MiB, the optimizer's 2m + 4 "
-          f"= 14 vectors {vectors / 2**30:.3f} GiB against W2SPACE_MAX_BYTES "
-          f"{plm.W2SPACE_MAX_BYTES / 2**30:.0f} GiB", flush=True)
-    return scores
-
-
 def phase_bf16_deep(dev, smi, deep_codes, deep_s_eval):
     """(c) ``PlmDCA(precision="bfloat16")`` streamed at 10^5 x 1000, q 21
     (phase 12's codes), two iterations, and one evaluation under
@@ -1756,38 +1732,29 @@ def phase_bf16_deep(dev, smi, deep_codes, deep_s_eval):
 
 
 def phase_card_vs_cpu(smi, inst_main):
-    """(d) one bfloat16 evaluation and one w2 evaluation on the card
-    against the port's CPU route, at phase 3's fitted theta on its first
-    CARD_VS_CPU_ROWS rows, with the CPU tests' tolerances."""
+    """(d) one bfloat16 evaluation on the card against the port's CPU
+    route, at phase 3's fitted theta on its first CARD_VS_CPU_ROWS rows,
+    with the CPU tests' tolerances."""
     l, q = inst_main.sequences_len, inst_main.num_site_states
     lam_h, lam_j = inst_main.lambda_h, inst_main.lambda_J
     theta = inst_main.fit_result.x
     codes = torch.from_numpy(inst_main.msa.data[:CARD_VS_CPU_ROWS])
     weights = inst_main.compute_seqs_weight()[:CARD_VS_CPU_ROWS].cpu()
-    z = plm.theta_to_z(theta, l, q)
     got = {}
     for dev_name in ("cuda", "cpu"):
         d = torch.device(dev_name)
-        c, w = codes.to(d), weights.to(d)
-        bf = plm.plm_loss_and_grad_chunked(theta.to(d), c, w, lam_h, lam_j, l, q,
-                                           CARD_VS_CPU_ROWS, mm_bf16=True)
-        x, maskq = plm._prep_msa(c, l, q)
-        w2 = plm._plm_loss_and_grad_w2_prepped(z.to(d), x, maskq, w, lam_h, lam_j, l, q)
-        got[dev_name] = [(float(f), g.cpu().double()) for f, g in (bf, w2)]
-    (bf_card, w2_card), (bf_cpu, w2_cpu) = got["cuda"], got["cpu"]
+        f, g = plm.plm_loss_and_grad_chunked(theta.to(d), codes.to(d), weights.to(d), lam_h,
+                                             lam_j, l, q, CARD_VS_CPU_ROWS, mm_bf16=True)
+        got[dev_name] = (float(f), g.cpu().double())
+    bf_card, bf_cpu = got["cuda"], got["cpu"]
     bf_loss = abs(bf_card[0] - bf_cpu[0]) / abs(bf_cpu[0])
     bf_grad = float((bf_card[1] - bf_cpu[1]).norm() / bf_cpu[1].norm())
-    w2_loss = abs(w2_card[0] - w2_cpu[0]) / abs(w2_cpu[0])
-    w2_grad = float((w2_card[1] - w2_cpu[1]).abs().max() / w2_cpu[1].abs().max())
     check(bf_loss <= BF16_LOSS_RTOL and bf_grad <= BF16_GRAD_REL_L2,
           f"(d) bfloat16 card vs CPU: loss {bf_loss:.3e}, gradient relative L2 {bf_grad:.3e}")
-    check(w2_loss <= W2_LOSS_RTOL and w2_grad <= W2_GRAD_MAX_REL,
-          f"(d) w2 card vs CPU: loss {w2_loss:.3e}, gradient {w2_grad:.3e} of its largest")
     print(f"phase 19 (d) [{smi}] card against the CPU route at phase 3's theta, N="
           f"{CARD_VS_CPU_ROWS} L={l} q={q}: bfloat16 evaluation loss relative {bf_loss:.3e} "
-          f"(<= {BF16_LOSS_RTOL:g}), gradient relative L2 {bf_grad:.3e} (<= {BF16_GRAD_REL_L2:g}); "
-          f"w2 evaluation loss relative {w2_loss:.3e} (<= {W2_LOSS_RTOL:g}), gradient "
-          f"{w2_grad:.3e} of its largest entry (<= {W2_GRAD_MAX_REL:g})", flush=True)
+          f"(<= {BF16_LOSS_RTOL:g}), gradient relative L2 {bf_grad:.3e} (<= {BF16_GRAD_REL_L2:g})",
+          flush=True)
 
 
 # ------------------------------------------------------------- phase 16
@@ -2020,14 +1987,14 @@ def check_cli_ranks(reps, name, out_dir, ref_weights, ref_scores, l):
     return "; ".join(parts)
 
 
-FLAG_CASES = [("plm_bf16", ["--precision", "bfloat16"]), ("plm_w2", ["--param_space", "w2"])]
+FLAG_CASES = [("plm_bf16", ["--precision", "bfloat16"])]
 
 
 def phase_mesh_two_ranks(tmp, smi, main_fa, main_scores, inst_main, mf_ref, deep_block,
                          flag_scores):
     """(b) two ranks on card 0 under gloo through both CLIs, and the plm
-    CLI with ``--precision bfloat16`` and with ``--param_space w2``, each
-    against its one-process run of phase 19 (``flag_scores``), (c) the
+    CLI with ``--precision bfloat16`` against its one-process run of
+    phase 19 (``flag_scores``), (c) the
     deep streamed fit on the same ranks, (d) on two cards under NCCL when
     the machine has them.  Returns the launches of (b)-(d) and (b)'s
     ranks' plm CLI walls."""
@@ -2685,19 +2652,16 @@ def main() -> int:
         phase_eval(tmp, rf, dca_file, ref, planted, smi)
         clock.lap("15")
 
-        # ---- phase 19: bfloat16 products, the w2 space (before phase 16,
-        # whose two-rank flag cases it gives their one-process runs)
+        # ---- phase 19: bfloat16 products (before phase 16, whose two-rank
+        # flag case it gives its one-process run)
         reset_launches()
-        flag_scores = {
-            "plm_bf16": phase_bf16_cli(tmp, smi, main_fa, inst_main, scores_main),
-            "plm_w2": phase_w2_cli(tmp, smi, main_fa, inst_main, scores_main),
-        }
+        flag_scores = {"plm_bf16": phase_bf16_cli(tmp, smi, main_fa, inst_main, scores_main)}
         phase_bf16_deep(dev, smi, deep_codes, deep_s_eval)
         del deep_codes
         phase_card_vs_cpu(smi, inst_main)
         p19_ident = ck.identity_counts.launches
-        check(p19_ident == 3, f"phase 19 launched identity_counts {p19_ident} times, expected 3 "
-              "(one a plm run: (a), (b), (c))")
+        check(p19_ident == 2, f"phase 19 launched identity_counts {p19_ident} times, expected 2 "
+              "(one a plm run: (a), (c))")
         print(f"phase 19 kernel launches {{'identity_counts': {p19_ident}}}", flush=True)
         clock.lap("19")
 

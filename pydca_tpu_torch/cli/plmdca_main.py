@@ -14,8 +14,8 @@ and parameters mapped onto a reference sequence, its template search on
 the same device), ``--seq_block`` (the streamed loss; past 1 GiB of
 logits a card the engine streams by itself), ``--checkpoint`` (resume and
 bounded retry), ``--precision bfloat16`` (bfloat16 operands for the
-logits products) and ``--param_space w2`` (L-BFGS over the full symmetric
-coupling matrix); ``compute_fn_batch`` over many families on one device,
+logits products) and ``--param_space`` (taken for the JAX CLI's sake: every
+value fits the compact layout); ``compute_fn_batch`` over many families on one device,
 fitted in lock-step per (N, L) bucket or, with ``--no_bucket``, all at once
 (:mod:`pydca_tpu_torch.family`); ``warmup``, which builds the kernels a
 run at the MSA's shapes loads (:mod:`pydca_tpu_torch.warmup`).  The
@@ -98,10 +98,8 @@ def build_parser() -> argparse.ArgumentParser:
         )
         sp.add_argument(
             "--param_space", choices=["auto", "w2", "compact"],
-            help="optimizer parameterization: compact (= auto default) is the "
-            "reference's flat pair layout; w2 runs L-BFGS over the full symmetric "
-            "coupling matrix (no expansion per evaluation, (L*q)^2 floats a vector; "
-            "falls back to compact under bfloat16 or past 6 GiB of optimizer vectors)",
+            help="taken for the JAX CLI's sake: every value fits the reference's "
+            "compact pair layout (w2 logs a warning)",
         )
         sp.add_argument(
             "--checkpoint", metavar="PATH",

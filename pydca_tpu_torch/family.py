@@ -80,9 +80,9 @@ __all__ = [
 ]
 
 # Memory budget of one lock-step batch: the float32 bytes its lanes hold at
-# the batch's (Nb, Lb), as ``lockstep_lane_bytes`` counts them.  The
-# family analogue of ``plm.W2SPACE_MAX_BYTES``: a bucket that would pass it
-# runs as consecutive sub-batches, and a family alone runs even above it.
+# the batch's (Nb, Lb), as ``lockstep_lane_bytes`` counts them.  A bucket
+# that would pass it runs as consecutive sub-batches, and a family alone
+# runs even above it.
 LOCKSTEP_MAX_BYTES = 16 << 30
 
 

@@ -23,25 +23,18 @@ workarounds are not ported:
   instead of zero-weight padded ``(nb, block, L)`` blocks: the last block
   may be short.
 
-Options, with the JAX package's meaning and defaults:
-
-- ``precision="bfloat16"`` (``mm_bf16``): both logits products take
-  bfloat16 operands (the cotangent of the backward one included) and
-  accumulate and return float32 (:func:`resolve_precision`, :func:`_mm`);
-- ``hist_bf16``: the fused loop keeps its history rows in bfloat16 and
-  combines them in float32 (:func:`default_hist_bf16`: off, as the JAX
-  package resolves it off a TPU);
-- ``param_space="w2"``: L-BFGS over ``z = [h, w2]``, the full symmetric
-  ``(L*q, q*L)`` logits operand itself, with every gradient projected onto
-  the symmetric zero-diagonal subspace (:func:`theta_to_z`,
-  :func:`_plm_loss_and_grad_w2_prepped`, :func:`plm_loss_and_grad_w2_chunked`);
-  it falls back to the compact layout under bfloat16 products or past
-  ``W2SPACE_MAX_BYTES`` of optimizer vectors (:func:`_resolve_param_space`).
+``precision="bfloat16"`` (``mm_bf16``), with the JAX package's meaning:
+both logits products take bfloat16 operands (the cotangent of the backward
+one included) and accumulate and return float32 (:func:`resolve_precision`,
+:func:`_mm`); the default is float32.  The fit has one parameter space,
+the compact reference layout: ``param_space`` is accepted for the JAX
+package's interface, and its ``"w2"`` fits the same layout
+(:func:`_check_param_space`).
 
 Checkpoints (``fit_plm(checkpoint_path=...)``) are the JAX package's npz
 files, key for key (``_save_state`` / ``_load_state``): either package
-resumes the other's file, in the parameter space and history dtype the
-file holds, and a failed chunk is retried at most twice from the file.
+resumes the other's compact file, with the history dtype the file holds,
+and a failed chunk is retried at most twice from the file.
 
 The fused loop's structure is the JAX package's (see the note above
 ``pydca_tpu/plm.py::_plm_fused_steps``): logits are linear along a search
@@ -97,11 +90,8 @@ __all__ = [
     "plm_loss",
     "plm_loss_and_grad",
     "plm_loss_and_grad_chunked",
-    "plm_loss_and_grad_w2_chunked",
     "resolve_precision",
     "streaming_block",
-    "theta_to_z",
-    "z_to_theta",
 ]
 
 _F32 = np.float32
@@ -137,34 +127,18 @@ class PlmDCAException(Exception):
     """Errors specific to the plmDCA engine."""
 
 
-def default_mm_bf16() -> bool:
-    """Default operand precision of the logits products: float32, as in
-    the JAX package (``pydca_tpu/plm.py:65-79``).  ``precision="bfloat16"``
-    is the explicit switch."""
-    return False
-
-
 def resolve_precision(precision) -> bool:
     """Map a user-facing precision name to the ``mm_bf16`` flag:
-    ``None``/``"auto"`` -> :func:`default_mm_bf16`; ``"bfloat16"``/``"bf16"``
-    -> True; ``"float32"``/``"f32"`` -> False; anything else raises."""
-    if precision is None or precision == "auto":
-        return default_mm_bf16()
+    ``None``/``"auto"``/``"float32"``/``"f32"`` -> False (float32, the JAX
+    package's default off a TPU, ``pydca_tpu/plm.py:65-79``);
+    ``"bfloat16"``/``"bf16"`` -> True; anything else raises."""
     if precision in ("bfloat16", "bf16"):
         return True
-    if precision in ("float32", "f32"):
+    if precision in (None, "auto", "float32", "f32"):
         return False
     raise PlmDCAException(
         f"invalid precision {precision!r}; choose auto, bfloat16 or float32"
     )
-
-
-def default_hist_bf16() -> bool:
-    """Default dtype of the fused loop's L-BFGS history rows: float32.
-    The JAX package stores them in bfloat16 on a TPU only
-    (``pydca_tpu/plm.py:99-111``); the port runs on a GPU or the CPU,
-    where the JAX package keeps float32 too."""
-    return False
 
 
 # --------------------------------------------------------------- loss function
@@ -387,16 +361,14 @@ def _blocks(msa, weights, block: int, l: int, q: int, dtype):
             yield x, maskq, weights[start : start + block]
 
 
-def _data_term(h, w, batches, l: int, q: int, mm_bf16: bool = False, gw=None):
+def _data_term(h, w, batches, l: int, q: int, mm_bf16: bool = False):
     """The weighted negative log-pseudolikelihood over ``batches`` of
     ``(x, maskq, weights)`` at fields ``h`` ``(L, q)`` and logits operand
     ``w`` ``(L*q, q*L)``, its fields gradient ``(q, L)`` and its raw
-    ``w`` gradient ``(L*q, q*L)`` (added into ``gw`` when it is given).
-    One batch's logits and cotangent are alive at a time, and each batch's
-    ``x^T ct`` is added into the one ``w``-gradient buffer in place."""
-    lq = l * q
-    if gw is None:
-        gw = torch.zeros((lq, q * l), dtype=torch.float32, device=h.device)
+    ``w`` gradient ``(L*q, q*L)``.  One batch's logits and cotangent are
+    alive at a time, and each batch's ``x^T ct`` is added into the one
+    ``w``-gradient buffer in place."""
+    gw = torch.zeros((l * q, q * l), dtype=torch.float32, device=h.device)
     gh = torch.zeros((q, l), dtype=torch.float32, device=h.device)
     nll = torch.zeros((), dtype=torch.float32, device=h.device)
     if mm_bf16:
@@ -455,98 +427,6 @@ def plm_loss_and_grad_chunked(theta, msa, weights, lambda_h, lambda_j,
     return loss, g
 
 
-# ------------------------------------------------- w2-space ("z-space") loss
-#
-# pydca_tpu/plm.py:313-437: L-BFGS over z = [h, w2], w2 the full (L*q, q*L)
-# logits operand itself, restricted to the subspace S of operands that are
-# symmetric under the pair mirror and zero on the diagonal site blocks.
-# z0 = [h0, 0] is in S and every gradient is projected onto S, so the
-# iterates stay there: plain L-BFGS of the same strictly convex objective on
-# S, with the compact layout's optimum and another trajectory.  The
-# evaluation needs no coupling expansion or pullback; the optimizer's
-# vectors hold L*q + (L*q)^2 floats.  The projection P(G) = 0.5 (G +
-# mirror(G)), diagonal blocks zeroed, reads mirror(G) as a permutation of
-# the raw gradient on both routes (the JAX package's streamed form; its
-# full-batch form computes the mirror as a third product, which on a card
-# costs a (N, L*q) x (L*q, q*L) GEMM where the permutation moves (L*q)^2
-# floats once).
-
-
-def _combine_w2_projection(g_raw, mirror, l: int, q: int):
-    """``0.5 (G + mirror(G))`` with the diagonal site blocks zeroed
-    (``pydca_tpu/plm.py:341-352``)."""
-    g4 = (0.5 * (g_raw + mirror)).reshape(l, q, q, l)
-    offdiag = 1.0 - torch.eye(l, dtype=g_raw.dtype, device=g_raw.device)
-    return (g4 * offdiag[:, None, None, :]).reshape(l * q, q * l)
-
-
-def _w2_mirror(g, l: int, q: int):
-    """``mirror(G)[(j, b), (a, i)] = G[(i, a), (b, j)]`` of a raw
-    ``(L*q, q*L)`` operand gradient (``pydca_tpu/plm.py:659``)."""
-    return g.reshape(l, q, q, l).permute(3, 2, 1, 0).reshape(l * q, q * l)
-
-
-def theta_to_z(theta: torch.Tensor, l: int, q: int) -> torch.Tensor:
-    """Compact reference-layout theta -> ``z = [h, w2.ravel()]``
-    (``pydca_tpu/plm.py:392-400``): the entries move, none is computed."""
-    return torch.cat([theta[: l * q], _expand_w4(theta[l * q :], l, q).reshape(-1)])
-
-
-def z_to_theta(z: torch.Tensor, l: int, q: int) -> torch.Tensor:
-    """``z = [h, w2.ravel()]`` -> compact reference-layout theta
-    (``pydca_tpu/plm.py:403-414``): the (i < j) blocks, averaged with their
-    mirrors, ``J_p(a, b) = 0.5 * (w4[j, b, a, i] + w4[i, a, b, j])``."""
-    plan = _pair_plan(l, z.device)
-    blk = z[l * q :].reshape(l, q, q, l).permute(3, 0, 2, 1).reshape(l * l, q, q)  # (i, j, a, b)
-    j_pairs = 0.5 * (blk[plan.ij_rows] + blk[plan.ji_rows].transpose(-1, -2))
-    return torch.cat([z[: l * q], j_pairs.reshape(-1)])
-
-
-def _w2_loss_and_grad(z, batches, lambda_h, lambda_j, l: int, q: int, mesh=None):
-    """``(loss, grad)`` over ``z = [h, w2]`` from the data term over
-    ``batches``: the raw gradient (``L*q + (L*q)^2`` floats) and the value
-    in one buffer, summed over the ranks in one collective, then projected
-    onto S, so that every rank holds the same projected gradient.  The
-    regulariser ``lambda_h ||h||^2 + 0.5 lambda_J ||w2||^2`` equals the
-    compact layout's on S (each pair coupling appears twice in w2)."""
-    lq = l * q
-    h = z[:lq].reshape(l, q)
-    w2 = z[lq:]
-    buf = torch.empty(z.shape[0] + 1, dtype=z.dtype, device=z.device)
-    g = buf[:-1]
-    graw = g[lq:].view(lq, q * l).zero_()
-    nll, gh, _ = _data_term(h, w2.view(lq, q * l), batches, l, q, gw=graw)
-    g[:lq] = gh.T.reshape(-1)
-    buf[-1] = nll
-    if mesh is not None:
-        mesh.sum_(buf, "grad_allreduce")
-    graw.copy_(_combine_w2_projection(graw, _w2_mirror(graw, l, q), l, q))
-    g[:lq] += (2.0 * lambda_h * h).reshape(-1)
-    g[lq:].add_(w2, alpha=lambda_j)
-    # sum(w2 * w2), as the JAX package sums it: over (L*q)^2 entries the
-    # CPU's float32 torch.dot (and vector_norm) are off by 1e-6 and more
-    loss = buf[-1] + lambda_h * (h * h).sum() + 0.5 * lambda_j * (w2 * w2).sum()
-    return loss, g
-
-
-def _plm_loss_and_grad_w2_prepped(z, x, maskq, weights, lambda_h, lambda_j,
-                                  l: int, q: int, mesh=None):
-    """Full-batch ``(loss, grad)`` over ``z = [h, w2]`` on the one-hot and
-    pick mask of one fit (``pydca_tpu/plm.py:417-434``, the value and the
-    gradient its custom VJP gives, projected onto S)."""
-    return _w2_loss_and_grad(z, [(x, maskq, weights)], lambda_h, lambda_j, l, q, mesh)
-
-
-def plm_loss_and_grad_w2_chunked(z, msa, weights, lambda_h, lambda_j,
-                                 l: int, q: int, block: int, mesh=None):
-    """Streamed ``(loss, grad)`` over ``z = [h, w2]`` over blocks of
-    ``block`` sequences (``pydca_tpu/plm.py:619-671``): no expansion, no
-    pullback; the raw gradient is accumulated over the blocks and projected
-    once."""
-    return _w2_loss_and_grad(z, _blocks(msa, weights, block, l, q, torch.float32),
-                             lambda_h, lambda_j, l, q, mesh)
-
-
 def _nll_at(logits, picked, weights):
     """Weighted negative log-pseudolikelihood from carried logits/picked."""
     return (weights[:, None] * (_lse_q(logits) - picked)).sum()
@@ -599,7 +479,8 @@ class PlmFusedState:
     """State of the fused plm L-BFGS loop.
 
     Device tensors: ``x``, ``g`` (flat D), the ``(2m, D)`` history ``z``
-    (float32, or bfloat16 rows with ``hist_bf16``) and the carried
+    (float32; bfloat16 rows when resumed from a file that holds them,
+    :func:`_load_state`) and the carried
     ``logits`` ``(N, q, L)`` / ``picked`` ``(N, L)``.
     Host float32: ``f`` and the scalar squares; ``zzt`` ``(2m, 2m)`` and
     ``zg`` ``(2m,)`` are CPU tensors.  ``host_syncs`` counts the
@@ -642,13 +523,12 @@ def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
 
 def _plm_fused_state0(
     msa, weights, lambda_h, lambda_j, l: int, q: int, m: int,
-    epsilon: float = 1e-3, mesh=None, mm_bf16: bool = False, hist_bf16: bool = False,
+    epsilon: float = 1e-3, mesh=None, mm_bf16: bool = False,
 ) -> PlmFusedState:
     """Fresh state at the reference init (``plmdca_numerics.cpp:207-249``):
-    ``h0 = log(fi * Meff + 1)`` centred per site, ``J = 0``.  ``mesh``:
-    ``msa`` and ``weights`` are this rank's stripe; the carried logits are
-    this rank's rows.  ``hist_bf16``: the history rows are bfloat16
-    (``pydca_tpu/plm.py:958``)."""
+    ``h0 = log(fi * Meff + 1)`` centred per site, ``J = 0``, float32
+    history rows.  ``mesh``: ``msa`` and ``weights`` are this rank's
+    stripe; the carried logits are this rank's rows."""
     lh, lj = _F32(lambda_h), _F32(lambda_j)
     n = msa.shape[0]
     lq = l * q
@@ -664,8 +544,7 @@ def _plm_fused_state0(
                      mm_bf16)
         st = PlmFusedState(
             x=theta, f=_F32(0), g=g,
-            z=torch.zeros((2 * m, dim), dtype=torch.bfloat16 if hist_bf16 else torch.float32,
-                          device=msa.device),
+            z=torch.zeros((2 * m, dim), dtype=torch.float32, device=msa.device),
             zzt=torch.zeros((2 * m, 2 * m), dtype=torch.float32),
             zg=torch.zeros((2 * m,), dtype=torch.float32),
             gg=_F32(0), xx=_F32(0), rh=_F32(0), rj=_F32(0),
@@ -918,24 +797,11 @@ def lbfgs_state_from_numpy(leaves: dict, device) -> LBFGSState:
 
 
 # ------------------------------------------------ the generic loop
-def _make_loss_fun(msa, weights, lambda_h, lambda_j, l: int, q: int, block: Optional[int],
-                   mesh=None, mm_bf16: bool = False, w2space: bool = False):
+def _make_loss_fun(msa, weights, lambda_h, lambda_j, l: int, q: int, block: int,
+                   mesh=None, mm_bf16: bool = False):
     """The generic loop's objective ``x -> (loss, grad)`` of one fit
-    (``pydca_tpu/plm.py:591-616``): the streamed compact loss over blocks
-    of ``block`` sequences, or with ``w2space`` the loss over ``z = [h,
-    w2]``, streamed, or full-batch on a one-hot built here when ``block``
-    is ``None``."""
-    if w2space:
-        if block is None:
-            x, maskq = _prep_msa(msa, l, q)
-            return functools.partial(
-                _plm_loss_and_grad_w2_prepped, x=x, maskq=maskq, weights=weights,
-                lambda_h=lambda_h, lambda_j=lambda_j, l=l, q=q, mesh=mesh,
-            )
-        return functools.partial(
-            plm_loss_and_grad_w2_chunked, msa=msa, weights=weights,
-            lambda_h=lambda_h, lambda_j=lambda_j, l=l, q=q, block=block, mesh=mesh,
-        )
+    (``pydca_tpu/plm.py:591-616``): the streamed loss over blocks of
+    ``block`` sequences."""
     return functools.partial(
         plm_loss_and_grad_chunked, msa=msa, weights=weights,
         lambda_h=lambda_h, lambda_j=lambda_j, l=l, q=q, block=block, mesh=mesh,
@@ -944,25 +810,20 @@ def _make_loss_fun(msa, weights, lambda_h, lambda_j, l: int, q: int, block: Opti
 
 
 def _plm_lbfgs_state0(msa, weights, lambda_h, lambda_j, l: int, q: int,
-                      m: int, block: Optional[int], mesh=None, mm_bf16: bool = False,
-                      w2space: bool = False) -> LBFGSState:
+                      m: int, block: int, mesh=None, mm_bf16: bool = False) -> LBFGSState:
     """Fresh generic state at the reference init, ``fi`` summed over the
-    sequence blocks (``pydca_tpu/plm.py:570-588``); in the w2 space
-    ``z0 = [h0, 0]`` (J is zero at the init, so no expansion)."""
+    sequence blocks (``pydca_tpu/plm.py:570-588``)."""
     x0 = init_params(msa, weights, l, q, block=block, mesh=mesh)
-    if w2space:
-        lq = l * q
-        x0 = torch.cat([x0[:lq], torch.zeros(lq * lq, dtype=x0.dtype, device=x0.device)])
-    fun = _make_loss_fun(msa, weights, lambda_h, lambda_j, l, q, block, mesh, mm_bf16, w2space)
+    fun = _make_loss_fun(msa, weights, lambda_h, lambda_j, l, q, block, mesh, mm_bf16)
     return lbfgs_init(fun, x0, m=m)
 
 
 def _plm_lbfgs_steps(st: LBFGSState, msa, weights, lambda_h, lambda_j,
-                     l: int, q: int, num_steps: int, block: Optional[int], mesh=None,
-                     mm_bf16: bool = False, w2space: bool = False) -> LBFGSState:
+                     l: int, q: int, num_steps: int, block: int, mesh=None,
+                     mm_bf16: bool = False) -> LBFGSState:
     """Advance the generic fit by up to ``num_steps`` iterations (in place;
     returns ``st``)."""
-    fun = _make_loss_fun(msa, weights, lambda_h, lambda_j, l, q, block, mesh, mm_bf16, w2space)
+    fun = _make_loss_fun(msa, weights, lambda_h, lambda_j, l, q, block, mesh, mm_bf16)
     return lbfgs_steps(fun, st, num_steps)
 
 
@@ -1115,58 +976,33 @@ def _load_state(path: str, device):
         )
 
 
-def _check_space(state, path: str, l: int, q: int) -> bool:
-    """Whether a checkpoint of this fit's (L, q) is in the w2 parameter
-    space (``Lq + (Lq)^2`` entries, ``pydca_tpu/plm.py:1287``) rather than
-    the compact one; a size that fits neither raises ``ValueError``."""
+def _check_space(state, path: str, l: int, q: int) -> None:
+    """Raise ``ValueError`` unless a checkpoint holds this fit's compact
+    parameter count.  A file of the JAX package's w2 space (``Lq +
+    (Lq)^2`` entries, ``pydca_tpu/plm.py:1287``) is refused by name: its
+    history vectors cannot be converted to the compact layout."""
     lq = l * q
     size = state.x.shape[0]
     if size == lq + lq * lq:
-        return True
+        raise ValueError(f"checkpoint {path} holds {size} parameters of the w2 parameter "
+                         "space; this package fits the compact layout only")
     dim = lq + l * (l - 1) // 2 * q * q
     if size != dim:
-        raise ValueError(f"checkpoint {path} holds {size} parameters; this fit has {dim} "
-                         f"(compact) or {lq + lq * lq} (w2)")
-    return False
+        raise ValueError(f"checkpoint {path} holds {size} parameters; this fit has {dim}")
 
 
-# w2-space memory budget (pydca_tpu/plm.py:1419-1422): the optimizer holds
-# about 2m + 4 vectors of L*q + (L*q)^2 floats (x, g, the direction, the
-# line search's trial and the m s/y pairs).
-W2SPACE_MAX_BYTES = 6 << 30
-
-
-def _resolve_param_space(param_space: str, l: int, q: int, m: int, mm_bf16: bool) -> bool:
-    """Whether the fit runs in the w2 space (``pydca_tpu/plm.py:1425-1466``).
-
-    ``auto`` and ``compact`` resolve to the compact layout; ``w2`` to the
-    w2 space, except under bfloat16 products (the w2 loss keeps float32
-    operands) or when its vectors pass ``W2SPACE_MAX_BYTES``: then the fit
-    runs in the compact layout, with the JAX package's warning.  Any other
-    name raises."""
-    if param_space == "compact":
-        return False
-    if param_space != "w2":
-        if param_space != "auto":
-            raise PlmDCAException(
-                f"invalid param_space {param_space!r}; choose auto, w2 or compact"
-            )
-        return False
-    if mm_bf16:
-        logger.warning(
-            "param_space='w2' does not support bfloat16 operands; "
-            "running the compact parameterization instead"
+def _check_param_space(param_space: str) -> None:
+    """Validate a ``param_space`` name, which the JAX package's signatures
+    and CLI take: ``auto``, ``compact`` or ``w2``; any other name raises.
+    The fit has one parameter space, the compact layout, so ``w2`` logs a
+    warning and fits that layout."""
+    if param_space not in ("auto", "compact", "w2"):
+        raise PlmDCAException(
+            f"invalid param_space {param_space!r}; choose auto, w2 or compact"
         )
-        return False
-    vec_bytes = 4 * (l * q + (l * q) * (q * l))
-    if vec_bytes * (2 * m + 4) > W2SPACE_MAX_BYTES:
-        logger.warning(
-            "param_space='w2' needs ~%.1f GiB of optimizer vectors at "
-            "L=%d, q=%d; falling back to compact",
-            vec_bytes * (2 * m + 4) / 2**30, l, q,
-        )
-        return False
-    return True
+    if param_space == "w2":
+        logger.warning("param_space='w2' is accepted for the JAX package's interface; "
+                       "the fit runs in the compact parameter layout")
 
 
 def fit_plm(
@@ -1187,7 +1023,6 @@ def fit_plm(
     mm_bf16: Optional[bool] = None,
     mesh=None,
     param_space: str = "auto",
-    hist_bf16: Optional[bool] = None,
 ) -> LBFGSResult:
     """Run the plmDCA optimization on ``msa.device``.
 
@@ -1200,18 +1035,13 @@ def fit_plm(
     ftol=1e-4, <= ``max_iterations`` iterations (``plmdcaBackend.cpp:68-75``).
 
     ``mm_bf16``: both logits products take bfloat16 operands and
-    accumulate in float32 (``None``: :func:`default_mm_bf16`, float32).
-    ``hist_bf16``: the fused loop's history rows are bfloat16 (``None``:
-    :func:`default_hist_bf16`, float32).  ``param_space``: ``"auto"`` /
-    ``"compact"`` (the reference layout) or ``"w2"`` (the generic loop over
-    ``z = [h, w2]``, :func:`_resolve_param_space`); the result is in the
-    compact layout either way (:func:`z_to_theta`).
+    accumulate in float32 (``None``: float32).  ``param_space``:
+    :func:`_check_param_space`; every name fits the compact layout.
 
     ``checkpoint_path`` (``pydca_tpu/plm.py:1262-1385``; ``.npz`` is
     appended to a bare path): resume from the file when it exists, in
     whichever format it holds (the loop the arguments ask for continues);
-    a file in the other parameter space wins, since history vectors cannot
-    be converted between spaces (``pydca_tpu/plm.py:1284-1294``).  Save the
+    a file of the JAX package's w2 space raises (:func:`_check_space`).  Save the
     state after a chunk once ``checkpoint_every`` iterations have passed
     since the last save, and when the fit ends.  A chunk that raises
     ``RuntimeError`` (a device fault; never ``NotImplementedError``) is
@@ -1228,16 +1058,12 @@ def fit_plm(
     barrier, and every rank reads it: a resumed fused fit rebuilds its
     rows' logits (``_fused_from_generic``).
     """
-    if mm_bf16 is None:
-        mm_bf16 = default_mm_bf16()
-    if hist_bf16 is None:
-        hist_bf16 = default_hist_bf16()
-    w2space = _resolve_param_space(param_space, l, q, m, mm_bf16)
+    mm_bf16 = bool(mm_bf16)
+    _check_param_space(param_space)
     weights = weights.to(torch.float32)
     step = max_iterations if chunk_size is None else int(chunk_size)
-    chunked = seq_block is not None
-    block = int(seq_block) if chunked else None
-    use_fused = not chunked and not w2space
+    use_fused = seq_block is None
+    block = None if use_fused else int(seq_block)
     if checkpoint_path is not None and not checkpoint_path.endswith(".npz"):
         checkpoint_path = checkpoint_path + ".npz"
     prepped = []
@@ -1250,17 +1076,11 @@ def fit_plm(
 
     def restore():
         """The checkpoint's state, in the form of this fit's loop."""
-        nonlocal w2space, use_fused
         state = _load_state(checkpoint_path, msa.device)
-        ckpt_w2 = _check_space(state, checkpoint_path, l, q)
+        _check_space(state, checkpoint_path, l, q)
         if isinstance(state, PlmFusedState) and (mesh is not None or not use_fused):
             # a fused file's logits cover every row: a rank rebuilds its own
             state = _generic_from_fused(state)
-        if ckpt_w2 != w2space:
-            logger.info("checkpoint is in %s space; continuing in that space",
-                        "w2" if ckpt_w2 else "compact")
-            w2space = ckpt_w2
-            use_fused = not chunked and not w2space
         if use_fused and not isinstance(state, PlmFusedState):
             return _fused_from_generic(state, *fused_inputs(), weights, lambda_h, lambda_j, l, q,
                                        mesh=mesh, mm_bf16=mm_bf16)
@@ -1281,21 +1101,18 @@ def fit_plm(
         logger.info("resumed plmDCA optimizer state at iteration %d", state.k)
     elif use_fused:
         state = _plm_fused_state0(msa, weights, lambda_h, lambda_j, l, q, m, mesh=mesh,
-                                  mm_bf16=mm_bf16, hist_bf16=hist_bf16)
+                                  mm_bf16=mm_bf16)
     else:
         state = _plm_lbfgs_state0(msa, weights, lambda_h, lambda_j, l, q, m, block, mesh,
-                                  mm_bf16, w2space)
+                                  mm_bf16)
     logger.info("plmDCA fit on %d rows a card: %s", msa.shape[0],
                 "fused loop" if use_fused else
-                f"generic loop, {'w2' if w2space else 'compact'} space" +
-                (f", streamed over blocks of {block}" if chunked else ""))
+                f"generic loop, streamed over blocks of {block}")
     opts = {}  # the options that are set, as keywords: the one-device f32 call is unchanged
     if mesh is not None:
         opts["mesh"] = mesh
     if mm_bf16:
         opts["mm_bf16"] = True
-    if w2space:
-        opts["w2space"] = True
     last_saved = state.k
     retries = 2
     while state.k < max_iterations and not state.done:
@@ -1326,10 +1143,7 @@ def fit_plm(
             save(state)
             last_saved = state.k
     if not use_fused:
-        res = result_from_state(state)
-        if w2space:  # back to the reference's compact layout
-            res = res._replace(x=z_to_theta(res.x, l, q))
-        return res
+        return result_from_state(state)
     return LBFGSResult(
         x=state.theta(),
         fx=float(state.f),
@@ -1359,8 +1173,9 @@ class PlmDCA:
     (:func:`fit_plm`), on either fit route.
     ``precision``: ``None``/``"auto"``/``"float32"`` or ``"bfloat16"``, the
     logits products' operands (:func:`resolve_precision`).
-    ``param_space``: ``"auto"``/``"compact"`` or ``"w2"``
-    (:func:`_resolve_param_space`).
+    ``param_space``: ``"auto"``/``"compact"`` or ``"w2"``, taken for the
+    JAX engine's signature; every name fits the compact layout
+    (:func:`_check_param_space`).
     ``mesh``: ``None``/``"single"`` (one device), ``"auto"`` (the default
     process group when its world size is above 1) or a
     :class:`~pydca_tpu_torch.parallel.mesh.DataMesh`: the weights' identity
@@ -1416,11 +1231,7 @@ class PlmDCA:
         else:
             self.__seq_block = self.__fit_block = int(seq_block)
         self.__mm_bf16 = resolve_precision(precision)
-        if param_space not in ("auto", "w2", "compact"):
-            raise PlmDCAException(
-                f"invalid param_space {param_space!r}; choose auto, w2 or compact"
-            )
-        self.__param_space = param_space
+        _check_param_space(param_space)
         self.__verbose = bool(verbose)
         self.__checkpoint_path = checkpoint_path
         self.__theta: Optional[torch.Tensor] = None
@@ -1490,7 +1301,7 @@ class PlmDCA:
     def fit_block(self) -> Optional[int]:
         """Sequences per block of the fit's streamed loss on this card,
         decided on the rows the card holds (:func:`fit_seq_block`);
-        ``None``: the card's rows whole, the fused loop in compact space."""
+        ``None``: the card's rows whole, the fused loop."""
         return self.__fit_block
 
     # -------------------------------------------------------------- pipeline
@@ -1533,7 +1344,6 @@ class PlmDCA:
                 checkpoint_path=self.__checkpoint_path,
                 seq_block=self.__fit_block,
                 mm_bf16=self.__mm_bf16,
-                param_space=self.__param_space,
             )
             with self.timers.stage("fit"):
                 if self.mesh is not None:

@@ -11,11 +11,11 @@ the run on a card would load: ``identity_counts`` (the weights of both
 engines), for plmDCA ``plm_passes`` (the fused step's passes over the
 logits) and, for mean-field, ``weighted_gram``.  The libraries do not
 depend on the shapes or the options; (N, L, q) and the flags decide only
-the route a plm run takes (fused or streamed, the products' precision,
-the parameter space: :func:`pydca_tpu_torch.plm.streaming_block`,
-:func:`~pydca_tpu_torch.plm.resolve_precision`,
-:func:`~pydca_tpu_torch.plm._resolve_param_space`), which the warmup
-reports.
+the route a plm run takes (fused or streamed, and the products'
+precision: :func:`pydca_tpu_torch.plm.fit_seq_block`,
+:func:`~pydca_tpu_torch.plm.resolve_precision`), which the warmup
+reports, after checking the ``param_space`` name as the engine does
+(:func:`~pydca_tpu_torch.plm._check_param_space`).
 
 A warmup launches nothing on the card.  The CUDA context and the
 cuBLAS/cuSOLVER handles are made by each process and die with it, so
@@ -37,7 +37,7 @@ from typing import Optional, Sequence
 import torch
 
 from .ops import _build
-from .plm import _resolve_param_space, default_hist_bf16, default_mm_bf16, streaming_block
+from .plm import _check_param_space, fit_seq_block
 
 logger = logging.getLogger(__name__)
 
@@ -93,34 +93,25 @@ def warmup_plm(
     mm_bf16: Optional[bool] = None,
     param_space: str = "auto",
     mesh=None,
-    hist_bf16: Optional[bool] = None,
     device="cuda",
 ) -> float:
     """Build the libraries a ``plmdca`` run at (N, L, q) on ``device`` loads
     (``identity_counts``, ``plm_passes``); returns seconds spent.  Resolves the route as
     ``fit_plm`` does (``pydca_tpu/warmup.py:188-195``) and logs it: fused
     or streamed (``seq_block``, else the engine's own
-    :func:`~pydca_tpu_torch.plm.streaming_block`), the products' operands
-    (``mm_bf16``, ``None``: the default), the history rows' dtype, and
-    the parameter space (``param_space="w2"`` falls back to compact with
-    the engine's warning where the engine would); records ``chunk_size``,
-    which the fit's chunking takes and the build does not."""
-    if mm_bf16 is None:
-        mm_bf16 = default_mm_bf16()
-    if hist_bf16 is None:
-        hist_bf16 = default_hist_bf16()
-    w2space = _resolve_param_space(param_space, l, q, m, mm_bf16)
-    block = seq_block if seq_block is not None else streaming_block(n, l, q)
-    if block is not None:
-        route = f"streamed over blocks of {block}"
-    else:
-        route = "generic loop" if w2space else "fused"
+    :func:`~pydca_tpu_torch.plm.fit_seq_block` on one card) and the
+    products' operands (``mm_bf16``, ``None``: float32); checks
+    ``param_space`` with the engine's warning for ``w2``; records
+    ``chunk_size``, which the fit's chunking takes and the build does not
+    (``m`` is taken for the JAX signature)."""
+    _check_param_space(param_space)
+    block = seq_block if seq_block is not None else fit_seq_block(n, l, q)
+    route = "fused" if block is None else f"streamed over blocks of {block}"
     dt = _build_all(("identity_counts", "plm_passes"), device)
     logger.info(
         "plmDCA warmup (N=%d, L=%d, q=%d, seqid %s, %d iterations in chunks of %s, %s, "
-        "%s products, %s history rows, %s parameter space, mesh %s, device %s): "
-        "%.1f s build into %s", n, l, q, seqid, max_iterations, chunk_size, route,
-        "bfloat16" if mm_bf16 else "float32", "bfloat16" if hist_bf16 else "float32",
-        "w2" if w2space else "compact", mesh, device, dt, _build.BUILD_DIR,
+        "%s products, mesh %s, device %s): %.1f s build into %s", n, l, q, seqid,
+        max_iterations, chunk_size, route, "bfloat16" if mm_bf16 else "float32", mesh, device,
+        dt, _build.BUILD_DIR,
     )
     return dt

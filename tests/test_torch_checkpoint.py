@@ -11,11 +11,10 @@ for bit (``tests/test_untested_features.py:42-62``).  The state conversions
 agree with JAX's on the same state: fused -> generic exactly, generic ->
 fused to float32 recompute.  The bounded retry recovers from a chunk that
 fails half way through, leaving a state that must not be continued, and
-raises where JAX does.  A w2-space file (``param_space="w2"``) written
-by either package resumes in the other, a w2 fit resumes bit for bit, a
-file in the other parameter space continues in its own space, and a
-fused file with bfloat16 history rows resumes with bfloat16 rows in both
-packages.
+raises where JAX does.  The port fits the compact layout only: a w2-space
+file written by the JAX package (``param_space="w2"``) is refused on both
+routes, a compact file resumes under a ``w2`` request, and a fused file
+with bfloat16 history rows resumes with bfloat16 rows in both packages.
 """
 
 import logging
@@ -280,48 +279,32 @@ def test_not_implemented_is_never_retried(tmp_path, monkeypatch, caplog, problem
     assert not retry_warnings(caplog)
 
 
-W2_ROUTES = pytest.mark.parametrize("seq_block", [None, BLOCK], ids=["full", "streamed"])
-
-
-@pytest.mark.parametrize("writer", ["jax", "port"])
-def test_w2_cross_package_resume(tmp_path, problem, writer):
+@pytest.mark.parametrize("seq_block", [None, BLOCK], ids=["fused", "streamed"])
+def test_w2_cross_package_resume(tmp_path, problem, seq_block):
     """A w2-space file (generic, ``L*q + (L*q)^2`` parameters) written at
-    k = 5 by either package, resumed by both to k = 10 in the w2 space; the
-    results in the compact layout."""
+    k = 5 by the JAX package: the port refuses it on either route, naming
+    the w2 space, since its history vectors have no compact form."""
     path = str(tmp_path / "w2.npz")
-    (jax_fit if writer == "jax" else port_fit)(problem, 5, path, param_space="w2")
+    jax_fit(problem, 5, path, param_space="w2")
     with np.load(path) as f:
         assert f["x"].shape == (L * Q + (L * Q) ** 2,) and "zzt" not in f.files
-    rj, rt = resume_both(tmp_path, problem, path, None, param_space="w2")
-    assert rt.num_iters == int(rj.num_iters) == 10
-    assert rt.x.shape == (L * Q + L * (L - 1) // 2 * Q * Q,)
-    np.testing.assert_allclose(rt.fx, float(rj.fx), rtol=1e-4)
-    assert rel_l2(rt.x.numpy(), np.asarray(rj.x)) <= 1e-3
+    with pytest.raises(ValueError, match="w2 parameter space; this package fits the compact"):
+        port_fit(problem, 10, path, seq_block)
 
 
-@W2_ROUTES
-def test_w2_interrupted_resume_is_bitwise(tmp_path, problem, seq_block):
-    full = port_fit(problem, 20, seq_block=seq_block, param_space="w2")
-    ckpt = str(tmp_path / "w2")
-    part = port_fit(problem, 10, ckpt, seq_block, param_space="w2")
-    assert part.num_iters == 10
-    resumed = port_fit(problem, 20, ckpt, seq_block, param_space="w2")
-    assert resumed.num_iters == full.num_iters == 20
-    assert torch.equal(resumed.x, full.x)
-    assert resumed.fx == full.fx and resumed.n_evals == full.n_evals
-
-
-@pytest.mark.parametrize("written,asked", [("compact", "w2"), ("w2", "compact")])
+@pytest.mark.parametrize("written,asked", [("compact", "w2")])
 def test_checkpoint_space_wins_on_resume(tmp_path, problem, caplog, written, asked):
-    """A file in the other parameter space continues in its own space in
-    both packages (``pydca_tpu/plm.py:1284-1294``; a fused compact file
-    under a w2 request goes through ``_generic_from_fused`` and back to the
-    fused loop): the same iterations and optimum."""
+    """A compact file resumed under a ``w2`` request: the JAX package
+    continues in the file's space (``pydca_tpu/plm.py:1284-1294``), the
+    port in its only one, with the request's warning; the same iterations
+    and optimum."""
     path = str(tmp_path / "k5.npz")
     jax_fit(problem, 5, path, param_space=written)
-    with caplog.at_level(logging.INFO, logger="pydca_tpu_torch.plm"):
+    with caplog.at_level(logging.WARNING, logger="pydca_tpu_torch.plm"):
         rj, rt = resume_both(tmp_path, problem, path, None, param_space=asked)
-    assert f"checkpoint is in {written} space; continuing in that space" in caplog.text
+    warned = [r.getMessage() for r in caplog.records
+              if r.levelno == logging.WARNING and r.name == "pydca_tpu_torch.plm"]
+    assert len(warned) == 1 and "compact parameter layout" in warned[0]
     assert rt.num_iters == int(rj.num_iters) == 10
     np.testing.assert_allclose(rt.fx, float(rj.fx), rtol=1e-4)
     assert rel_l2(rt.x.numpy(), np.asarray(rj.x)) <= 1e-3

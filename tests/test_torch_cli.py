@@ -5,6 +5,7 @@ copied JAX-free modules (alphabets, FASTA reader, writers) are pinned to
 the originals byte for byte.
 """
 
+import logging
 import os
 import subprocess
 import sys
@@ -174,11 +175,13 @@ def test_port_never_imports_jax():
     ],
     ids=["bfloat16", "w2"],
 )
-def test_precision_and_space_flags_match_jax_cli(tmp_path, flags, jax_kw):
+def test_precision_and_space_flags_match_jax_cli(tmp_path, caplog, flags, jax_kw):
     """``--precision bfloat16`` and ``--param_space w2`` through both CLIs'
     ``compute_fn --apc`` (the JAX CLI at ``mesh=None``: the tests' 8
     virtual devices would send its default ``--mesh auto`` to the sharded
-    path): the same header, and FN-APC at the JAX package's rank bar."""
+    path): the same header, and FN-APC at the JAX package's rank bar.  The
+    port's ``--param_space w2`` logs one warning and writes the file of the
+    same command without the flag, byte for byte."""
     n, l, q = 300, 30, 5
     codes, _ = planted_family(n, l, q, seed=l, n_pairs=6, n_ancestors=12)
     fa = str(tmp_path / "fam.fa")
@@ -188,11 +191,19 @@ def test_precision_and_space_flags_match_jax_cli(tmp_path, flags, jax_kw):
         msa_file=fa, biomolecule="rna", the_command="compute_fn", apc=True, output_dir=out_j,
         mesh=None, **jax_kw,
     )
-    tinst = tcli.run_plm_dca(["compute_fn", "rna", fa, "--apc", "--device", "cpu",
-                              "--output_dir", out_t] + flags)
+    argv = ["compute_fn", "rna", fa, "--apc", "--device", "cpu"]
+    with caplog.at_level(logging.WARNING, logger="pydca_tpu_torch"):
+        tinst = tcli.run_plm_dca(argv + ["--output_dir", out_t] + flags)
+    warned = [r.getMessage() for r in caplog.records if r.levelno == logging.WARNING]
     assert tinst.mm_bf16 == ("precision" in jax_kw)
     name = "PLMDCA_apc_fn_scores_fam.txt"
     (hj, sj), (ht, st) = (read_scores(os.path.join(d, name)) for d in (out_j, out_t))
     assert ht == hj and len(st) == len(sj) == l * (l - 1) // 2
     assert spearman(st, sj, l) >= 0.98
     assert top_k_overlap(st, sj, 20) >= 0.9
+    if "param_space" in jax_kw:
+        assert len(warned) == 1 and "compact parameter layout" in warned[0]
+        out_d = str(tmp_path / "port_default")
+        tcli.run_plm_dca(argv + ["--output_dir", out_d])
+        with open(os.path.join(out_t, name), "rb") as a, open(os.path.join(out_d, name), "rb") as b:
+            assert a.read() == b.read()

@@ -115,7 +115,7 @@ def test_whole_alignment_freqs_keep_the_global_block(monkeypatch):
 
 @pytest.mark.parametrize("kw, route", [
     ({}, "fused loop"),
-    ({"seq_block": 16}, "generic loop, compact space, streamed over blocks of 16"),
+    ({"seq_block": 16}, "generic loop, streamed over blocks of 16"),
 ], ids=["fused", "streamed"])
 def test_fit_logs_its_route(caplog, kw, route):
     codes = planted_family(60, 10, 5, seed=5, n_pairs=3, n_ancestors=16)[0]

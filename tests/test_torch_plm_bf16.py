@@ -2,8 +2,9 @@
 
 ``precision="bfloat16"`` rounds both logits products' operands to
 bfloat16 (the backward product's cotangent included) and accumulates in
-float32; ``hist_bf16`` keeps the fused loop's history rows in bfloat16.
-The same numpy-seeded inputs go through the JAX function and its port, on
+float32.  The fused loop's history rows are float32 in a fresh fit and
+bfloat16 when resumed from a state that holds them (the JAX package's TPU
+default).  The same numpy-seeded inputs go through the JAX function and its port, on
 the CPU.  Tolerances:
 
 - the products, given the same float32 operands: both packages round them
@@ -72,9 +73,8 @@ def test_invalid_precision_and_defaults_match_jax():
     with pytest.raises(tplm.PlmDCAException) as got:
         tplm.resolve_precision("fp16")
     assert str(got.value) == str(want.value)
-    assert tplm.default_mm_bf16() is jplm.default_mm_bf16() is False
-    # the JAX package keeps float32 rows off a TPU, and the port runs on none
-    assert tplm.default_hist_bf16() is False and jplm.default_hist_bf16() is False
+    assert tplm.resolve_precision(None) is False
+    assert jplm.default_mm_bf16() is False
 
 
 @SHAPES
@@ -146,7 +146,9 @@ def rows_of(js):
 @pytest.mark.parametrize("mm_bf16,hist_bf16", [(False, True), (True, True), (True, False)],
                          ids=["hist", "products_and_hist", "products"])
 def test_fused_steps_match_jax(mm_bf16, hist_bf16):
-    """Five fused steps from each package's own state0, state for state."""
+    """Five fused steps, state for state: from each package's own state0
+    with float32 rows, and from JAX's bfloat16-row state0 converted by
+    ``fused_state_from_numpy`` with bfloat16 rows."""
     codes, _ = planted_family(N, L, Q, seed=1, n_pairs=4, n_ancestors=8)
     msa = codes.astype(np.int32)
     w = np.asarray(jstats.sequence_weights(jnp.asarray(msa), 0.8, Q), np.float32)
@@ -156,7 +158,10 @@ def test_fused_steps_match_jax(mm_bf16, hist_bf16):
     js = jplm._plm_fused_state0(jm, jw, jl, jl, L, Q, M, mm_bf16, hist_bf16)
     tm, tw = torch.tensor(msa), torch.tensor(w)
     tx, tcodes = tplm._fused_inputs(tm, L, Q, tplm._x_dtype(mm_bf16))
-    ts = tplm._plm_fused_state0(tm, tw, lam, lam, L, Q, M, mm_bf16=mm_bf16, hist_bf16=hist_bf16)
+    if hist_bf16:
+        ts = tplm.fused_state_from_numpy(jax.device_get(js)._asdict(), "cpu")
+    else:
+        ts = tplm._plm_fused_state0(tm, tw, lam, lam, L, Q, M, mm_bf16=mm_bf16)
     assert ts.z.dtype == (torch.bfloat16 if hist_bf16 else torch.float32)
     assert str(js.z[0][0].dtype) == ("bfloat16" if hist_bf16 else "float32")
     for k in range(1, 6):
@@ -205,13 +210,13 @@ def fn_apc_sorted(x, l, q):
 @pytest.mark.parametrize("route", ["fused", "streamed"])
 def test_bf16_fit_meets_rank_bar(route):
     """100 iterations with bfloat16 products in both packages (the fused
-    loop with bfloat16 rows too; the streamed route over blocks of 64)."""
+    loop; the streamed route over blocks of 64)."""
     n, l, q = 400, 30, 5
     codes, _ = planted_family(n, l, q, seed=7, n_pairs=8, n_ancestors=16)
     msa = codes.astype(np.int32)
     w = np.asarray(jstats.sequence_weights(jnp.asarray(msa), 0.8, q), np.float32)
     lam = np.float32(0.2 * (l - 1))
-    kw = dict(hist_bf16=True) if route == "fused" else dict(seq_block=64)
+    kw = {} if route == "fused" else dict(seq_block=64)
     rj = jplm.fit_plm(jnp.asarray(msa), jnp.asarray(w), jnp.float32(lam), jnp.float32(lam), l, q,
                       max_iterations=100, mm_bf16=True, **kw)
     rt = tplm.fit_plm(torch.tensor(msa), torch.tensor(w), float(lam), float(lam), l, q,

@@ -97,24 +97,22 @@ def test_plm_warmup_takes_the_jax_flags(family_file, capsys, built):
 
 
 @pytest.mark.parametrize("flags,route,warns", [
-    (["--precision", "bfloat16"], "fused, bfloat16 products, float32 history rows, compact",
-     False),
-    (["--param_space", "w2"], "generic loop, float32 products, float32 history rows, w2", False),
-    (["--param_space", "w2", "--precision", "bfloat16"],
-     "fused, bfloat16 products, float32 history rows, compact", True),
+    (["--precision", "bfloat16"], "fused, bfloat16 products", False),
+    (["--param_space", "w2"], "fused, float32 products", True),
+    (["--param_space", "w2", "--precision", "bfloat16"], "fused, bfloat16 products", True),
 ], ids=["bfloat16", "w2", "w2_under_bfloat16"])
 def test_warmup_takes_precision_and_space(flags, route, warns, family_file, capsys, caplog,
                                           built):
     """``warmup --precision bfloat16`` / ``--param_space w2``: the JAX
-    CLI's line, and the route a run would take logged; w2 under bfloat16
-    products falls back to compact with the engine's warning."""
+    CLI's line, and the route a run would take logged; ``w2`` fits the
+    compact layout, with the engine's warning."""
     with caplog.at_level(logging.INFO, logger="pydca_tpu_torch"):
         plmdca_main.run_plm_dca(["warmup", "protein", family_file, "--device", "cpu"] + flags)
     assert re.fullmatch(LINE.format("plmDCA"), capsys.readouterr().out.strip())
     assert route in caplog.text
     warned = [r.getMessage() for r in caplog.records if r.levelno == logging.WARNING]
-    assert warned == (["param_space='w2' does not support bfloat16 operands; running the "
-                       "compact parameterization instead"] if warns else [])
+    assert warned == (["param_space='w2' is accepted for the JAX package's interface; the fit "
+                       "runs in the compact parameter layout"] if warns else [])
     assert built == []
 
 

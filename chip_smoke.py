@@ -9,11 +9,14 @@ Builds the port's CUDA kernels from ``pydca_tpu_torch/csrc`` with nvcc
   the card up to N = 10^5 and times it beside its bound, with a library
   matmul at the main shape, and the fused step's passes over the logits,
   ``plm_trial`` and ``plm_update_grad``, against their plain compositions
-  at phase 3's and 4's shapes, timed beside their byte bounds (phase 2),
+  at phase 3's and 4's shapes, and the step's L-BFGS algebra beside its
+  history (``lbfgs_coeffs``, ``lbfgs_history``, ``lbfgs_finish``) at phase
+  3's, each timed beside its byte bound (phase 2),
   drives ``plmdca compute_fn --apc`` at PF02826 width (N = 16384, L = 195,
   q = 21; phase 3) and compares a CPU and a GPU run of the same RNA-shaped
   family (phase 4), each card fit launching the passes once a line-search
-  trial and once a gradient;
+  trial and once a gradient, and the L-BFGS kernels once a direction and
+  once a step;
 - mean-field: checks ``weighted_gram`` against its plain version and times
   it beside one library matmul and its bound (phase 5), drives ``mfdca
   compute_fn --apc`` at protein scale (N = 4096, L = 1000, q = 21; phase 6)
@@ -163,6 +166,15 @@ PLM_PASSES = ("plm_trial", "plm_update_grad")
 STANDS_FOR = {
     "plm_trial": "pydca_tpu/plm.py:815 (_phi_dphi)",
     "plm_update_grad": "pydca_tpu/plm.py:841 (_ct_gh), the update of :982",
+}
+# the fused plm step's L-BFGS algebra beside its history (the same source):
+# each kernel, the wrapper that launches it, and what it stands for
+LBFGS_ALGEBRA = ("lbfgs_coeffs", "lbfgs_history", "lbfgs_finish")  # the wrappers
+LBFGS_KERNELS = {
+    "plm_lbfgs_coeffs": ("lbfgs_coeffs", "pydca_tpu/plm.py:996 (direction_coeffs)"),
+    "plm_lbfgs_rows": ("lbfgs_history", "pydca_tpu/plm.py:1093, the rows' write"),
+    "plm_lbfgs_border": ("lbfgs_history", "pydca_tpu/plm.py:1110-1124, the Gram's border"),
+    "plm_lbfgs_finish": ("lbfgs_finish", "pydca_tpu/plm.py:1007, d = -(gamma g + Z^T c)"),
 }
 LIBRARIES = KERNELS + ("plm_passes",)  # what phase 1 builds
 MAIN_SHAPE = (16384, 195, 21)  # PF02826 width at the depth of a deep family
@@ -320,17 +332,30 @@ def identity_sparse_bound(n, l, q):
 
 
 def reset_launches() -> None:
-    for name in KERNELS + PLM_PASSES:
+    for name in KERNELS + PLM_PASSES + LBFGS_ALGEBRA:
         getattr(ck, name).launches = 0
 
 
 def plm_pass_launches(res, what: str) -> dict:
     """The passes' launches since the last reset, checked against one fused
-    fit's ``res``: ``plm_trial`` once a line-search trial (``n_evals`` - 1),
-    ``plm_update_grad`` once a gradient (``num_iters`` + 1)."""
-    got = {k: getattr(ck, k).launches for k in PLM_PASSES}
-    want = {"plm_trial": res.n_evals - 1, "plm_update_grad": res.num_iters + 1}
-    check(got == want, f"{what}: the plm passes launched {got}, expected {want}")
+    fit's ``res``: ``plm_trial`` once a line-search trial (``n_evals`` - 1,
+    and each first trial queued ahead and thrown away), ``plm_update_grad``
+    once a gradient (``num_iters`` + 1); and the L-BFGS algebra's:
+    ``lbfgs_history`` (the rows and the border) once a step taken
+    (``num_iters``), ``lbfgs_coeffs`` and ``lbfgs_finish`` once a direction:
+    one a step that ran, and one queued ahead and thrown away where the fit
+    stops on the gradient test before the end of a chunk, so ``num_iters``
+    at the iteration cap, one more after a failed line search, and one
+    more or none after convergence."""
+    got = {k: getattr(ck, k).launches for k in PLM_PASSES + LBFGS_ALGEBRA}
+    want = {"plm_trial": res.n_evals - 1 + res.discarded_trials,
+            "plm_update_grad": res.num_iters + 1, "lbfgs_history": res.num_iters}
+    extra = ({1} if res.linesearch_failed else {0, 1}) if res.converged or \
+        res.linesearch_failed else {0}
+    check({k: got[k] for k in want} == want and got["lbfgs_finish"] == got["lbfgs_coeffs"]
+          and got["lbfgs_coeffs"] - res.num_iters in extra,
+          f"{what}: the plm passes launched {got}, expected {want} and "
+          f"lbfgs_coeffs = lbfgs_finish = {res.num_iters} + one of {sorted(extra)}")
     return got
 
 
@@ -429,6 +454,133 @@ def phase_plm_passes(dev):
                   "equal", flush=True)
         del p, args, calls
         torch.cuda.empty_cache()
+    return worst, timing
+
+
+def lbfgs_problem(k, m, dim, dev, bf16):
+    """A history after ``k`` steps (float32, or its rows in bfloat16), the
+    gradients ``g`` and ``g'``, and the Gram and projections over it."""
+    g = torch.Generator(device=dev).manual_seed(k + 7 * bf16)
+    z = torch.zeros((2 * m, dim), device=dev)
+    for t in range(max(0, k - m), k):
+        s = torch.randn(dim, generator=g, device=dev)
+        z[t % m] = s
+        z[t % m + m] = 1.3 * s + 0.1 * torch.randn(dim, generator=g, device=dev)
+    if bf16:
+        z = z.to(torch.bfloat16)
+    grad, grad_new = (torch.randn(dim, generator=g, device=dev) for _ in range(2))
+    zf = z.float()
+    zzt = zf @ zf.T
+    del zf
+    return z, grad, grad_new, zzt, ck._hist_dot(z, grad)
+
+
+def phase_lbfgs(dev):
+    """The fused plm step's L-BFGS kernels against their plain versions at
+    the main path's shape (D = Lq + (Lq)^2 at L = 195, q = 21; m = 5), with
+    histories not yet full and wrapped, float32 and bfloat16 rows, and the
+    steepest-descent fallback: the coefficients against the CPU's algebra
+    (LAPACK's solves) within 1e-4 of each part's largest value, a collapse
+    to -g equal; the direction within 2 float32 ulps of its terms; the rows
+    equal to the bit and the Gram and projections within 1e-5 of their
+    largest value (the card tests' limits), a step not taken leaving all
+    as it was.  Then each kernel's time (CUDA events with the wrapper;
+    device time by torch.profiler) beside its byte bound (each input read
+    once, each output written once) and the plain version's."""
+    m, (_, l, q) = 5, MAIN_SHAPE
+    lq = l * q
+    dim = lq + lq * lq
+    worst = dict.fromkeys(LBFGS_KERNELS, 0.0)
+    timing = {}
+    for name, k, bf16, fallback in (("fresh", 3, False, False), ("wrapped", 13, False, False),
+                                    ("fallback", 13, False, True), ("no_update", 12, False, False),
+                                    ("bf16_wrapped", 13, True, False)):
+        z, g, g_new, zzt, zg = lbfgs_problem(k, m, dim, dev, bf16)
+        gg = np.float32(float(torch.dot(g, g)))
+        gg_dev = torch.dot(g, g)
+        got = ck.lbfgs_coeffs(zg, zzt, gg_dev, k, m)
+        want = ck.lbfgs_coeffs_reference(zg.cpu(), zzt.cpu(), gg, k, m)
+        coeff_err = max(float((got[a:b].cpu() - want[a:b]).abs().max()
+                              / (float(want[a:b].abs().max()) or 1.0))
+                        for a, b in ((0, 1), (1, 2), (2, 3), (3, 2 * m + 3)))
+        collapse = ck.lbfgs_coeffs(zg, zzt, -gg_dev * 1e3, k, m)
+        check(coeff_err <= 1e-4 and torch.equal(
+            collapse.cpu(), ck.lbfgs_coeffs_reference(zg.cpu(), zzt.cpu(), -gg * np.float32(1e3),
+                                                      k, m)),
+              f"plm_lbfgs_coeffs {name}: off by {coeff_err:.3g} of the parts' largest values, "
+              "or its collapse to -g differs")
+        gamma, cfull = got[0], got[3:]
+        zc = plm._hist_combine(cfull, z)
+        d = ck.lbfgs_finish(zc.clone(), g, gamma)
+        d_want = zc.clone().add_(g, alpha=float(gamma)).neg_()
+        fin_err = ulps(d, d_want, (float(gamma) * g).abs() + zc.abs())
+        check(fin_err <= 2, f"plm_lbfgs_finish {name}: off by {fin_err:.3g} ulps")
+        coeffs = (gamma, cfull)
+        if fallback:
+            d, coeffs = -g, None
+        dg0 = np.float32(float(torch.dot(g, d)))
+        dnorm2 = np.float32(float(torch.dot(d, d)))
+        alpha = np.float32(1e-20 if name == "no_update" else 0.7)
+        args = (g, d, g_new, k, alpha, dg0, dnorm2, gg, coeffs)
+        z_got, z_want = z.clone(), z.clone()
+        h_got = ck.lbfgs_history(z_got, zzt.clone(), zg.clone(), *args)
+        h_want = ck.lbfgs_history_reference(z_want, zzt.clone(), zg.clone(), *args)
+        gram_err = max(float((a - b).abs().max() / (float(b.abs().max()) or 1.0))
+                       for a, b in zip(h_got, h_want))
+        rows_equal = torch.equal(z_got, z_want)
+        moved = not torch.equal(z_got, z)
+        check(rows_equal and gram_err <= 1e-5 and moved == (name != "no_update")
+              and (moved or torch.equal(h_got[0], zzt)),
+              f"lbfgs_history {name}: rows equal {rows_equal}, written {moved}, the Gram, "
+              f"projections and |g'|^2 off by {gram_err:.3g} of their largest values")
+        del z_got, z_want, h_got, h_want, zc, d_want
+        worst["plm_lbfgs_coeffs"] = max(worst["plm_lbfgs_coeffs"], coeff_err)
+        worst["plm_lbfgs_finish"] = max(worst["plm_lbfgs_finish"], fin_err * EPS32)
+        worst["plm_lbfgs_border"] = max(worst["plm_lbfgs_border"], gram_err)
+        print(f"phase 2 kernel plm_lbfgs {name} D={dim} m={m} k={k} rows "
+              f"{'bfloat16' if bf16 else 'float32'}{' fallback' if fallback else ''}: "
+              f"coefficients off by {coeff_err:.3g} of their largest values, collapse equal; "
+              f"direction {fin_err:.2f} ulps; rows equal, written {moved}; Gram, projections "
+              f"and |g'|^2 off by {gram_err:.3g}", flush=True)
+        if name == "wrapped":  # times, on the main path's rows
+            gram_b = 4 * (4 * m * m * 2 + 2 * m * 3 + 3)
+            zc = plm._hist_combine(cfull, z)
+            hist_state = (z.clone(), zzt.clone(), zg.clone())
+            zcpu, zzcpu = zg.cpu(), zzt.cpu()
+            calls = {
+                "plm_lbfgs_coeffs": (
+                    lambda: ck.lbfgs_coeffs(zg, zzt, gg_dev, k, m), None,
+                    4 * (4 * m * m + 2 * m + 1 + 2 * m + 3)),
+                "plm_lbfgs_finish": (
+                    lambda: ck.lbfgs_finish(zc, g, gamma),
+                    lambda: zc.add_(g, alpha=float(gamma)).neg_(), 4 * 3 * dim),
+                "plm_lbfgs_rows": (
+                    lambda: ck.lbfgs_history(*hist_state, *args),
+                    lambda: ck.lbfgs_history_reference(*hist_state, *args), 4 * 5 * dim),
+                "plm_lbfgs_border": (
+                    lambda: ck.lbfgs_history(*hist_state, *args),
+                    lambda: ck.lbfgs_history_reference(*hist_state, *args), gram_b),
+            }
+            for kname, (kernel, plain, nbytes) in calls.items():
+                ms = cuda_ms(kernel, 20)
+                dev_ms = device_ms(kernel, (kname,), 20)
+                if plain is None:  # the parent's host algebra, on CPU tensors
+                    t0 = time.perf_counter()
+                    for _ in range(20):
+                        ck.lbfgs_coeffs_reference(zcpu, zzcpu, gg, k, m)
+                    plain_ms = 1e3 * (time.perf_counter() - t0) / 20
+                else:
+                    plain_ms = cuda_ms(plain, 5)
+                bound = bound_of(0.0, nbytes / PEAK["bytes"])
+                timing[kname] = (ms, dev_ms, plain_ms, bound)
+                print(f"phase 2 kernel {kname} D={dim} m={m}: wrapper "
+                      f"{LBFGS_KERNELS[kname][0]} {ms:.4f} ms (device {dev_ms:.4f}), plain "
+                      f"{plain_ms:.4f} ms, bound {bound[0]:.3g} ms by {bound[1]} "
+                      f"({100 * bound[0] / dev_ms:.3g}% of it)", flush=True)
+            del hist_state, zc, calls
+        del z, g, g_new, zzt, zg, d, args
+        torch.cuda.empty_cache()
+    worst["plm_lbfgs_rows"] = 0.0  # equal to the bit in every case
     return worst, timing
 
 
@@ -791,11 +943,13 @@ def phase_di_cpu_vs_cuda(tmp, plm_fa, plm_runs, mf_fa, mf_runs):
 
 
 def fit_text(res, fit_s):
-    """Iterations, evaluations, host syncs per iteration, s per iteration
-    and per evaluation, and the fit's wall of one L-BFGS result."""
+    """Iterations, evaluations, host syncs per iteration, discarded
+    trials, s per iteration and per evaluation, and the fit's wall of one
+    L-BFGS result."""
     iters = max(res.num_iters, 1)
     return (f"{res.num_iters} iterations, {res.n_evals} evaluations, "
-            f"{res.host_syncs / iters:.2f} host syncs/iter, {fit_s / iters:.4f} s/iter, "
+            f"{res.host_syncs / iters:.2f} host syncs/iter, "
+            f"{res.discarded_trials} discarded trials, {fit_s / iters:.4f} s/iter, "
             f"{fit_s / res.n_evals:.4f} s/eval, fit {fit_s:.3f} s")
 
 
@@ -1695,7 +1849,8 @@ def phase_bf16_cli(tmp, smi, main_fa, inst_main, scores_main):
     print(f"phase 19 (a) [{smi}] plmdca compute_fn --apc --precision bfloat16 N="
           f"{inst.num_sequences} L={l} q={q}: FN-APC against phase 3's float32 file {bar}; "
           f"{res.num_iters} iterations, {res.n_evals} evaluations, {per_it:.2f} ms/iteration, "
-          f"host syncs/iteration {res.host_syncs / max(res.num_iters, 1):.2f}, fit {fit_s:.3f} s, "
+          f"host syncs/iteration {res.host_syncs / max(res.num_iters, 1):.2f}, discarded trials "
+          f"{res.discarded_trials}, fit {fit_s:.3f} s, "
           f"peak memory {peak:.2f} GiB; phase 3 (float32): {ref.num_iters} iterations, "
           f"{ref_it:.2f} ms/iteration, host syncs/iteration "
           f"{ref.host_syncs / max(ref.num_iters, 1):.2f}; the products at phase 3's theta "
@@ -2543,6 +2698,7 @@ def main() -> int:
     # ---- phase 2: kernel vs plain version on the card
     max_err, timing = phase_kernel(dev)
     pass_err, pass_timing = phase_plm_passes(dev)
+    lbfgs_err, lbfgs_timing = phase_lbfgs(dev)
     clock.lap("2")
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2580,6 +2736,7 @@ def main() -> int:
               f"{1e3 * fit_s / max(res.num_iters, 1):.2f} ms/iter; "
               f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
               f"host syncs/iter {res.host_syncs / max(res.num_iters, 1):.2f}; "
+              f"discarded trials {res.discarded_trials}; "
               f"kernel launches {launches}, {pass_launches}", flush=True)
         clock.lap("3")
 
@@ -2712,6 +2869,15 @@ def main() -> int:
             "launches": pass_launches[name] + rna_passes[name], "max_rel_err": pass_err[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": lib_ms,
+        })
+    for name, (wrapper, stands_for) in LBFGS_KERNELS.items():  # launches: phases 3 and 4
+        ms, dev_ms, plain_ms, bound = lbfgs_timing[name]
+        records.append({
+            "name": name, "route": "cuda", "source": "pydca_tpu_torch/csrc/plm_passes.cu",
+            "replaces": None, "stands_for": stands_for, "wrapper": wrapper,
+            "launches": pass_launches[wrapper] + rna_passes[wrapper],
+            "max_rel_err": lbfgs_err[name], "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
         })
     print(json.dumps({"kernels": records}), flush=True)
     print(json.dumps({"ok": True, "device": {

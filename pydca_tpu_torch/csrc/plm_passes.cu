@@ -78,6 +78,7 @@
 
 #include <cmath>
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -463,5 +464,260 @@ extern "C" int plm_update_grad_launch(void* logits, void* picked, const void* u,
   plm_gh_reduce_kernel<<<static_cast<unsigned>((threads_r + 255) / 256), 256, 0, st>>>(
       static_cast<const float*>(gh_part), static_cast<int>(grid.y), outs,
       static_cast<float*>(gh));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The fused step's L-BFGS algebra beside the history (plm._plm_fused_step).
+//
+// The history Z = [S; Y] is (2m, D) rows, float32 or bfloat16 (a resumed
+// file that holds them; S in rows 0..m-1, Y in m..2m-1; step k writes slot
+// k mod m); its float32 Gram zzt = Z Z^T (2m x 2m, row-major) and
+// projections zg = Z g (2m) stay on the card beside it, so that the host
+// decides nothing between a gradient and the next step's first trial.  As
+// torch operations this algebra is some 130 launches of a few elements a
+// step and four passes over the D-vectors where a device scalar rides along
+// (0.25 ms of the card a step at m = 5, D = 8.3 M on an H100); here it is
+// two launches of one thread and two plain passes.  The plain compositions
+// are ops/cuda_kernels.py's lbfgs_coeffs_reference and
+// lbfgs_history_reference.  The arithmetic is theirs, in float32.
+//
+// plm_lbfgs_coeffs_kernel: out = [gamma, dg0, |d|^2, c_0 .. c_2m-1] of the
+//   direction d = -(gamma g + Z^T c) (Byrd-Nocedal-Schnabel: H0 = gamma I,
+//   R the chronologically upper-triangular part of S Y^T over the filled
+//   slots, an empty slot's diagonal 1), from zg, zzt, |g|^2 (*gg_dev, or
+//   gg_host when gg_dev is null) and the iteration k; (1, -|g|^2, |g|^2, 0)
+//   when the estimated directional derivative dg0 is not negative.  The two
+//   triangular solves run in the slots' chronological order, oldest (slot
+//   k mod m) first.
+// A step of length alpha along d gives the rows s = alpha d, y = g' - g for
+// slot `slot`, taken where s.y = (d.g' - dg0) alpha > 1e-10 (else the
+// history stays as it is); dots = [g'.g', g.g', d.g'] and, for bfloat16
+// rows, [s_r.g', y_r.g'] of the rows as stored (s.g' = alpha d.g' and y.g'
+// = g'.g' - g.g' for float32 rows).
+// plm_lbfgs_rows_kernel: where the step is taken, s_row = alpha d and y_row
+//   = g' - g, rounded to nearest even for bfloat16 rows.
+// plm_lbfgs_border_kernel: where the step is taken, borders zzt by the
+//   identities Z s = alpha Z d = -alpha (gamma zg + zzt c) (-alpha zg after
+//   the steepest-descent fallback, cfull null) and Z y = Z g' - Z g, and
+//   sets zg to Z g' (zg_new, the old rows' Z g', bordered where taken), in
+//   place; a2dn = alpha^2 |d|^2, gg = |g|^2.
+// plm_lbfgs_finish_kernel: d = -(gamma g + d) in place, gamma = *gamma.
+
+namespace {
+
+constexpr int MAX_HIST = 32;  // m, the history's pairs
+constexpr int PASS_THREADS = 256;
+
+// s.y > 1e-10: whether the step's rows enter the history (both kernels)
+__device__ __forceinline__ bool step_taken(const float* dots, float dg0, float alpha) {
+  return __fmul_rn(__fsub_rn(dots[2], dg0), alpha) > 1e-10f;
+}
+
+__device__ __forceinline__ int wrap(int a, int m) {
+  const int r = a % m;
+  return r < 0 ? r + m : r;
+}
+
+__global__ void plm_lbfgs_coeffs_kernel(const float* __restrict__ zg,
+                                        const float* __restrict__ zzt,
+                                        const float* __restrict__ gg_dev, float gg_host, int k,
+                                        int m, float* __restrict__ out) {
+  const int n2 = 2 * m;
+  const float gg = gg_dev != nullptr ? *gg_dev : gg_host;
+  auto sy = [&](int i, int j) { return zzt[i * n2 + m + j]; };
+  auto yy = [&](int i, int j) { return zzt[(m + i) * n2 + m + j]; };
+  bool valid[MAX_HIST];
+  int order[MAX_HIST];  // slots, oldest first
+  for (int i = 0; i < m; ++i) valid[i] = sy(i, i) != 0.f;
+  for (int a = 0; a < m; ++a) order[a] = wrap(k + a, m);
+  const int newest = wrap(k - 1, m);
+  const float yy_n = valid[newest] ? yy(newest, newest) : 0.f;
+  const float gamma = (k > 0 && yy_n > 0.f) ? sy(newest, newest) / fmaxf(yy_n, 1e-30f) : 1.f;
+
+  float x[MAX_HIST], t[MAX_HIST], inner[MAX_HIST], c[2 * MAX_HIST];
+  for (int a = m - 1; a >= 0; --a) {  // R x = S g, R upper in chronological order
+    const int i = order[a];
+    float acc = zg[i];
+    if (valid[i]) {
+      for (int b = a + 1; b < m; ++b) {
+        const int j = order[b];
+        if (valid[j]) acc -= sy(i, j) * x[j];
+      }
+      acc /= sy(i, i);
+    }
+    x[i] = acc;
+  }
+  for (int i = 0; i < m; ++i) {
+    float s = 0.f;
+    if (valid[i])
+      for (int j = 0; j < m; ++j)
+        if (valid[j]) s += yy(i, j) * x[j];
+    inner[i] = (valid[i] ? sy(i, i) * x[i] : 0.f) + gamma * s - gamma * zg[m + i];
+  }
+  for (int a = 0; a < m; ++a) {  // R^T t = inner, lower in chronological order
+    const int i = order[a];
+    float acc = inner[i];
+    if (valid[i]) {
+      for (int b = 0; b < a; ++b) {
+        const int j = order[b];
+        if (valid[j]) acc -= sy(j, i) * t[j];
+      }
+      acc /= sy(i, i);
+    }
+    t[i] = acc;
+  }
+  for (int i = 0; i < m; ++i) {
+    c[i] = t[i];
+    c[m + i] = gamma * -x[i];
+  }
+  float zgc = 0.f, czc = 0.f;
+  for (int r = 0; r < n2; ++r) zgc += zg[r] * c[r];
+  for (int r = 0; r < n2; ++r) {
+    float s = 0.f;
+    for (int q = 0; q < n2; ++q) s += zzt[r * n2 + q] * c[q];
+    czc += c[r] * s;
+  }
+  const float dg0 = -(gamma * gg + zgc);
+  const float dn2 = gamma * gamma * gg + 2.f * gamma * zgc + czc;
+  const bool descent = !(dg0 >= 0.f);
+  out[0] = descent ? gamma : 1.f;
+  out[1] = descent ? dg0 : -gg;
+  out[2] = descent ? fmaxf(dn2, 1e-30f) : gg;
+  for (int r = 0; r < n2; ++r) out[3 + r] = descent ? c[r] : 0.f;
+}
+
+__global__ void plm_lbfgs_border_kernel(float* __restrict__ zzt, float* __restrict__ zg,
+                                        const float* __restrict__ zg_new,
+                                        const float* __restrict__ gamma,
+                                        const float* __restrict__ cfull,
+                                        const float* __restrict__ dots, int m, int slot,
+                                        float alpha, float dg0, float a2dn, float gg,
+                                        int rounded) {
+  const int n2 = 2 * m;
+  const float gg_new = dots[0], gog = dots[1], dgn = dots[2];
+  const float sy = __fmul_rn(__fsub_rn(dgn, dg0), alpha);
+  if (!step_taken(dots, dg0, alpha)) {
+    for (int r = 0; r < n2; ++r) zg[r] = zg_new[r];
+    return;
+  }
+  float zgu[2 * MAX_HIST], zs[2 * MAX_HIST], zy[2 * MAX_HIST];
+  for (int r = 0; r < n2; ++r) zgu[r] = zg_new[r];
+  zgu[slot] = rounded ? dots[3] : dgn * alpha;         // s . g'
+  zgu[slot + m] = rounded ? dots[4] : gg_new - gog;   // y . g'
+  for (int r = 0; r < n2; ++r) {
+    float zd = -zg[r];  // Z d after the steepest-descent fallback (cfull null)
+    if (cfull != nullptr) {
+      float s = 0.f;
+      for (int q = 0; q < n2; ++q) s += zzt[r * n2 + q] * cfull[q];
+      zd = -(*gamma * zg[r] + s);
+    }
+    zs[r] = zd * alpha;
+    zy[r] = zgu[r] - zg[r];
+  }
+  zs[slot] = a2dn;
+  zs[slot + m] = sy;
+  zy[slot] = sy;
+  zy[slot + m] = gg_new - 2.f * gog + gg;
+  for (int r = 0; r < n2; ++r) {
+    zzt[slot * n2 + r] = zs[r];
+    zzt[r * n2 + slot] = zs[r];
+  }
+  for (int r = 0; r < n2; ++r) {
+    zzt[(slot + m) * n2 + r] = zy[r];
+    zzt[r * n2 + slot + m] = zy[r];
+  }
+  for (int r = 0; r < n2; ++r) zg[r] = zgu[r];
+}
+
+__device__ __forceinline__ void store_row(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_row(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <typename Row>
+__global__ void plm_lbfgs_rows_kernel(const float* __restrict__ d, const float* __restrict__ gn,
+                                      const float* __restrict__ go, float alpha,
+                                      const float* __restrict__ dots, float dg0,
+                                      Row* __restrict__ s_row, Row* __restrict__ y_row,
+                                      long long n) {
+  if (!step_taken(dots, dg0, alpha)) return;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    store_row(s_row + i, __fmul_rn(alpha, d[i]));
+    store_row(y_row + i, __fsub_rn(gn[i], go[i]));
+  }
+}
+
+__global__ void plm_lbfgs_finish_kernel(float* __restrict__ d, const float* __restrict__ g,
+                                        const float* __restrict__ gamma, long long n) {
+  const float gm = *gamma;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
+       i += stride)
+    d[i] = -__fmaf_rn(gm, g[i], d[i]);
+}
+
+unsigned pass_blocks(long long n) {
+  const long long b = (n + 4LL * PASS_THREADS - 1) / (4LL * PASS_THREADS);  // 4 elements a thread
+  return static_cast<unsigned>(b < 1 ? 1 : (b > 65535 ? 65535 : b));
+}
+
+}  // namespace
+
+// Plain C launchers of the L-BFGS algebra (bound with ctypes); layouts
+// above.  Each runs on `stream` without synchronising and returns
+// cudaGetLastError() (0 on success), or cudaErrorInvalidValue for m outside
+// [1, 32], a slot outside [0, m) or n < 0.  Rows are float32, or bfloat16
+// where `bf16` (then the border takes dots[3], dots[4]: `rounded`).
+extern "C" int plm_lbfgs_coeffs_launch(const void* zg, const void* zzt, const void* gg_dev,
+                                       float gg_host, int k, int m, void* out, void* stream) {
+  if (m < 1 || m > MAX_HIST || k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  plm_lbfgs_coeffs_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(zg), static_cast<const float*>(zzt),
+      static_cast<const float*>(gg_dev), gg_host, k, m, static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int plm_lbfgs_border_launch(void* zzt, void* zg, const void* zg_new, const void* gamma,
+                                       const void* cfull, const void* dots, int m, int slot,
+                                       float alpha, float dg0, float a2dn, float gg, int rounded,
+                                       void* stream) {
+  if (m < 1 || m > MAX_HIST || slot < 0 || slot >= m)
+    return static_cast<int>(cudaErrorInvalidValue);
+  plm_lbfgs_border_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(zzt), static_cast<float*>(zg), static_cast<const float*>(zg_new),
+      static_cast<const float*>(gamma), static_cast<const float*>(cfull),
+      static_cast<const float*>(dots), m, slot, alpha, dg0, a2dn, gg, rounded);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int plm_lbfgs_rows_launch(const void* d, const void* gn, const void* go, float alpha,
+                                     const void* dots, float dg0, void* s_row, void* y_row,
+                                     long long n, int bf16, void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  const auto st = static_cast<cudaStream_t>(stream);
+  const float* dp = static_cast<const float*>(d);
+  const float* gp = static_cast<const float*>(gn);
+  const float* op = static_cast<const float*>(go);
+  const float* tp = static_cast<const float*>(dots);
+  if (bf16)
+    plm_lbfgs_rows_kernel<<<pass_blocks(n), PASS_THREADS, 0, st>>>(
+        dp, gp, op, alpha, tp, dg0, static_cast<__nv_bfloat16*>(s_row),
+        static_cast<__nv_bfloat16*>(y_row), n);
+  else
+    plm_lbfgs_rows_kernel<<<pass_blocks(n), PASS_THREADS, 0, st>>>(
+        dp, gp, op, alpha, tp, dg0, static_cast<float*>(s_row), static_cast<float*>(y_row), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int plm_lbfgs_finish_launch(void* d, const void* g, const void* gamma, long long n,
+                                       void* stream) {
+  if (n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  plm_lbfgs_finish_kernel<<<pass_blocks(n), PASS_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float*>(d), static_cast<const float*>(g), static_cast<const float*>(gamma), n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,6 +13,13 @@
   trial's objective and slope, and the step's update with the gradient's
   softmax cotangent.  They replace no TPU kernel (XLA fuses the same
   composition there); the kernels are ``csrc/plm_passes.cu``.
+- :func:`lbfgs_coeffs`, :func:`lbfgs_history` and :func:`lbfgs_finish` —
+  the fused step's L-BFGS algebra beside its history on the card: the
+  direction's coefficients, the history's new rows with its Gram's border,
+  and the direction.  They replace no TPU kernel (the JAX package's jitted
+  step runs the same algebra on the device); the kernels are in the same
+  source.  They open no span: their callers' spans (``plm/direction``,
+  ``plm/history``) hold them.
 
 A wrapper takes the plain version only because its tensor lies on the CPU;
 for a CUDA tensor it launches the kernel or raises.  Each wrapper counts
@@ -41,6 +48,11 @@ __all__ = [
     "identity_counts",
     "identity_counts_reference",
     "identity_tile_share",
+    "lbfgs_coeffs",
+    "lbfgs_coeffs_reference",
+    "lbfgs_finish",
+    "lbfgs_history",
+    "lbfgs_history_reference",
     "plm_trial",
     "plm_trial_reference",
     "plm_update_grad",
@@ -620,4 +632,196 @@ def _plm_passes_lib() -> ctypes.CDLL:
     lib.plm_passes_blocks.restype = ctypes.c_longlong
     lib.plm_passes_row_blocks.argtypes = [i]
     lib.plm_passes_row_blocks.restype = ctypes.c_int
+    n = ctypes.c_longlong
+    lib.plm_lbfgs_coeffs_launch.argtypes = [p, p, p, f, i, i, p, p]
+    lib.plm_lbfgs_border_launch.argtypes = [p, p, p, p, p, p, i, i, f, f, f, f, i, p]
+    lib.plm_lbfgs_rows_launch.argtypes = [p, p, p, f, p, f, p, p, n, i, p]
+    lib.plm_lbfgs_finish_launch.argtypes = [p, p, p, n, p]
+    for name in ("coeffs", "border", "rows", "finish"):
+        getattr(lib, f"plm_lbfgs_{name}_launch").restype = ctypes.c_int
     return lib
+
+
+# ------------------------------------------- the fused step's L-BFGS algebra
+_LBFGS_MAX_M = 32  # csrc/plm_passes.cu's MAX_HIST
+
+
+def _lbfgs_launch(name: str, dev: torch.device, *args) -> None:
+    """Launch ``plm_lbfgs_<name>_launch(*args, stream)`` on ``dev``'s
+    current stream, without synchronising; raise on a launch error."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with _launch_on(dev):
+        err = getattr(_plm_passes_lib(), f"plm_lbfgs_{name}_launch")(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"plm_lbfgs_{name} launch failed: CUDA error {err}")
+
+
+def _lbfgs_check(*tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(f"the L-BFGS kernels take tensors on one card, got {t.device}")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise TypeError(f"the L-BFGS kernels take contiguous float32, got {t.dtype}")
+    return dev
+
+
+def lbfgs_coeffs_reference(zg: torch.Tensor, zzt: torch.Tensor, gg, k: int,
+                           m: int) -> torch.Tensor:
+    """The plain version of :func:`lbfgs_coeffs`: the m x m algebra in
+    torch (``ops.lbfgs._compact_coeffs``; on CPU tensors LAPACK's solves),
+    with the collapse to ``d = -g`` decided on the host."""
+    from .lbfgs import _compact_coeffs  # ops.lbfgs imports this module
+
+    gg = torch.as_tensor(gg, dtype=zg.dtype, device=zg.device)
+    sy_mat = zzt[:m, m:]
+    valid = torch.diagonal(sy_mat) != 0
+    gamma, cfull = _compact_coeffs(zg[:m], zg[m:], sy_mat, zzt[m:, m:], valid, k, m)
+    zg_c = torch.dot(zg, cfull)
+    dg0 = -(gamma * gg + zg_c)
+    dnorm2 = gamma * gamma * gg + 2.0 * gamma * zg_c + torch.dot(cfull, zzt @ cfull)
+    if bool(dg0 >= 0):
+        one = torch.ones((), dtype=zg.dtype, device=zg.device)
+        return torch.cat([torch.stack([one, -gg, gg]), torch.zeros_like(cfull)])
+    return torch.cat([torch.stack([gamma, dg0, torch.clamp_min(dnorm2, 1e-30)]), cfull])
+
+
+def lbfgs_coeffs(zg: torch.Tensor, zzt: torch.Tensor, gg, k: int, m: int) -> torch.Tensor:
+    """``[gamma, dg0, dnorm2, cfull...]`` ((2m + 3,) float32) of the
+    Byrd-Nocedal-Schnabel direction ``d = -(gamma g + Z^T cfull)`` from the
+    history's projections ``zg = Z g``, Gram ``zzt = Z Z^T`` and ``gg =
+    ||g||^2`` (a 0-d tensor, or a host number) at iteration ``k``; ``(1,
+    -gg, gg, 0)`` when the estimated ``dg0`` is not negative
+    (``ops.lbfgs.direction_coeffs``).  On CPU tensors this is
+    :func:`lbfgs_coeffs_reference`; on a card one launch of one thread,
+    which makes the host wait for nothing."""
+    if zg.device.type == "cpu":
+        return lbfgs_coeffs_reference(zg, zzt, gg, k, m)
+    if not 1 <= m <= _LBFGS_MAX_M or k < 0:
+        raise ValueError(f"m must be in [1, {_LBFGS_MAX_M}] and k >= 0, got m={m}, k={k}")
+    on_card = torch.is_tensor(gg)
+    dev = _lbfgs_check(zg, zzt, *((gg,) if on_card else ()))
+    out = torch.empty(2 * m + 3, dtype=torch.float32, device=dev)
+    _lbfgs_launch("coeffs", dev, zg.data_ptr(), zzt.data_ptr(),
+                  gg.data_ptr() if on_card else None, 0.0 if on_card else float(gg), int(k), m,
+                  out.data_ptr())
+    lbfgs_coeffs.launches += 1
+    return out
+
+
+lbfgs_coeffs.launches = 0
+
+
+def _hist_dot(z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``Z @ g`` in float32; bfloat16 rows are upcast one at a time
+    (``pydca_tpu/plm.py:1102-1108``)."""
+    if z.dtype == torch.float32:
+        return torch.matmul(z, g)
+    return torch.stack([torch.dot(row.float(), g) for row in z])
+
+
+def lbfgs_history_reference(z, zzt, zg, g, d, g_new, k: int, alpha, dg0, dnorm2, gg, coeffs):
+    """The plain version of :func:`lbfgs_history`, as torch operations
+    (``pydca_tpu/plm.py:1110-1124``): where ``s . y`` is not above 1e-10
+    the rows and the Gram stay as they are, by a select, not a branch on
+    the host.  The rows are written in place; the Gram and projections
+    are new tensors."""
+    m = z.shape[0] // 2
+    a = float(alpha)
+    slot = k % m
+    zg_new = _hist_dot(z, g_new)  # Z @ g' with the rows before the write
+    gg_new, gog, dgn = torch.dot(g_new, g_new), torch.dot(g, g_new), torch.dot(d, g_new)
+    sy = (dgn - float(dg0)) * a
+    upd = sy > 1e-10
+    s_row, y_row = d * a, g_new - g
+    zg_upd = zg_new.clone()
+    if z.dtype == torch.bfloat16:
+        # the new rows as they will be stored, and their dots with g' (the
+        # JAX package reads Z @ g' from the rounded rows)
+        s_row, y_row = s_row.to(torch.bfloat16), y_row.to(torch.bfloat16)
+        zg_upd[slot] = torch.dot(s_row.float(), g_new)
+        zg_upd[slot + m] = torch.dot(y_row.float(), g_new)
+    else:
+        zg_upd[slot] = dgn * a  # s . g'
+        zg_upd[slot + m] = gg_new - gog  # y . g'
+    for row, new in ((slot, s_row), (slot + m, y_row)):
+        torch.where(upd, new, z[row], out=z[row])
+    del s_row, y_row
+    # Z@s = alpha * Z@d = -alpha*(gamma*Zg + ZZt@c);  Z@y = Z@g' - Z@g
+    zd = -zg if coeffs is None else -(coeffs[0] * zg + zzt @ coeffs[1])
+    zs_vec = zd * a
+    zs_vec[slot].fill_(float(alpha * alpha * dnorm2))  # a fill: a copy from the host would wait
+    zs_vec[slot + m] = sy
+    zy_vec = zg_upd - zg
+    zy_vec[slot] = sy
+    zy_vec[slot + m] = gg_new - 2.0 * gog + float(gg)
+    bordered = zzt.clone()
+    bordered[slot, :] = zs_vec
+    bordered[:, slot] = zs_vec
+    bordered[slot + m, :] = zy_vec
+    bordered[:, slot + m] = zy_vec
+    return torch.where(upd, bordered, zzt), torch.where(upd, zg_upd, zg_new), gg_new
+
+
+def lbfgs_history(z, zzt, zg, g, d, g_new, k: int, alpha, dg0, dnorm2, gg, coeffs):
+    """Write a taken step's rows ``s = alpha d`` and ``y = g' - g`` into
+    slot ``k mod m`` of the history ``z`` ((2m, D) float32 or bfloat16
+    rows, in place), border its float32 Gram ``zzt`` and set its
+    projections ``zg`` to ``Z g'`` by scalar algebra, from the host's
+    ``alpha``, ``dg0``, ``dnorm2`` (``||d||^2``) and ``gg`` (``||g||^2``)
+    and the old gradient ``g``; where ``s . y`` is not above 1e-10 the rows
+    and the Gram stay as they are.  ``coeffs``: the direction's ``(gamma,
+    cfull)`` on the device, None after the steepest-descent fallback (d =
+    -g).  Returns ``(zzt, zg, gg_new)``, ``gg_new = ||g'||^2`` a 0-d device
+    tensor.  On CPU tensors this is :func:`lbfgs_history_reference`; on a
+    card the dots and two launches, which make the host wait for nothing:
+    one pass that writes the rows (rounded as ``.to(torch.bfloat16)`` rounds
+    for bfloat16 rows, whose dots with ``g'`` are then taken from the rows
+    as stored) and one thread that borders the Gram, both in place."""
+    if z.device.type == "cpu":
+        return lbfgs_history_reference(z, zzt, zg, g, d, g_new, k, alpha, dg0, dnorm2, gg,
+                                       coeffs)
+    m = z.shape[0] // 2
+    if not 1 <= m <= _LBFGS_MAX_M:
+        raise ValueError(f"m must be in [1, {_LBFGS_MAX_M}], got {m}")
+    dev = _lbfgs_check(zzt, zg, g, d, g_new, *(coeffs or ()))
+    rounded = z.dtype == torch.bfloat16
+    if z.device != dev or z.dtype not in (torch.float32, torch.bfloat16) or not z.is_contiguous():
+        raise TypeError(f"the history is contiguous float32 or bfloat16 rows on {dev}, got "
+                        f"{z.dtype} on {z.device}")
+    slot = k % m
+    zg_new = _hist_dot(z, g_new)  # Z @ g' with the rows before the write
+    dots = torch.empty(5 if rounded else 3, dtype=torch.float32, device=dev)
+    for i, a in enumerate((g_new, g, d)):
+        torch.dot(a, g_new, out=dots[i])
+    s_row, y_row = z[slot], z[slot + m]
+    _lbfgs_launch("rows", dev, d.data_ptr(), g_new.data_ptr(), g.data_ptr(), float(alpha),
+                  dots.data_ptr(), float(dg0), s_row.data_ptr(), y_row.data_ptr(), d.numel(),
+                  int(rounded))
+    if rounded:
+        for i, row in ((3, s_row), (4, y_row)):
+            torch.dot(row.float(), g_new, out=dots[i])
+    gp, cp = (None, None) if coeffs is None else (coeffs[0].data_ptr(), coeffs[1].data_ptr())
+    _lbfgs_launch("border", dev, zzt.data_ptr(), zg.data_ptr(), zg_new.data_ptr(), gp, cp,
+                  dots.data_ptr(), m, slot, float(alpha), float(dg0),
+                  float(alpha * alpha * dnorm2), float(gg), int(rounded))
+    lbfgs_history.launches += 1
+    return zzt, zg, dots[0]
+
+
+lbfgs_history.launches = 0
+
+
+def lbfgs_finish(d: torch.Tensor, g: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
+    """``d = -(gamma g + d)`` in place (``d`` holding ``Z^T c``), ``gamma``
+    a 0-d tensor; returns ``d``.  On CPU tensors ``add_`` and ``neg_``; on
+    a card one pass that reads ``gamma`` there."""
+    if d.device.type == "cpu":
+        return d.add_(g, alpha=float(gamma)).neg_()
+    dev = _lbfgs_check(d, g, gamma)
+    _lbfgs_launch("finish", dev, d.data_ptr(), g.data_ptr(), gamma.data_ptr(), d.numel())
+    lbfgs_finish.launches += 1
+    return d
+
+
+lbfgs_finish.launches = 0

@@ -4,13 +4,14 @@ generic loop over a caller's objective.
 Port of ``pydca_tpu/ops/lbfgs.py``:
 
 - ``direction_coeffs``, ``wolfe_scalar`` and ``_cubic_step`` (plus
-  :class:`LBFGSResult`), the scalar decisions of the fused plm loop
-  (:mod:`pydca_tpu_torch.plm`).  They branch on scalar values, so they run
-  on the host: the history Gram is a (2m, 2m) float32 tensor on the CPU,
-  and each line-search trial costs one device pass plus one device-to-host
-  read of two scalars (``phi``).  The search itself is a resumable
-  generator (``wolfe_search``), which ``wolfe_scalar`` drives one trial at
-  a time.
+  :class:`LBFGSResult`), the scalar machinery of the fused plm loop
+  (:mod:`pydca_tpu_torch.plm`).  ``direction_coeffs`` runs where the
+  history Gram is: on a card one kernel launch that makes the host wait
+  for nothing, on the CPU the m x m algebra in torch.  The strong-Wolfe
+  search branches on scalar values, so it runs on the host: each
+  line-search trial costs one device pass plus one device-to-host read of
+  two scalars (``phi``).  The search itself is a resumable generator
+  (``wolfe_search``), which ``wolfe_scalar`` drives one trial at a time.
 - The generic loop over ``fun(x) -> (f, g)`` (:class:`LBFGSState`,
   ``_two_loop``, ``_wolfe_linesearch``, ``lbfgs_init``, ``lbfgs_steps``,
   ``result_from_state``, ``lbfgs_minimize``), which the streamed plm fit
@@ -44,6 +45,7 @@ import numpy as np
 import torch
 
 from ..profiling import span
+from .cuda_kernels import lbfgs_coeffs
 
 __all__ = [
     "LBFGSBatch",
@@ -73,6 +75,7 @@ class LBFGSResult(NamedTuple):
     linesearch_failed: bool
     n_evals: int  # total objective/gradient evaluations (incl. init)
     host_syncs: int = 0  # device-to-host scalar reads made by the loop
+    discarded_trials: int = 0  # first trials queued ahead and thrown away (fused loop)
 
 
 def _read_f32(*vals: torch.Tensor):
@@ -155,19 +158,14 @@ def direction_coeffs(zg, zzt, gg, k: int, m: int):
     chronologically upper-triangular R of S^T Y).  When the predicted
     directional derivative is non-negative the coefficients collapse to
     ``gamma_eff = 1, cfull = 0`` (d = -g).  Tensors in, tensors out (same
-    dtype and device as ``zg``); ``k`` is the host iteration counter.
+    dtype and device as ``zg``); ``k`` is the host iteration counter;
+    ``gg`` a 0-d tensor or a host number.  This is
+    :func:`~pydca_tpu_torch.ops.cuda_kernels.lbfgs_coeffs`: on a card one
+    kernel launch, which makes the host wait for nothing; on the CPU the
+    m x m algebra (:func:`_compact_coeffs`).
     """
-    sy_mat = zzt[:m, m:]
-    valid = torch.diagonal(sy_mat) != 0
-    gamma, cfull = _compact_coeffs(zg[:m], zg[m:], sy_mat, zzt[m:, m:], valid, k, m)
-    one = torch.ones((), dtype=zg.dtype, device=zg.device)
-
-    zg_c = torch.dot(zg, cfull)
-    dg0 = -(gamma * gg + zg_c)
-    dnorm2 = gamma * gamma * gg + 2.0 * gamma * zg_c + torch.dot(cfull, zzt @ cfull)
-    if bool(dg0 >= 0):
-        return one, torch.zeros_like(cfull), -gg, gg
-    return gamma, cfull, dg0, torch.clamp_min(dnorm2, 1e-30)
+    out = lbfgs_coeffs(zg, zzt, gg, k, m)
+    return out[0], out[3:], out[1], out[2]
 
 
 def wolfe_search(f0, dg0, step0, ftol: float, wolfe: float, max_linesearch: int):

@@ -40,10 +40,14 @@ The fused loop's structure is the JAX package's (see the note above
 ``pydca_tpu/plm.py::_plm_fused_steps``): logits are linear along a search
 direction, so a line-search trial is one elementwise pass over the
 carried logits, and the L-BFGS direction needs only the cached history
-projections ``zg = Z @ g`` and Gram ``zzt = Z @ Z.T``.  The scalar
-decisions (direction coefficients, strong-Wolfe search, history Gram
-update, convergence) run on the host in float32; each is fed by one
-device-to-host read of a few scalars, counted in ``host_syncs``.
+projections ``zg = Z @ g`` and Gram ``zzt = Z @ Z.T``.  The direction's
+coefficients and the history Gram's update run on the device beside the
+history, with no host synchronisation; the decisions that branch (the
+strong-Wolfe search, the steepest-descent fallback, convergence) run on
+the host in float32, fed by device-to-host reads of a few scalars,
+counted in ``host_syncs``: one a step and one for each trial after the
+first, as each step's read also returns the next step's direction and
+its first trial (:func:`_plm_fused_steps`).
 """
 
 from __future__ import annotations
@@ -61,7 +65,7 @@ from . import score as score_mod
 from . import stats
 from .device import resolve_device, set_precision, sync
 from .io.fasta import MSA, read_msa
-from .ops.cuda_kernels import plm_trial, plm_update_grad
+from .ops.cuda_kernels import lbfgs_finish, lbfgs_history, plm_trial, plm_update_grad
 from .ops.lbfgs import (
     LBFGSResult,
     LBFGSState,
@@ -480,11 +484,12 @@ class PlmFusedState:
 
     Device tensors: ``x``, ``g`` (flat D), the ``(2m, D)`` history ``z``
     (float32; bfloat16 rows when resumed from a file that holds them,
-    :func:`_load_state`) and the carried
-    ``logits`` ``(N, q, L)`` / ``picked`` ``(N, L)``.
-    Host float32: ``f`` and the scalar squares; ``zzt`` ``(2m, 2m)`` and
-    ``zg`` ``(2m,)`` are CPU tensors.  ``host_syncs`` counts the
-    device-to-host reads the loop has made.
+    :func:`_load_state`), its float32 Gram ``zzt = Z @ Z.T`` ``(2m, 2m)``
+    and projections ``zg = Z @ g`` ``(2m,)``, and the carried ``logits``
+    ``(N, q, L)`` / ``picked`` ``(N, L)``.  Host float32: ``f`` and the
+    scalar squares.  ``host_syncs`` counts the device-to-host reads the
+    loop has made; ``discarded_trials`` the first trials it queued ahead
+    of a read and threw away (:func:`_plm_fused_step`).
     """
 
     x: torch.Tensor
@@ -505,6 +510,7 @@ class PlmFusedState:
     ls_failed: bool
     n_evals: int
     host_syncs: int = 0
+    discarded_trials: int = 0
 
     def theta(self) -> torch.Tensor:
         """Reference-layout flat parameter vector [h; J]."""
@@ -512,13 +518,6 @@ class PlmFusedState:
 
     def gnorm(self) -> float:
         return float(np.sqrt(self.gg))
-
-
-def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
-    """Host -> device copy that does not wait for the device's queue."""
-    if device.type == "cpu":
-        return t
-    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _plm_fused_state0(
@@ -545,8 +544,8 @@ def _plm_fused_state0(
         st = PlmFusedState(
             x=theta, f=_F32(0), g=g,
             z=torch.zeros((2 * m, dim), dtype=torch.float32, device=msa.device),
-            zzt=torch.zeros((2 * m, 2 * m), dtype=torch.float32),
-            zg=torch.zeros((2 * m,), dtype=torch.float32),
+            zzt=torch.zeros((2 * m, 2 * m), dtype=torch.float32, device=msa.device),
+            zg=torch.zeros((2 * m,), dtype=torch.float32, device=msa.device),
             gg=_F32(0), xx=_F32(0), rh=_F32(0), rj=_F32(0),
             logits=logits, picked=picked,
             k=0, done=False, converged=False, ls_failed=False, n_evals=1,
@@ -560,30 +559,50 @@ def _plm_fused_state0(
 
 
 def _hist_combine(c: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """``Z^T c`` in float32 for the host coefficients ``c``: one product
-    over float32 rows; bfloat16 rows are upcast one at a time
+    """``Z^T c`` in float32 for the coefficients ``c`` on ``z``'s device:
+    one product over float32 rows; bfloat16 rows are upcast one at a time
     (``pydca_tpu/plm.py:1000-1007``), so no float32 copy of the history is
     made."""
     if z.dtype == torch.float32:
-        return torch.matmul(_to_device(c, z.device), z)
+        return torch.matmul(c, z)
     d = torch.zeros(z.shape[1], dtype=torch.float32, device=z.device)
     for r in range(z.shape[0]):
-        d.add_(z[r], alpha=float(c[r]))
+        d.addcmul_(z[r], c[r])
     return d
 
 
-def _hist_dot(z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """``Z @ g`` in float32; bfloat16 rows are upcast one at a time
-    (``pydca_tpu/plm.py:1102-1108``)."""
-    if z.dtype == torch.float32:
-        return torch.matmul(z, g)
-    return torch.stack([torch.dot(row.float(), g) for row in z])
+def _direction(st: PlmFusedState, gg, lq: int):
+    """The step's direction ``d = -(gamma*g + Z^T c)``, its coefficients
+    and its five exact dots over (d, g, x) (the estimates from
+    ``direction_coeffs`` can lose low bits to cancellation), all launched
+    on the device with no host synchronisation: ``(d, gamma, cfull,
+    dots)``.  ``gg``: ``||g||^2``, a host value or a 0-d device tensor."""
+    m = st.z.shape[0] // 2
+    gamma, cfull, _, _ = direction_coeffs(st.zg, st.zzt, gg, st.k, m)
+    d = lbfgs_finish(_hist_combine(cfull, st.z), st.g, gamma)
+    dots = (torch.dot(st.g, d), torch.dot(d[:lq], d[:lq]), torch.dot(d[lq:], d[lq:]),
+            torch.dot(st.x[:lq], d[:lq]), torch.dot(st.x[lq:], d[lq:]))
+    return d, gamma, cfull, dots
+
+
+class _Ahead(NamedTuple):
+    """A step's direction, launched with its first trial (alpha = 1) by
+    the step before it, and the values of that step's last read:
+    ``dots`` ``(g.d, |d_h|^2, |d_J|^2, h.d_h, J.d_J)`` and ``first``, the
+    trial's data term and its derivative."""
+
+    d: torch.Tensor
+    gamma: torch.Tensor
+    cfull: torch.Tensor
+    u: torch.Tensor
+    dots: list
+    first: tuple
 
 
 def _plm_fused_step(
     st: PlmFusedState, x1h, codes, weights, lh, lj, l: int, q: int,
     epsilon: float, ftol: float, wolfe: float, max_linesearch: int, mesh=None,
-    mm_bf16: bool = False,
+    mm_bf16: bool = False, queue: Optional[list] = None, look_ahead: bool = False,
 ) -> None:
     """One fused L-BFGS iteration, updating ``st`` in place
     (``pydca_tpu/plm.py:996-1137``) on the sequences' uint8 ``codes``
@@ -593,26 +612,39 @@ def _plm_fused_step(
     L)`` logits are two kernels: one a trial
     (:func:`~pydca_tpu_torch.ops.cuda_kernels.plm_trial`), and one that
     moves the logits to the accepted step and builds the gradient's
-    cotangent (:func:`~pydca_tpu_torch.ops.cuda_kernels.plm_update_grad`)."""
+    cotangent (:func:`~pydca_tpu_torch.ops.cuda_kernels.plm_update_grad`).
+
+    The direction's algebra and the history's Gram border run on the
+    device, so the host decides nothing between a gradient and the next
+    first trial.  ``queue``: a list that holds this step's direction and
+    first trial (an :class:`_Ahead`), launched by the step before, or
+    nothing (then they are launched and read here); the step takes them
+    out, so that the previous direction and its image ``u`` are freed
+    before the next ones are made.  ``look_ahead``: once the step is
+    taken, launch the next step's direction, its image ``u`` and its first
+    trial behind the gradient, and end the step with one read that returns
+    ``||g'||^2`` and all of theirs; they are put in ``queue`` for the next
+    step, or thrown away (``discarded_trials``) when the fit stops on the
+    gradient test here.  The next step throws its first
+    trial away too after the steepest-descent fallback, whose direction
+    differs."""
     lq = l * q
-    m = st.z.shape[0] // 2
-    hist_bf16 = st.z.dtype == torch.bfloat16
-    with span("plm/direction"):
-        gamma, cfull, _, _ = direction_coeffs(
-            st.zg, st.zzt, torch.tensor(st.gg), st.k, m
-        )
-        d = _hist_combine(cfull, st.z)  # Z^T c
-        d.add_(st.g, alpha=float(gamma)).neg_()  # d = -(gamma*g + Z^T c)
-        # exact dots over (d, g, x): the estimates from direction_coeffs can
-        # lose low bits to cancellation
-        dg0, dh2, dj2, hd, jd = fetch_f32(
-            st, torch.dot(st.g, d), torch.dot(d[:lq], d[:lq]),
-            torch.dot(d[lq:], d[lq:]), torch.dot(st.x[:lq], d[:lq]),
-            torch.dot(st.x[lq:], d[lq:]),
-        )
-        # steepest-descent fallback on the EXACT dg0 (pydca_tpu/plm.py:1012-1026)
-        bad_dir = dg0 >= 0
-        if bad_dir:
+    ahead = queue.pop() if queue else None
+    if ahead is None:
+        with span("plm/direction"):
+            d, gamma, cfull, dots = _direction(st, st.gg, lq)
+            dg0, dh2, dj2, hd, jd = fetch_f32(st, *dots)
+        u = first = None
+    else:
+        d, gamma, cfull, u, (dg0, dh2, dj2, hd, jd), first = ahead
+        del ahead
+    # steepest-descent fallback on the EXACT dg0 (pydca_tpu/plm.py:1012-1026)
+    bad_dir = dg0 >= 0
+    if bad_dir:
+        with span("plm/direction"):
+            if first is not None:  # queued along the rejected direction
+                st.discarded_trials += 1
+                u = first = None
             d = -st.g
             dg0 = -st.gg
             dh2, dj2, hd, jd = fetch_f32(
@@ -626,15 +658,23 @@ def _plm_fused_step(
 
     # the direction's image in logits space: u' = u + dh, u = x1h @ E(d_J)
     # (its fields dh are added inside the passes)
-    u = _logits_mm(x1h, _expand_w4(d[lq:], l, q), q, l, mm_bf16)
+    if u is None:
+        u = _logits_mm(x1h, _expand_w4(d[lq:], l, q), q, l, mm_bf16)
     dh = d[:lq].view(l, q)
 
     def phi(alpha):
-        with span("plm/trial"):
-            nll, dnll = fetch_f32(
-                st, _data_sum(mesh, plm_trial(st.logits, codes, weights, st.picked, u, dh,
-                                              float(alpha)))
-            )
+        nonlocal first
+        queued, first = first, None
+        if queued is not None and alpha == 1:
+            nll, dnll = queued
+        else:
+            if queued is not None:
+                st.discarded_trials += 1
+            with span("plm/trial"):
+                nll, dnll = fetch_f32(
+                    st, _data_sum(mesh, plm_trial(st.logits, codes, weights, st.picked, u, dh,
+                                                  float(alpha)))
+                )
         return (
             nll + reg0 + c1 * alpha + c2 * alpha * alpha,
             dnll + c1 + _F32(2.0) * c2 * alpha,
@@ -645,6 +685,8 @@ def _plm_fused_step(
         alpha, f_new, took, rounding, trials = wolfe_scalar(
             phi, st.f, dg0, step0, ftol, wolfe, max_linesearch
         )
+    if first is not None:  # the search made no trial
+        st.discarded_trials += 1
     st.n_evals += trials
     if not took:
         # no step: the iterate, gradient and history stay as they are
@@ -660,59 +702,40 @@ def _plm_fused_step(
     # largest tensors of the fit (pydca_tpu/plm.py:1057)
     g_new = _grad_at(st.logits, x1h, codes, weights, st.x, float(lh), float(lj), l, q, mesh,
                      mm_bf16, st.picked, u, dh, a)
-    del u
+    del u, dh
     with span("plm/history"):
-        zg_old_rows = _hist_dot(st.z, g_new)  # Z @ g' with the rows before the write
-        rows_dots = []
-        if hist_bf16:
-            # the new rows as they will be stored, and their dots with g'
-            # (the JAX package reads Z @ g' from the rounded rows)
-            s_row = (d * a).to(torch.bfloat16)
-            y_row = (g_new - st.g).to(torch.bfloat16)
-            rows_dots = [torch.dot(s_row.float(), g_new), torch.dot(y_row.float(), g_new)]
-        vals = fetch_f32(st, zg_old_rows, torch.dot(g_new, g_new),
-                         torch.dot(st.g, g_new), torch.dot(d, g_new), *rows_dots)
-        zg_new = torch.tensor(vals[: 2 * m], dtype=torch.float32)
-        gg_new, gog, dgn = vals[2 * m : 2 * m + 3]
-
-        xd = hd + jd
-        xx_new = max(st.xx + _F32(2.0) * alpha * xd + alpha * alpha * dnorm2, _F32(0.0))
-        rh_new = st.rh + _F32(2.0) * alpha * hd + alpha * alpha * dh2
-        rj_new = st.rj + _F32(2.0) * alpha * jd + alpha * alpha * dj2
-
-        # history: one in-place row write per S and Y slot; the Gram is
-        # bordered by scalar algebra on the host (pydca_tpu/plm.py:1110-1124)
-        sy = alpha * (dgn - dg0)
-        slot = st.k % m
-        if sy > _F32(1e-10):
-            if hist_bf16:
-                st.z[slot].copy_(s_row)
-                st.z[slot + m].copy_(y_row)
-                zg_new[slot], zg_new[slot + m] = float(vals[-2]), float(vals[-1])
-            else:
-                torch.mul(d, a, out=st.z[slot])  # s = alpha * d
-                torch.sub(g_new, st.g, out=st.z[slot + m])  # y = g' - g
-                zg_new[slot] = float(alpha * dgn)  # s . g'
-                zg_new[slot + m] = float(gg_new - gog)  # y . g'
-            # Z@s = alpha * Z@d = -alpha*(gamma*Zg + ZZt@c);  Z@y = Z@g' - Z@g
-            zd = -st.zg if bad_dir else -(gamma * st.zg + st.zzt @ cfull)
-            zs_vec = zd * a
-            zs_vec[slot] = float(alpha * alpha * dnorm2)
-            zs_vec[slot + m] = float(sy)
-            zy_vec = zg_new - st.zg
-            zy_vec[slot] = float(sy)
-            zy_vec[slot + m] = float(gg_new - _F32(2.0) * gog + st.gg)
-            st.zzt[slot, :] = zs_vec
-            st.zzt[:, slot] = zs_vec
-            st.zzt[slot + m, :] = zy_vec
-            st.zzt[:, slot + m] = zy_vec
-
+        st.zzt, st.zg, gg_dev = lbfgs_history(
+            st.z, st.zzt, st.zg, st.g, d, g_new, st.k, alpha, dg0, dnorm2, st.gg,
+            None if bad_dir else (gamma, cfull))
+        if not look_ahead:
+            (gg_new,) = fetch_f32(st, gg_dev)
+    del d, gamma, cfull
+    xd = hd + jd
+    xx_new = max(st.xx + _F32(2.0) * alpha * xd + alpha * alpha * dnorm2, _F32(0.0))
+    rh_new = st.rh + _F32(2.0) * alpha * hd + alpha * alpha * dh2
+    rj_new = st.rj + _F32(2.0) * alpha * jd + alpha * alpha * dj2
     st.f = _F32(f_new)
     st.g = g_new
-    st.zg = zg_new
-    st.gg, st.xx, st.rh, st.rj = gg_new, xx_new, rh_new, rj_new
     st.k += 1
+
+    nxt = None
+    if look_ahead:
+        with span("plm/direction"):
+            d, gamma, cfull, dots = _direction(st, gg_dev, lq)
+        u = _logits_mm(x1h, _expand_w4(d[lq:], l, q), q, l, mm_bf16)
+        with span("plm/trial"):
+            trial = _data_sum(mesh, plm_trial(st.logits, codes, weights, st.picked, u,
+                                              d[:lq].view(l, q), 1.0))
+            vals = fetch_f32(st, gg_dev, *dots, trial)
+        gg_new = vals[0]
+        nxt = _Ahead(d, gamma, cfull, u, vals[1:6], tuple(vals[6:8]))
+        del d, u
+    st.gg, st.xx, st.rh, st.rj = gg_new, xx_new, rh_new, rj_new
     st.converged = st.done = gradient_converged(gg_new, xx_new, epsilon)
+    if st.done and nxt is not None:
+        st.discarded_trials += 1  # the fit stops here: the next step's trial goes
+    elif nxt is not None:
+        queue.append(nxt)
 
 
 def _plm_fused_steps(
@@ -723,13 +746,21 @@ def _plm_fused_steps(
 ) -> PlmFusedState:
     """Advance the fused optimizer by up to ``num_steps`` iterations (in
     place; returns ``st``), each the span ``plm/iteration``.  ``x1h``,
-    ``codes``: :func:`_fused_inputs`."""
+    ``codes``: :func:`_fused_inputs`.
+
+    Each step but the call's last launches the next step's direction and
+    first trial before the read that ends it, so that a step's values
+    arrive in one read (:func:`_plm_fused_step`); the call's first step
+    reads its direction's dots and its first trial on their own, and the
+    call returns with nothing queued: ``st`` is then the state that a loop
+    with a read for each of those values would reach."""
     lh, lj = _F32(lambda_h), _F32(lambda_j)
     k_end = st.k + num_steps
+    queue: list = []  # the next step's direction and first trial, once launched
     while not st.done and st.k < k_end:
         with span("plm/iteration"):
-            _plm_fused_step(st, x1h, codes, weights, lh, lj, l, q,
-                            epsilon, ftol, wolfe, max_linesearch, mesh, mm_bf16)
+            _plm_fused_step(st, x1h, codes, weights, lh, lj, l, q, epsilon, ftol, wolfe,
+                            max_linesearch, mesh, mm_bf16, queue, look_ahead=st.k + 1 < k_end)
     return st
 
 
@@ -756,8 +787,8 @@ def fused_state_from_numpy(leaves: dict, device) -> PlmFusedState:
         g=dev_tensor(flat(leaves["g"])),
         z=dev_tensor(np.stack([flat(r) for r in leaves["z"]])).to(
             torch.bfloat16 if hist_bf16 else torch.float32),
-        zzt=torch.tensor(np.asarray(leaves["zzt"], np.float32)),
-        zg=torch.tensor(np.asarray(leaves["zg"], np.float32)),
+        zzt=dev_tensor(leaves["zzt"]),
+        zg=dev_tensor(leaves["zg"]),
         gg=_F32(leaves["gg"]), xx=_F32(leaves["xx"]),
         rh=_F32(leaves["rh"]), rj=_F32(leaves["rj"]),
         logits=dev_tensor(leaves["logits"]),
@@ -831,10 +862,10 @@ def _plm_lbfgs_steps(st: LBFGSState, msa, weights, lambda_h, lambda_j,
 def _generic_from_fused(st: PlmFusedState) -> LBFGSState:
     """Fused -> generic state (``pydca_tpu/plm.py:1154-1170``): the same
     iterate and history, ``rho = 1 / (s . y)`` from the diagonal of the
-    cached ``S Y^T`` block, 0 on an empty slot; bfloat16 rows become
-    float32."""
+    cached ``S Y^T`` block, 0 on an empty slot, on the host; bfloat16 rows
+    become float32."""
     m = st.z.shape[0] // 2
-    sy = torch.diagonal(st.zzt[:m, m:])
+    sy = torch.diagonal(st.zzt[:m, m:]).cpu()
     rho = torch.where(sy != 0, 1.0 / torch.where(sy == 0, torch.ones_like(sy), sy),
                       torch.zeros_like(sy))
     return LBFGSState(
@@ -850,8 +881,8 @@ def _fused_from_generic(gst: LBFGSState, x1h, codes, weights, lambda_h, lambda_j
     """Generic -> fused state at the checkpointed iterate
     (``pydca_tpu/plm.py:864-915, 1400-1416``): one forward for the carried
     logits, one gradient, and the history caches ``zzt = Z Z^T`` and
-    ``zg = Z g`` rebuilt, so the resume is exact to float recompute, not
-    bitwise.  ``mesh``: the logits are this rank's rows."""
+    ``zg = Z g`` rebuilt on the device, so the resume is exact to float
+    recompute, not bitwise.  ``mesh``: the logits are this rank's rows."""
     lq = l * q
     lh, lj = _F32(lambda_h), _F32(lambda_j)
     x = gst.x
@@ -859,24 +890,18 @@ def _fused_from_generic(gst: LBFGSState, x1h, codes, weights, lambda_h, lambda_j
         x[:lq].reshape(l, q).T[None])
     picked = _picked(logits, _pick_mask(codes, q))
     g = _grad_at(logits, x1h, codes, weights, x, float(lh), float(lj), l, q, mesh, mm_bf16)
-    m2 = gst.z.shape[0]
     st = PlmFusedState(
         x=x, f=_F32(0), g=g, z=gst.z,
-        zzt=torch.zeros((m2, m2), dtype=torch.float32),
-        zg=torch.zeros((m2,), dtype=torch.float32),
+        zzt=torch.matmul(gst.z, gst.z.T), zg=torch.matmul(gst.z, g),
         gg=_F32(0), xx=_F32(0), rh=_F32(0), rj=_F32(0),
         logits=logits, picked=picked, k=gst.k, done=gst.done,
         converged=gst.converged, ls_failed=gst.ls_failed, n_evals=gst.n_evals,
         host_syncs=gst.host_syncs,
     )
-    vals = fetch_f32(
+    nll, st.rh, st.rj, st.gg = fetch_f32(
         st, _data_sum(mesh, _nll_at(logits, picked, weights).reshape(1)),
         torch.dot(x[:lq], x[:lq]), torch.dot(x[lq:], x[lq:]), torch.dot(g, g),
-        torch.matmul(gst.z, gst.z.T), torch.matmul(gst.z, g),
     )
-    nll, st.rh, st.rj, st.gg = vals[:4]
-    st.zzt = torch.tensor(vals[4 : 4 + m2 * m2], dtype=torch.float32).reshape(m2, m2)
-    st.zg = torch.tensor(vals[4 + m2 * m2 :], dtype=torch.float32)
     st.f = _F32(nll + lh * st.rh + lj * st.rj)
     st.xx = _F32(st.rh + st.rj)
     st.converged = gst.converged or gradient_converged(st.gg, st.xx, epsilon)
@@ -934,8 +959,8 @@ def _load_state(path: str, device):
     """Read a checkpoint of either package (``pydca_tpu/plm.py:1498-1524``):
     a :class:`PlmFusedState` when the file holds the fused caches, else an
     ``ops.lbfgs.LBFGSState``.  The D-vectors, the history and the carried
-    logits go to ``device``; ``zzt``, ``zg`` and ``rho`` stay CPU tensors
-    and the scalars host values.  A fused file written with bfloat16
+    logits, and a fused file's ``zzt`` and ``zg``, go to ``device``; ``rho``
+    stays a CPU tensor and the scalars host values.  A fused file written with bfloat16
     history rows (``z_bf16``; the JAX package's TPU default) loads them
     back as bfloat16, exactly (they are stored as their float32 values),
     and the fit goes on with bfloat16 rows, as the JAX package's does
@@ -959,7 +984,7 @@ def _load_state(path: str, device):
                 rows = rows.to(torch.bfloat16)
             return PlmFusedState(
                 x=on_dev("x"), f=_F32(z["f"]), g=on_dev("g"), z=rows,
-                zzt=on_host("zzt"), zg=on_host("zg"), gg=_F32(z["gg"]), xx=_F32(z["xx"]),
+                zzt=on_dev("zzt"), zg=on_dev("zg"), gg=_F32(z["gg"]), xx=_F32(z["xx"]),
                 rh=_F32(z["rh"]), rj=_F32(z["rj"]), logits=on_dev("logits"),
                 picked=on_dev("picked"), n_evals=int(z["n_evals"]), **flags,
             )
@@ -1153,6 +1178,7 @@ def fit_plm(
         linesearch_failed=state.ls_failed,
         n_evals=state.n_evals,
         host_syncs=state.host_syncs,
+        discarded_trials=state.discarded_trials,
     )
 
 

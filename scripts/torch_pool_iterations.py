@@ -6,8 +6,10 @@ Runs one job (``dcabench.jobs.run_job``, as the benchmark's window runs it)
 on each family of the pool of ``cell`` (default ``pf02826_16k.plm``) of
 the checkout on ``PYTHONPATH``, in the order seed 0 gives, after a
 warm-up job, and
-prints a line a family (its iterations, evaluations, host reads and wall
-seconds) and one JSON line with the lists and the mean iterations.  The
+prints a line a family (its iterations, evaluations, host reads, the first
+trials the fused loop queued ahead and threw away, where the checkout
+counts them, and wall seconds) and one JSON line with the lists and the
+mean iterations.  The
 program and the pool are the checkout's: point ``PYTHONPATH`` at two
 checkouts to compare their fits family by family on the same card.  Prints
 the card's name and power limit first.  Needs a CUDA card.
@@ -35,7 +37,12 @@ def main(argv) -> int:
     from dcabench import harness
     from dcabench.jobs import run_job
     from dcabench.spec import ROOT, load_cell
+    from pydca_tpu_torch import plm
     from pydca_tpu_torch.runtime import enable_compilation_cache
+
+    fits = []  # each fit's result, for the counter the job record leaves out
+    fit_plm = plm.fit_plm
+    plm.fit_plm = lambda *a, **kw: fits.append(fit_plm(*a, **kw)) or fits[-1]
 
     smi = ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
     print(subprocess.run(smi, capture_output=True, text=True).stdout.strip(), flush=True)
@@ -52,13 +59,16 @@ def main(argv) -> int:
     rows = []
     for f in range(count):
         rec, _ = run_job(kind, f, f, pool[f], bio, dev, opts)
-        rows.append(dict(position=f, **rec.fit, wall=rec.wall))
+        discarded = getattr(fits[-1], "discarded_trials", None)
+        rows.append(dict(position=f, **rec.fit, discarded_trials=discarded, wall=rec.wall))
         print(f"family at position {f}: {rec.fit['num_iters']} iterations, "
               f"{rec.fit['n_evals']} evaluations, {rec.fit['host_syncs']} reads, "
-              f"{rec.wall:.4f} s", flush=True)
+              f"{discarded} discarded trials, {rec.wall:.4f} s", flush=True)
     iters = [r["num_iters"] for r in rows]
     print(json.dumps({"root": str(ROOT), "device": torch.cuda.get_device_name(0),
                       "cell": cell_name, "iters": iters, "mean_iters": sum(iters) / len(iters),
+                      "reads": [r["host_syncs"] for r in rows],
+                      "discarded": [r["discarded_trials"] for r in rows],
                       "walls": [r["wall"] for r in rows]}), flush=True)
     return 0
 

@@ -519,13 +519,14 @@ def test_plm_passes_refuse_wide_alphabets_on_card(cuda):
 
 @pytest.mark.gpu
 def test_fused_fit_launches_one_pass_a_trial_and_a_gradient(cuda):
-    """One fused fit on the card: ``plm_trial`` once a line-search trial,
+    """One fused fit on the card: ``plm_trial`` once a line-search trial
+    (a first trial queued ahead and thrown away included),
     ``plm_update_grad`` once for the start and once a step; the fit's
     objective within 1e-4 of the CPU's (two float32 paths part after some
     twenty iterations, along directions in which the objective is flat)."""
     res, (trials, grads), cpu = _card_and_cpu_fits(cuda, 1500, 60, 21, 30, seed=11)
     assert res.num_iters > 5
-    assert trials == res.n_evals - 1
+    assert trials == res.n_evals - 1 + res.discarded_trials
     assert grads == res.num_iters + 1
     assert abs(res.fx - cpu.fx) <= 1e-4 * abs(cpu.fx)
 
@@ -566,7 +567,7 @@ def test_fused_fit_past_one_column_block(cuda):
     objective within 1e-4 (as at L = 60)."""
     res, (trials, grads), cpu = _card_and_cpu_fits(cuda, 800, 300, 21, 20, seed=12)
     assert res.num_iters > 5
-    assert trials == res.n_evals - 1 and grads == res.num_iters + 1
+    assert trials == res.n_evals - 1 + res.discarded_trials and grads == res.num_iters + 1
     assert abs(res.fx - cpu.fx) <= 1e-4 * abs(cpu.fx)
 
 
@@ -579,5 +580,144 @@ def test_fused_fit_bf16_products_runs_the_passes(cuda):
     res, (trials, grads), cpu = _card_and_cpu_fits(cuda, 1500, 60, 21, 10, seed=13,
                                                    mm_bf16=True)
     assert res.num_iters > 5
-    assert trials == res.n_evals - 1 and grads == res.num_iters + 1
+    assert trials == res.n_evals - 1 + res.discarded_trials and grads == res.num_iters + 1
     assert abs(res.fx - cpu.fx) <= 1e-4 * abs(cpu.fx)
+
+
+def _history(k, m=5, dsz=200, seed=5):
+    """``(zg, zzt, gg)`` of a circular history after ``k`` steps, float32 CPU."""
+    rng = np.random.default_rng(seed + k)
+    z = np.zeros((2 * m, dsz))
+    for t in range(max(0, k - m), k):
+        s = rng.normal(size=dsz)
+        z[t % m], z[t % m + m] = s, s * rng.uniform(0.5, 2.0) + 0.1 * rng.normal(size=dsz)
+    g = rng.normal(size=dsz)
+    return (torch.tensor((z @ g).astype(np.float32)), torch.tensor((z @ z.T).astype(np.float32)),
+            torch.tensor(np.float32(g @ g)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [0, 1, 3, 4, 5, 8, 13, 22])
+def test_direction_coeffs_on_card_match_cpu(cuda, k):
+    """The direction's coefficients on card tensors (one launch of one
+    thread, no host synchronisation) against the same on CPU tensors
+    (LAPACK's solves) within float32 round-off."""
+    from pydca_tpu_torch.ops import lbfgs as tl
+
+    zg, zzt, gg = _history(k)
+    want = tl.direction_coeffs(zg, zzt, gg, k, 5)
+    on_card = [t.to(cuda) for t in (zg, zzt, gg)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tl.direction_coeffs(*on_card, k, 5)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for name, a, b in zip(("gamma", "cfull", "dg0", "dnorm2"), got, want):
+        assert a.device.type == "cuda"
+        scale = float(b.abs().max()) or 1.0
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-5, atol=1e-6 * scale,
+                                   err_msg=f"{name}, k={k}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["step", "fallback", "no_update", "wrapped", "bf16_step",
+                                  "bf16_wrapped", "bf16_no_update"])
+def test_history_kernels_match_the_reference_on_card(cuda, case):
+    """The history's new rows and Gram border by the kernels (one pass
+    for the rows, one thread for the border: ``ck.lbfgs_history``, one
+    launch of each) against the torch composition on the same card tensors
+    (``ck.lbfgs_history_reference``): the rows to the bit, float32 or
+    rounded to bfloat16, the Gram and the projections within float32
+    round-off; a step whose s.y is not above 1e-10 leaves the rows and the
+    Gram as they were."""
+    from pydca_tpu_torch.ops import lbfgs as tl
+
+    m, dim = 5, 4099
+    k = 13 if case.endswith("wrapped") else 3
+    gen = torch.Generator().manual_seed(k)
+    z = torch.zeros(2 * m, dim)
+    for t in range(max(0, k - m), k):
+        s = torch.randn(dim, generator=gen)
+        z[t % m], z[t % m + m] = s, 1.3 * s + 0.1 * torch.randn(dim, generator=gen)
+    g, g_new = torch.randn(dim, generator=gen), torch.randn(dim, generator=gen)
+    if case.startswith("bf16"):
+        z = z.to(torch.bfloat16)
+    z, g, g_new = z.to(cuda), g.to(cuda), g_new.to(cuda)
+    gg = np.float32(float(torch.dot(g, g)))
+    zg, zzt = ck._hist_dot(z, g), z.float() @ z.float().T
+    gamma, cfull, dg0_t, _ = tl.direction_coeffs(zg.cpu(), zzt.cpu(), gg, k, m)
+    d = -(float(gamma) * g + cfull.to(cuda) @ z.float())
+    coeffs = (gamma.to(cuda), cfull.to(cuda))
+    if case == "fallback":
+        d, coeffs = -g, None
+    dg0 = np.float32(float(torch.dot(g, d)))
+    alpha = np.float32(1e-20 if case.endswith("no_update") else 0.7)
+    dnorm2 = np.float32(float(torch.dot(d, d)))
+
+    def run(fn):
+        zc = z.clone()
+        return (zc, *fn(zc, zzt.clone(), zg.clone(), g, d, g_new, k, alpha, dg0, dnorm2, gg,
+                        coeffs))
+
+    launches = ck.lbfgs_history.launches
+    got = run(ck.lbfgs_history)
+    assert ck.lbfgs_history.launches == launches + 1
+    want = run(ck.lbfgs_history_reference)
+    assert got[0].dtype == z.dtype and torch.equal(got[0], want[0])
+    if case.endswith("no_update"):
+        assert torch.equal(got[0], z) and torch.equal(got[1], zzt)
+    else:
+        assert not torch.equal(got[0], z)
+    scale = float(want[1].abs().max())
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-6 * scale)
+    torch.testing.assert_close(got[2], want[2], rtol=1e-5, atol=1e-6 * float(want[2].abs().max()))
+    torch.testing.assert_close(got[3], want[3], rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+def test_fused_steps_launch_without_host_syncs_between_reads(cuda, monkeypatch):
+    """Between two reads of a fused fit on the card the host waits for
+    nothing: with ``torch.cuda.set_sync_debug_mode("error")`` every
+    launch of twelve steps passes (the reads alone lift the mode), and the
+    steps read once each, once for each trial after a step's first, and
+    twice more for the call's first step; the steps' iterate equals the
+    same steps read one value set at a time within float32 round-off."""
+    from pydca_tpu_torch import plm as tplm
+    from pydca_tpu_torch.ops import lbfgs as tl
+
+    n, l, q = 1500, 60, 21
+    codes = torch.tensor(planted_family(n, l, q, seed=11, n_pairs=8)[0], device=cuda)
+    w = stats.sequence_weights(codes, 0.8, q).to(cuda)
+    lam = 0.2 * (l - 1)
+    x1h, codes8 = tplm._fused_inputs(codes, l, q)
+
+    def fit(calls):
+        st = tplm._plm_fused_state0(codes, w, lam, lam, l, q, 5)
+        for steps in calls:
+            tplm._plm_fused_steps(st, x1h, codes8, w, lam, lam, l, q, steps)
+        return st
+
+    ones = fit([1] * 13)
+    st = fit([1])  # the first step builds the solver's and the passes' handles
+    syncs, evals = st.host_syncs, st.n_evals
+    real = tl._read_f32
+
+    def reading(*vals):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return real(*vals)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(tl, "_read_f32", reading)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tplm._plm_fused_steps(st, x1h, codes8, w, lam, lam, l, q, 12)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert st.k == 13 and not st.done and st.discarded_trials == 0
+    assert st.host_syncs - syncs == st.n_evals - evals + 2
+    assert st.n_evals == ones.n_evals
+    assert float((st.x - ones.x).norm() / ones.x.norm()) <= 1e-5

@@ -36,6 +36,12 @@ N, L, Q, ITERS = 512, 12, 21, 5
 STRIPE_BYTES = 4 * (N // 2) * L * Q  # a rank's logits, float32
 LAM = 0.2 * (L - 1)
 SMALL_BLOCK = 100  # three blocks of a rank's 256 rows, for the block span's count
+# the fused fit on the stripes with this gradient test stops before its cap
+# (at k = 15 on one process), so it throws away the trial it queued ahead
+EPS_STOP, CAP = 0.01, 40
+CKPT_KEYS = {"x": "float32", "f": "float32", "g": "float32", "s_hist": "float32",
+             "y_hist": "float32", "rho": "float32", "k": "int32", "done": "bool",
+             "converged": "bool", "ls_failed": "bool", "n_evals": "int32"}
 PREFIX = "pydca/"
 
 
@@ -120,8 +126,41 @@ def _worker(rank: int, world: int, store: str, indir: str, outdir: str) -> None:
     run("tf32", streams)
     run("fused_tf32", STRIPE_BYTES)
     tplm._mm = mm
+    out.update(_fused_stops_and_resumes(codes, mesh, outdir))
     np.savez(os.path.join(outdir, f"rank{rank}.npz"), **out)
     dist.destroy_process_group()
+
+
+def _fused_stops_and_resumes(codes, mesh, outdir):
+    """The fused loop on the stripes (a) stopped by the gradient test,
+    which every rank reaches at the same step, throwing away the trial
+    each queued (and summed) ahead; (b) saved after 6 of 12 iterations and
+    resumed from the file, and (c) run unbroken."""
+    from pydca_tpu_torch import plm as tplm
+    from pydca_tpu_torch import stats as tstats
+    from pydca_tpu_torch.parallel import shard_msa
+
+    full = torch.from_numpy(codes.astype(np.int64))
+    stripe, w_s, _ = shard_msa(mesh, full, tstats.sequence_weights(full, 0.8, Q))
+    st = tplm._plm_fused_state0(stripe, w_s, LAM, LAM, L, Q, 5, epsilon=EPS_STOP, mesh=mesh)
+    x1h, codes8 = tplm._fused_inputs(stripe, L, Q)
+    mesh.collectives.clear()
+    tplm._plm_fused_steps(st, x1h, codes8, w_s, LAM, LAM, L, Q, CAP, epsilon=EPS_STOP, mesh=mesh)
+    out = {"stop_theta": st.x.numpy(),
+           "stop_counts": np.array([st.k, st.n_evals, st.host_syncs, st.discarded_trials,
+                                    int(st.converged), mesh.collectives["nll_allreduce"][0]])}
+    ckpt = os.path.join(outdir, "fused.npz")
+    fit = dict(max_iterations=12, chunk_size=3, mesh=mesh)
+    tplm.fit_plm(stripe, w_s, LAM, LAM, L, Q, checkpoint_path=ckpt, checkpoint_every=3,
+                 **dict(fit, max_iterations=6))
+    with np.load(ckpt) as f:
+        out["ckpt_keys"] = np.array(f.files)
+        out["ckpt_dtypes"] = np.array([f[k].dtype.name for k in f.files])
+    for tag, kw in (("resumed", dict(checkpoint_path=ckpt, checkpoint_every=3)), ("whole", {})):
+        res = tplm.fit_plm(stripe, w_s, LAM, LAM, L, Q, **fit, **kw)
+        out[f"{tag}_theta"] = res.x.numpy()
+        out[f"{tag}_counts"] = np.array([res.num_iters, res.n_evals, res.discarded_trials])
+    return out
 
 
 if __name__ == "__main__":
@@ -405,3 +444,40 @@ def test_collectives_per_iter_reader():
     # one card: no collectives, nothing to read; mean-field: not a plm cell
     assert read(SimpleNamespace(kind="plm", jobs=[job(100, {})])) is None
     assert read(SimpleNamespace(kind="mf", jobs=jobs)) is None
+
+
+# ------------------------------------------ the fused loop's queued trials
+def test_fused_fit_stops_on_the_gradient_test_on_every_rank(ranks, codes):
+    """Both ranks stop at the same step, each having summed and thrown
+    away the trial it queued ahead (no rank waits on the other's
+    collective), and the fit is the one-process fit's."""
+    from pydca_tpu_torch import plm as tplm
+    from pydca_tpu_torch import stats as tstats
+
+    a, b = ranks
+    np.testing.assert_array_equal(a["stop_counts"], b["stop_counts"])
+    np.testing.assert_array_equal(a["stop_theta"], b["stop_theta"])
+    k, evals, syncs, discarded, converged, nll_sums = (int(v) for v in a["stop_counts"])
+    assert converged and k < CAP and discarded == 1
+    assert syncs == evals + 2 and nll_sums == evals - 1 + discarded
+    full = torch.from_numpy(codes.astype(np.int64))
+    w = tstats.sequence_weights(full, 0.8, Q)
+    one = tplm._plm_fused_state0(full, w, LAM, LAM, L, Q, 5, epsilon=EPS_STOP)
+    x1h, codes8 = tplm._fused_inputs(full, L, Q)
+    tplm._plm_fused_steps(one, x1h, codes8, w, LAM, LAM, L, Q, CAP, epsilon=EPS_STOP)
+    assert (one.k, one.n_evals, one.discarded_trials) == (k, evals, discarded)
+    theta = one.x.numpy()
+    assert np.linalg.norm(a["stop_theta"] - theta) <= 1e-5 * np.linalg.norm(theta)
+
+
+def test_fused_checkpoint_resumes_to_the_unbroken_fit(ranks):
+    """A mesh fit saved after 6 of 12 iterations (the generic format, keys
+    and dtypes as ever) and resumed from the file reaches the unbroken
+    fit: the same counts, the iterate to float recompute."""
+    for r in ranks:
+        assert dict(zip(r["ckpt_keys"].tolist(), r["ckpt_dtypes"].tolist())) == CKPT_KEYS
+        assert r["ckpt_keys"].tolist() == list(CKPT_KEYS)
+        np.testing.assert_array_equal(r["resumed_counts"], r["whole_counts"])
+        assert int(r["whole_counts"][0]) == 12
+        whole = r["whole_theta"]
+        assert np.linalg.norm(r["resumed_theta"] - whole) <= 1e-5 * np.linalg.norm(whole)

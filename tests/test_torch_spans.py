@@ -69,7 +69,9 @@ NESTING = {  # span -> the spans it may open directly under
     "plm/iteration": {"fit"},
     "plm/direction": {"plm/iteration"},
     "plm/linesearch": {"plm/iteration"},
-    "plm/trial": {"plm/linesearch"},
+    # a trial of the search, or the next step's first trial, queued behind
+    # the gradient before the read that ends a step
+    "plm/trial": {"plm/linesearch", "plm/iteration"},
     "plm/update": {"plm/iteration"},
     "plm/gradient": {"plm/init", "plm/iteration"},
     "plm/history": {"plm/iteration"},
@@ -95,22 +97,22 @@ def test_every_span_is_named_in_the_nesting(traced):
 
 
 # each count read off the code of the fused loop (every step of this fit
-# takes a step): one iteration span a step; one read in the start state, one
-# or two in the direction (two after the steepest-descent fallback), one a
-# trial and one in the history; n_evals counts the start's evaluation and
-# every trial; the products are the start's backward one, then a forward
-# (the direction's image) and a backward (the gradient) a step; the passes
-# over the logits are one a trial and one a gradient
+# takes a step): one iteration span a step; every read in ``lbfgs/read``;
+# n_evals counts the start's evaluation and every trial, and a trial queued
+# ahead and thrown away is a trial span that n_evals leaves out; the
+# products are the start's backward one, then a forward (the direction's
+# image) and a backward (the gradient) a step; the passes over the logits
+# are one a trial and one a gradient
 COUNTS = {
     "plm/iteration": lambda r: r.num_iters,
     "plm/linesearch": lambda r: r.num_iters,
     "plm/update": lambda r: r.num_iters,
     "plm/history": lambda r: r.num_iters,
     "lbfgs/read": lambda r: r.host_syncs,
-    "plm/trial": lambda r: r.n_evals - 1,
+    "plm/trial": lambda r: r.n_evals - 1 + r.discarded_trials,
     "plm/gradient": lambda r: 1 + r.num_iters,
     "plm/mm": lambda r: 1 + 2 * r.num_iters,
-    "plm_trial": lambda r: r.n_evals - 1,
+    "plm_trial": lambda r: r.n_evals - 1 + r.discarded_trials,
     "plm_update_grad": lambda r: 1 + r.num_iters,
     "plm/init": lambda r: 1,
     "identity_counts": lambda r: 1,

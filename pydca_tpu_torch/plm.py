@@ -358,10 +358,12 @@ def init_params(msa, weights, l: int, q: int, block: Optional[int] = None,
 def _blocks(msa, weights, block: int, l: int, q: int, dtype):
     """``(x, maskq, weights)`` of each block of ``block`` sequences, built
     as it is reached; the last block may be short.  Each block is the span
-    ``plm/block``, from its one-hot to the caller's request for the next."""
+    ``plm/block``, from its one-hot to the caller's request for the next;
+    the one-hot and pick mask are ``plm/onehot`` inside it."""
     for start in range(0, msa.shape[0], block):
         with span("plm/block"):
-            x, maskq = _prep_msa(msa[start : start + block], l, q, dtype)
+            with span("plm/onehot"):
+                x, maskq = _prep_msa(msa[start : start + block], l, q, dtype)
             yield x, maskq, weights[start : start + block]
 
 
@@ -407,7 +409,9 @@ def plm_loss_and_grad_chunked(theta, msa, weights, lambda_h, lambda_j,
     (after the pullback: D floats, half the ``(L*q, q*L)`` buffer) are
     summed over the ranks in one collective before the regulariser is
     added.  ``mm_bf16``: both products take bfloat16 operands; each
-    block's one-hot is built in bfloat16.
+    block's one-hot is built in bfloat16.  The pullback, the collective
+    and the regulariser are the span ``plm/pullback``, one an evaluation
+    (``mesh/grad_allreduce`` opens inside it).
     """
     lq = l * q
     h = theta[:lq].reshape(l, q)
@@ -416,18 +420,19 @@ def plm_loss_and_grad_chunked(theta, msa, weights, lambda_h, lambda_j,
     batches = _blocks(msa, weights, block, l, q, _x_dtype(mm_bf16))
     nll, gh, gw = _data_term(h, w, batches, l, q, mm_bf16)
     del w
-    # the data term's gradient and value in one buffer, one collective
-    buf = torch.empty(theta.shape[0] + 1, dtype=theta.dtype, device=theta.device)
-    g = buf[:-1]
-    g[:lq] = gh.T.reshape(-1)
-    g[lq:] = _w4_cot_to_compact(gw, l, q)
-    del gw
-    buf[-1] = nll
-    if mesh is not None:
-        mesh.sum_(buf, "grad_allreduce")
-    g[:lq] += (2.0 * lambda_h * h).reshape(-1)
-    g[lq:].add_(jflat, alpha=2.0 * lambda_j)
-    loss = buf[-1] + lambda_h * (h * h).sum() + lambda_j * torch.dot(jflat, jflat)
+    with span("plm/pullback"):
+        # the data term's gradient and value in one buffer, one collective
+        buf = torch.empty(theta.shape[0] + 1, dtype=theta.dtype, device=theta.device)
+        g = buf[:-1]
+        g[:lq] = gh.T.reshape(-1)
+        g[lq:] = _w4_cot_to_compact(gw, l, q)
+        del gw
+        buf[-1] = nll
+        if mesh is not None:
+            mesh.sum_(buf, "grad_allreduce")
+        g[:lq] += (2.0 * lambda_h * h).reshape(-1)
+        g[lq:].add_(jflat, alpha=2.0 * lambda_j)
+        loss = buf[-1] + lambda_h * (h * h).sum() + lambda_j * torch.dot(jflat, jflat)
     return loss, g
 
 

@@ -382,8 +382,10 @@ STREAM_NESTING = {  # the generic loop's spans -> the spans they open directly u
     "lbfgs/linesearch": {"fit"},
     "lbfgs/evaluation": {"fit", "lbfgs/linesearch"},
     "plm/block": {"lbfgs/evaluation"},
+    "plm/onehot": {"plm/block"},
     "plm/mm": {"plm/block"},
-    "mesh/grad_allreduce": {"lbfgs/evaluation"},
+    "plm/pullback": {"lbfgs/evaluation"},
+    "mesh/grad_allreduce": {"plm/pullback"},
 }
 
 
